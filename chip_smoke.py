@@ -1,0 +1,367 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch port (`rollout_bo_tpu_torch`) on one GPU.
+
+    python3 chip_smoke.py
+
+Run from the repository root on a machine with one NVIDIA Hopper card
+(H100). Phases, each ending in `torch.cuda.synchronize()`:
+
+1. device: the card's name, and its name and power limit from nvidia-smi;
+2. build: compiles csrc/newton_lanes.cu with nvcc (sm_90a) and prints the
+   build seconds and the compiler's register / spill report;
+3. kernel vs plain version on the card: the CUDA Newton lane kernel
+   against `newton_solve_lanes_ref` on the same inputs, at the bench shape
+   (1600 lanes, capacity 24, d 10, 10 starts, matern52 / EI, float32),
+   on lanes of that shape whose Newton steps move, at d = 16 (the
+   kernel's maximum), and at small shapes for every kernel kind x rule in
+   float32 and float64 with per-lane active counts, plus the loose freeze
+   (POI).
+   Criteria (tests/test_pallas_newton.py): (a) the kernel's value matches
+   a plain re-evaluation of the acquisition at its argmax; (b) its
+   solution is never worse than the plain solver's beyond tolerance;
+4. main path: `stochastic_solve_fused(select_best=True)` at the exact
+   bench.py configuration (trid10d, horizon 3, 200 QMC trajectories, 8
+   restarts, 10 + 8 + 2 inner starts, 50 SGA iterations, float32) on the
+   card; checks a finite winner inside the box, that the kernel ran
+   3 x (SGA iterations + 1) times, and that a small float64 run of the
+   same path agrees with the CPU route (the plain solver); times the
+   median of 3 acquisitions after a warm-up.
+
+It prints one JSON line describing the kernel (launches on the main path;
+max |v_kernel - v_plain| over the bench-shape lanes; the kernel's and the
+plain version's ms per call at the bench shape), then, as the last line,
+{"ok": true, "device": {...}}. Any failure raises before those lines and
+exits non-zero; without a CUDA device it exits non-zero at once.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# (a): value vs re-evaluation; (b): never worse than the plain solver
+_TOL = {torch.float32: dict(rtol=2e-3, atol=1e-5, worse=5e-4),
+        torch.float64: dict(rtol=1e-6, atol=1e-9, worse=1e-6)}
+_LOG_ATOL = {torch.float32: 2e-3, torch.float64: 1e-6}
+
+
+def phase_device():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; this script runs only on the card")
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()
+    print(f"device: {name} (torch {torch.__version__}, CUDA {torch.version.cuda})")
+    print(smi[0])
+    return name, smi[0]
+
+
+def phase_build():
+    from rollout_bo_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.load("newton_lanes")
+    seconds = time.perf_counter() - t0
+    built = _build.build_seconds("newton_lanes")
+    print(f"build: newton_lanes.cu loaded in {seconds:.2f} s "
+          f"({'nvcc ' + format(built, '.2f') + ' s' if built is not None else 'cached'})")
+    for line in _build.build_log("newton_lanes").splitlines():
+        if "registers" in line or "spill" in line:
+            print("  ptxas:", line.strip())
+    return seconds
+
+
+# --------------------------------------------------------------------------
+# phase 3: kernel vs plain version
+# --------------------------------------------------------------------------
+
+
+def _lane_state(sizes, d, cap, kind, theta, lbs, ubs, dtype, dev, seed, f=None):
+    """A stacked state of sum(counts) lanes; `sizes` maps an active count to
+    a number of lanes with that count."""
+    from rollout_bo_tpu_torch.models import surrogate as sg
+    from rollout_bo_tpu_torch.ops import kernels as K
+
+    rng = np.random.default_rng(seed)
+    kern = K.RBFKernel(torch.tensor(theta, dtype=dtype, device=dev), kind)
+    parts = []
+    for n, count in sizes.items():
+        X = rng.uniform(lbs, ubs, (count, n, d))
+        y = f(torch.tensor(X, dtype=torch.float64)).numpy() if f is not None else \
+            np.sin(2.0 * X.sum(axis=-1)) + 0.2 * rng.standard_normal((count, n))
+        parts.append(sg.fit(kern, X, y, capacity=cap, noise=1e-5 if f else 1e-4,
+                            device=dev, dtype=dtype))
+    cat = {fld: torch.cat([getattr(p, fld) for p in parts])
+           for fld in ("X", "y", "L", "c", "n", "Li")}
+    return sg.SurrogateState(kern, noise=parts[0].noise, **cat)
+
+
+def _events_ms(fn, reps):
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps, out
+
+
+def _compare(st, rule, th, lbs, ubs, xstarts, iterations, label, timing=False):
+    """Kernel vs plain version on the same CUDA lanes; returns the stats."""
+    from rollout_bo_tpu_torch.models import surrogate as sg
+    from rollout_bo_tpu_torch.ops import newton_lanes as nl
+
+    dt = st.X.dtype
+    kth = st.kernel.theta
+    period = kth[1] if st.kernel.kind == "periodic" else torch.ones_like(kth[0])
+    W = st.Li.transpose(-1, -2) @ st.Li
+    fmini = sg.get_active_minimum(st)
+    th0 = th[..., 0].contiguous()
+    args = (st.X, W, st.c, st.n, fmini, th0, kth[0], lbs, ubs, xstarts, period)
+    kw = dict(kind=st.kernel.kind, rule=rule.name, iterations=iterations,
+              f_tol=rule.solve_f_tol, x_tol=rule.solve_x_tol)
+    kernel = lambda: nl.newton_solve_lanes(*args, **kw)
+    plain = lambda: nl.newton_solve_lanes_ref(*args, **kw)
+    if timing:
+        kernel(), plain()                       # warm up both
+        torch.cuda.synchronize()
+        ms, (xk, vk) = _events_ms(kernel, 5)
+        plain_ms, (xr, vr) = _events_ms(plain, 2)
+    else:
+        (xk, vk), (xr, vr) = kernel(), plain()
+        ms = plain_ms = float("nan")
+    torch.cuda.synchronize()
+    assert xk.shape == xr.shape and vk.shape == vr.shape and xk.dtype == dt
+    vk_cross = sg.acquisition(st, rule, xk, th)
+    vr_cross = sg.acquisition(st, rule, xr, th)
+    torch.cuda.synchronize()
+    tol = _TOL[dt]
+    atol = _LOG_ATOL[dt] if rule.name.startswith("Log") else tol["atol"]
+    scale = torch.clamp(vr_cross.abs(), min=1.0)
+    err = (vk - vk_cross).abs()
+    # kernel against plain version, same inputs (equal infinities count as 0)
+    vs_plain = torch.where(vk == vr, 0.0, (vk - vr).abs())
+    ok_a = bool(torch.all(err <= tol["rtol"] * vk_cross.abs() + atol * scale))
+    # the loose freeze stops both at the same iteration only up to rounding
+    # near its threshold: hold it to the acceptance tolerance itself, as
+    # tests/test_pallas_newton.py::test_pallas_loose_freeze_f32_matches_xla does
+    slack = (rule.solve_f_tol * (vr_cross.abs() + 1.0) if rule.solve_f_tol > 0
+             else tol["worse"] * scale + 1e-6)
+    ok_b = bool(torch.all(vk_cross >= vr_cross - slack))
+    width = float(torch.max(ubs - lbs))
+    agree = float(((xk - xr).abs().amax(dim=-1) <= 1e-3 * width).double().mean())
+    starts = torch.maximum(torch.minimum(xstarts, ubs), lbs)
+    stayed = (xk[:, None, :] - starts[None]).abs().amax(dim=-1).amin(dim=-1) <= 1e-6 * width
+    moved = float((~stayed).double().mean())
+    if not (ok_a and ok_b):
+        i = int(torch.argmax(err))
+        raise AssertionError(
+            f"{label}: kernel disagrees with the plain version "
+            f"(a: {ok_a}, max |v - acq(x)| = {float(err.max()):.3e} at lane {i}: "
+            f"{float(vk[i])} vs {float(vk_cross[i])}; b: {ok_b}, min kernel - plain = "
+            f"{float((vk_cross - vr_cross).min()):.3e})")
+    return dict(max_abs_err=float(vs_plain.max()), max_err_reeval=float(err.max()),
+                agree=agree, moved=moved, ms=ms, plain_ms=plain_ms)
+
+
+def phase_kernel_checks(dev):
+    from rollout_bo_tpu_torch.models import decision_rules as dr
+    from rollout_bo_tpu_torch.models import testfns
+    from rollout_bo_tpu_torch.ops import newton_lanes as nl
+    from rollout_bo_tpu_torch.ops import qmc
+
+    # the bench shape: lanes as the main path's three fantasy steps see them
+    # (12 trid10d observations + 1..3 fantasies in a capacity-24 buffer)
+    f = testfns.get_function("trid10d")
+    t32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=dev)
+    st = _lane_state({13: 534, 14: 533, 15: 533}, f.dim, 24, "matern52", (1.0,),
+                     f.lbs, f.ubs, torch.float32, dev, 7, f=f)
+    lbs, ubs = t32(f.lbs), t32(f.ubs)
+    xstarts = t32(qmc.generate_initial_guesses(8, f.lbs, f.ubs))
+    th = torch.zeros((st.X.shape[0], 1), dtype=torch.float32, device=dev)
+    bench = _compare(st, dr.EI(), th, lbs, ubs, xstarts, 10, "bench shape", timing=True)
+    print(f"kernel vs plain, bench shape (1600 lanes, cap 24, d 10, S 10, matern52/EI, "
+          f"f32): kernel {bench['ms']:.3f} ms, plain {bench['plain_ms']:.3f} ms, "
+          f"argmax agreement {bench['agree']:.4f}, "
+          f"max |v_kernel - v_plain| {bench['max_abs_err']:.3e}, "
+          f"max |v - acq(x)| {bench['max_err_reeval']:.3e}, "
+          f"lanes that left their start {bench['moved']:.4f} "
+          f"(criteria: (a) |v - acq(x)| <= 2e-3 |acq(x)| + 1e-5 max(1, |acq|); "
+          f"(b) acq(x_kernel) >= acq(x_plain) - 5e-4 max(1, |acq|) - 1e-6)")
+
+    # the bench's lanes sit on EI plateaus (lengthscale 1 in a box of width
+    # 200), so check the same shape on lanes whose Newton steps move, and
+    # the largest supported d
+    for d, lanes, dts in ((10, {13: 534, 14: 533, 15: 533}, (torch.float32,)),
+                          (nl.MAX_D, {9: 32, 15: 32}, (torch.float32, torch.float64))):
+        lo, hi = np.full(d, -1.0), np.full(d, 1.0)
+        for dt in dts:
+            t = lambda a: torch.tensor(np.asarray(a), dtype=dt, device=dev)
+            st = _lane_state(lanes, d, 24, "matern52", (0.8,), lo, hi, dt, dev, 5)
+            th = torch.zeros((st.X.shape[0], 1), dtype=dt, device=dev)
+            r = _compare(st, dr.EI(), th, t(lo), t(hi),
+                         t(qmc.generate_initial_guesses(8, lo, hi)), 10, f"d={d} {dt}")
+            if d == 10:
+                # the reported error covers both sets of lanes at the bench shape
+                bench["max_abs_err"] = max(bench["max_abs_err"], r["max_abs_err"])
+            print(f"kernel vs plain, {st.X.shape[0]} lanes, cap 24, d {d}, S 10, "
+                  f"matern52/EI, {dt}: argmax agreement {r['agree']:.4f}, "
+                  f"max |v_kernel - v_plain| {r['max_abs_err']:.3e}, max |v - acq(x)| "
+                  f"{r['max_err_reeval']:.3e}, lanes that left their start {r['moved']:.4f}")
+
+    # small shapes: every kind x rule, per-lane n, both dtypes
+    d, cap = 3, 12
+    lo, hi = np.full(d, -1.0), np.full(d, 1.0)
+    n_small = 0
+    for dt in (torch.float32, torch.float64):
+        t = lambda a: torch.tensor(np.asarray(a), dtype=dt, device=dev)
+        xs = t(qmc.generate_initial_guesses(6, lo, hi))
+        for kind in nl.SUPPORTED_KINDS:
+            theta = (0.9, 3.0) if kind == "periodic" else (0.8,)
+            st = _lane_state({3: 16, 6: 16, 9: 16, 12: 16}, d, cap, kind, theta,
+                             lo, hi, dt, dev, 11)
+            for name in nl.SUPPORTED_RULES:
+                th = torch.full((64, 1), 0.5 if name == "LCB" else 0.0, dtype=dt,
+                                device=dev)
+                # POI's default is the loose freeze; run every rule exact too
+                rules = [dr.DecisionRule(name)]
+                if name == "POI":
+                    rules.append(dr.POI())
+                for rule in rules:
+                    _compare(st, rule, th, t(lo), t(hi), xs, 8,
+                             f"{kind}/{name}/{dt} loose={rule.solve_f_tol > 0}")
+                    n_small += 1
+    print(f"kernel vs plain, small shapes: {n_small} kind x rule x dtype cases "
+          f"(per-lane n in 3..12, loose POI in f32 and f64) passed")
+    return bench
+
+
+# --------------------------------------------------------------------------
+# phase 4: the main path
+# --------------------------------------------------------------------------
+
+
+def _bench_problem(dev, dtype, name="trid10d", n_obs=12, capacity=20, mc=200,
+                   horizon=3, starts=8, restarts=8):
+    """bench.py's configuration (trid10d, 12 observations in a capacity-20
+    surrogate, 200 QMC trajectories, horizon 3, 8 + 2 starts, 8 restarts)."""
+    from rollout_bo_tpu_torch.models import surrogate as sg
+    from rollout_bo_tpu_torch.models import testfns
+    from rollout_bo_tpu_torch.ops import kernels as K
+    from rollout_bo_tpu_torch.ops import qmc
+    from rollout_bo_tpu_torch.rollout.trajectory import TrajectoryParams
+
+    f = testfns.get_function(name)
+    d = f.dim
+    t = lambda a: torch.tensor(np.asarray(a), dtype=dtype, device=dev)
+    rng = np.random.default_rng(1906)
+    X0 = qmc.randsample(n_obs, d, f.lbs, f.ubs, rng)
+    y0 = f.batch(torch.tensor(X0, dtype=torch.float64)).numpy()
+    state = sg.fit(K.matern52((1.0,)), X0, y0, capacity=capacity, noise=1e-5,
+                   device=dev, dtype=dtype)
+    xstarts = t(qmc.generate_initial_guesses(starts, f.lbs, f.ubs))
+    z = qmc.gen_low_discrepancy_sequence(mc, d, horizon + 1)
+    tp = TrajectoryParams(x0=torch.zeros(d, dtype=dtype, device=dev),
+                          theta=torch.zeros(1, dtype=dtype, device=dev),
+                          lbs=t(f.lbs), ubs=t(f.ubs), rnstream=t(z))
+    rs = t(qmc.generate_batch(restarts, f.lbs, f.ubs)[:restarts])
+    return state, tp, xstarts, rs
+
+
+def phase_main_path(dev, card):
+    from rollout_bo_tpu_torch.models.decision_rules import EI
+    from rollout_bo_tpu_torch.ops import newton_lanes as nl
+    from rollout_bo_tpu_torch.rollout.outer import stochastic_solve_fused
+
+    state, tp, xstarts, restarts = _bench_problem(dev, torch.float32)
+    acquire = lambda: stochastic_solve_fused(
+        state, tp, EI(), xstarts, restarts, max_iters=50, lr=0.01,
+        inner_iterations=10, select_best=True)
+
+    torch.cuda.synchronize()
+    nl.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = acquire()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = nl.LAUNCHES
+    if launches != 3 * (res.iterations + 1):
+        raise AssertionError(f"kernel launches {launches} != 3 x ({res.iterations} + 1)")
+    x, v = res.x, res.value
+    if x.shape != (10,) or not bool(torch.all(torch.isfinite(x))) or not math.isfinite(float(v)):
+        raise AssertionError(f"bad acquisition result x={x} v={v}")
+    if not (bool(torch.all((x >= tp.lbs) & (x <= tp.ubs))) and float(v) >= 0.0):
+        raise AssertionError(f"winner outside the box or negative value: x={x} v={v}")
+    print(f"main path: bench.py configuration, {res.iterations} SGA iterations, "
+          f"{launches} kernel launches, v_best {float(v):.6g}, first call {first_s:.3f} s")
+
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acquire()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    median = statistics.median(times)
+    print(f"main path: median {median:.4f} s per acquisition over 3 runs "
+          f"({', '.join(f'{s:.4f}' for s in times)}) on {card}")
+
+    # a small float64 run of the same path: the card (kernel) against the
+    # CPU route (plain solver), which the CPU tests hold to the JAX package
+    small = lambda device: stochastic_solve_fused(
+        *_setup_small(device), max_iters=5, lr=0.05, inner_iterations=6,
+        select_best=True)
+    gpu, cpu = small(dev), small(torch.device("cpu"))
+    torch.cuda.synchronize()
+    if gpu.iterations != cpu.iterations or not torch.allclose(
+            gpu.x.cpu(), cpu.x, rtol=0.0, atol=1e-6) or not math.isclose(
+            float(gpu.value), float(cpu.value), rel_tol=1e-6):
+        raise AssertionError(f"small f64 main path: card {gpu} vs CPU route {cpu}")
+    print(f"main path, small float64 (trid2d, h 2, M 8, 4 restarts): card == CPU route "
+          f"(x_best {gpu.x.cpu().numpy()}, v_best {float(gpu.value):.10g}, "
+          f"{gpu.iterations} iterations)")
+    return launches, median
+
+
+def _setup_small(dev):
+    from rollout_bo_tpu_torch.models.decision_rules import EI
+
+    state, tp, xstarts, rs = _bench_problem(dev, torch.float64, name="trid2d", n_obs=6,
+                                            capacity=10, mc=8, horizon=2, starts=4,
+                                            restarts=4)
+    return state, tp, EI(), xstarts, rs
+
+
+def main():
+    name, smi = phase_device()
+    dev = torch.device("cuda", 0)
+    phase_build()
+    torch.cuda.synchronize()
+    bench = phase_kernel_checks(dev)
+    torch.cuda.synchronize()
+    launches, _ = phase_main_path(dev, smi)
+    torch.cuda.synchronize()
+    print(json.dumps({"kernels": [{
+        "name": "newton_lanes",
+        "route": "cuda",
+        "source": "rollout_bo_tpu_torch/csrc/newton_lanes.cu",
+        "replaces": "rollout_bo_tpu/ops/pallas_newton.py:654",
+        "launches": launches,
+        "max_abs_err": bench["max_abs_err"],
+        "ms": bench["ms"],
+        "plain_ms": bench["plain_ms"],
+    }]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,17 @@
+from rollout_bo_tpu_torch.models import decision_rules, fantasy, surrogate, testfns
+from rollout_bo_tpu_torch.models.decision_rules import (
+    EI,
+    LCB,
+    POI,
+    DecisionRule,
+    LogEI,
+    LogPOI,
+)
+from rollout_bo_tpu_torch.models.surrogate import (
+    SurrogateState,
+    condition,
+    fit,
+    from_numpy_state,
+    posterior,
+)
+from rollout_bo_tpu_torch.models.testfns import TestFunction, get_function

@@ -1,0 +1,408 @@
+"""Batched multistart projected-Newton acquisition solve, one GP per lane.
+
+Port of the TPU kernel `rollout_bo_tpu/ops/pallas_newton.py::
+newton_solve_lanes`. The rollout solves, at every fantasy step of every
+Monte-Carlo trajectory of every outer restart, a multistart Newton
+maximization of the acquisition on that lane's own tiny GP (capacity ~24,
+d ~10). A lane is one (restart, trajectory) pair; the bench configuration
+has 8 x 200 = 1600 lanes per call.
+
+- `newton_solve_lanes` is the entry point. For CUDA tensors it launches the
+  hand-written kernel `csrc/newton_lanes.cu` (one thread per (lane,
+  start), the lane's GP staged in shared memory); it raises rather than
+  fall back. For CPU tensors it runs the plain version.
+- `newton_solve_lanes_ref` is the plain PyTorch version: the same math
+  in the same W = K^{-1} formulation, batch-first over (lane, start). The
+  CPU tests hold it against the JAX kernel, and `chip_smoke.py` holds the
+  CUDA kernel against it on the card.
+
+Only the forward solve exists: `rollout/trajectory.py::argmax_with_ift`
+differentiates through the implicit-function-theorem linearization and
+never through the solver.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from rollout_bo_tpu_torch.models.decision_rules import rule_partials, rule_value
+from rollout_bo_tpu_torch.ops import small_chol
+
+__all__ = [
+    "SUPPORTED_KINDS",
+    "SUPPORTED_RULES",
+    "MAX_D",
+    "LAUNCHES",
+    "supported",
+    "newton_solve_lanes",
+    "newton_solve_lanes_ref",
+]
+
+SUPPORTED_KINDS = ("matern52", "matern32", "matern12",
+                   "squared_exponential", "periodic")
+SUPPORTED_RULES = ("EI", "POI", "LCB", "LogEI", "LogPOI")
+MAX_D = 16                     # must match csrc/newton_lanes.cu
+_MAX_THREADS = 1024
+_SMEM_LIMIT = 227 * 1024       # Hopper: dynamic shared memory per block
+_THREADS_TARGET = 128
+_BACKTRACK_STEPS = 9
+_EPS = 1e-14                   # must match kEps in csrc/newton_lanes.cu
+
+# Kernel launches since the counter was last reset (set it to 0 to count).
+LAUNCHES = 0
+
+
+def supported(kind: str, rule_name: str) -> bool:
+    return kind in SUPPORTED_KINDS and rule_name in SUPPORTED_RULES
+
+
+# --------------------------------------------------------------------------
+# Radial profiles: psi(rho), a = psi'/rho, b = (psi'' - a)/rho^2 and iso
+# (a at rho > 0, psi''(0) at rho = 0) — the factored stationary-Hessian
+# coefficients of ops.kernels.hess_contraction, simplified per family so
+# no cancellation is left (pallas_newton.py:76-132).
+# --------------------------------------------------------------------------
+
+
+def _profile_terms(kind: str, rho, sq, ell, period):
+    pos = rho > _EPS
+    if kind == "periodic":
+        c1 = 2.0 / (ell * ell)
+        w = math.pi / period
+        u = w * rho
+        psi = torch.exp(-c1 * torch.sin(u) ** 2)
+        s2u = torch.sin(2.0 * u)
+        dpsi = -c1 * w * s2u * psi
+        d2psi = (-2.0 * c1 * w * w * torch.cos(2.0 * u)
+                 + c1 * c1 * w * w * s2u * s2u) * psi
+        safe = torch.where(pos, rho, 1.0)
+        a = torch.where(pos, dpsi / safe, 0.0)
+        b = torch.where(pos, (d2psi - a) / (safe * safe), 0.0)
+        iso = torch.where(pos, a, -2.0 * c1 * w * w)
+        return psi, a, b, iso
+    if kind == "matern52":
+        c = math.sqrt(5.0) / ell
+        s = c * rho
+        e = torch.exp(-s)
+        psi = (1.0 + s * (1.0 + s / 3.0)) * e
+        a = -(c * c / 3.0) * (1.0 + s) * e           # smooth through 0
+        b = (c ** 4 / 3.0) * e
+        return psi, torch.where(pos, a, 0.0), torch.where(pos, b, 0.0), a
+    if kind == "matern32":
+        c = math.sqrt(3.0) / ell
+        s = c * rho
+        e = torch.exp(-s)
+        psi = (1.0 + s) * e
+        a = -c * c * e
+        safe = torch.where(pos, s, 1.0)
+        b = torch.where(pos, c ** 4 * e / safe, 0.0)
+        return psi, torch.where(pos, a, 0.0), b, torch.where(pos, a, -c * c)
+    if kind == "matern12":
+        c = 1.0 / ell
+        e = torch.exp(-c * rho)
+        safe = torch.where(pos, rho, 1.0)
+        a = torch.where(pos, -c * e / safe, 0.0)
+        b = torch.where(pos, (c * c * e - a) / torch.where(pos, sq, 1.0), 0.0)
+        return e, a, b, torch.where(pos, a, c * c)
+    if kind == "squared_exponential":
+        l2 = ell * ell
+        psi = torch.exp(-sq / (2.0 * l2))
+        a = -psi / l2
+        return psi, a, psi / (l2 * l2), a
+    raise ValueError(f"unsupported kernel kind {kind!r}")
+
+
+# --------------------------------------------------------------------------
+# The plain version, batch-first over (lane, start)
+# --------------------------------------------------------------------------
+
+
+def _posterior_value(x, Xl, Wl, cl, ml, kind, ell, period, k0, sigma_floor):
+    """(mu, sigma) at x (L, S, d); lane arrays carry a singleton start axis."""
+    R = x[..., None, :] - Xl                           # (L, S, cap, d)
+    sq = torch.sum(R * R, dim=-1)
+    rho = torch.sqrt(torch.clamp(sq, min=0.0))
+    kx = _profile_terms(kind, rho, sq, ell, period)[0] * ml
+    w = (Wl @ kx[..., None])[..., 0]
+    mu = torch.sum(kx * cl, dim=-1)
+    var = torch.clamp(k0 - torch.sum(kx * w, dim=-1), min=sigma_floor ** 2)
+    return mu, torch.sqrt(var)
+
+
+def _posterior_full(x, Xl, Wl, cl, ml, kind, ell, period, k0, sigma_floor):
+    """mu, grad mu, hess mu, sigma, grad sigma, hess sigma at x (L, S, d),
+    with W = K^{-1} in place of the two triangular applications of Li
+    (models/surrogate.py::posterior)."""
+    d = x.shape[-1]
+    R = x[..., None, :] - Xl                           # (L, S, cap, d)
+    sq = torch.sum(R * R, dim=-1)
+    rho = torch.sqrt(torch.clamp(sq, min=0.0))
+    psi, a, b, iso = _profile_terms(kind, rho, sq, ell, period)
+    kx = psi * ml
+    gkx = (a * ml)[..., None] * R                      # (L, S, cap, d)
+    gkxT = gkx.transpose(-1, -2)
+    mu = torch.sum(kx * cl, dim=-1)
+    grad_mu = (gkxT @ cl[..., None])[..., 0]
+    w = (Wl @ kx[..., None])[..., 0]
+    var = torch.clamp(k0 - torch.sum(kx * w, dim=-1), min=sigma_floor ** 2)
+    sigma = torch.sqrt(var)
+    ssafe = torch.clamp(sigma, min=sigma_floor)
+    grad_sigma = -(gkxT @ w[..., None])[..., 0] / ssafe[..., None]
+
+    eye = torch.eye(d, dtype=x.dtype, device=x.device)
+    ia = torch.where(rho > _EPS, a, iso)
+    cm = cl * ml
+    wm = w * ml
+    RT = R.transpose(-1, -2)
+    hess_mu = (torch.sum(cm * ia, dim=-1)[..., None, None] * eye
+               + RT @ (R * (cm * b)[..., None]))
+    hess_sigma = (
+        -grad_sigma[..., :, None] * grad_sigma[..., None, :]
+        - gkxT @ (Wl @ gkx)
+        - RT @ (R * (wm * b)[..., None])
+        - torch.sum(wm * ia, dim=-1)[..., None, None] * eye
+    ) / ssafe[..., None, None]
+    return mu, grad_mu, hess_mu, sigma, grad_sigma, hess_sigma
+
+
+def _neg_inf_nonfinite(v):
+    return torch.where(torch.isfinite(v), v, -math.inf)
+
+
+def newton_solve_lanes_ref(X, W, c, n, fmini, theta0, ell, lbs, ubs, xstarts,
+                           period=1.0, *, kind="matern52", rule="EI",
+                           iterations=12, sigma_tol=1e-8, sigma_floor=1e-10,
+                           ridge=1e-8, f_tol=0.0, x_tol=0.0):
+    """Plain PyTorch version of `newton_solve_lanes` (same arguments)."""
+    dt, dev = X.dtype, X.device
+    nl, cap, d = X.shape
+    as_t = lambda a: torch.as_tensor(a, dtype=dt, device=dev)
+    lbs, ubs, xstarts = as_t(lbs), as_t(ubs), as_t(xstarts)
+    ell, period = as_t(ell), as_t(period)
+    S = xstarts.shape[0]
+    scale = torch.max(ubs - lbs)
+    boundary_tol = 1e-9 * scale
+    ml = (torch.arange(cap, device=dev) < n[:, None]).to(dt)[:, None]  # (L,1,cap)
+    Xl, Wl, cl = X[:, None], W[:, None], c[:, None]
+    fm, th = fmini[:, None], theta0[:, None]                           # (L, 1)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    k0 = _profile_terms(kind, zero, zero, ell, period)[0]
+    lane = (Xl, Wl, cl, ml, kind, ell, period, k0, sigma_floor)
+    eye = torch.eye(d, dtype=dt, device=dev)
+    loose = f_tol > 0.0 or x_tol > 0.0
+
+    def value(x):
+        mu, sigma = _posterior_value(x, *lane)
+        return rule_value(rule, mu, sigma, th, fm, sigma_tol)
+
+    def one_iteration(x):
+        mu, gmu_v, Hmu, sigma, gsig_v, Hsig = _posterior_full(x, *lane)
+        a0 = rule_value(rule, mu, sigma, th, fm, sigma_tol)
+        gmu, gsig, gmumu, gsigsig, gmusig = (
+            t[..., None, None] for t in rule_partials(rule, mu, sigma, th, fm, sigma_tol))
+        g = gmu[..., 0] * gmu_v + gsig[..., 0] * gsig_v
+        cross = gmu_v[..., :, None] * gsig_v[..., None, :]
+        H = (gmumu * gmu_v[..., :, None] * gmu_v[..., None, :] + gmu * Hmu
+             + gsigsig * gsig_v[..., :, None] * gsig_v[..., None, :] + gsig * Hsig
+             + gmusig * (cross + cross.transpose(-1, -2)))
+
+        # active-set reduction at the box faces
+        act_lo = (x <= lbs + boundary_tol) & (g < 0.0)
+        act_hi = (x >= ubs - boundary_tol) & (g > 0.0)
+        free = (~(act_lo | act_hi)).to(dt)
+        gf = g * free
+        Hf = H * free[..., :, None] * free[..., None, :] - eye * (1.0 - free)[..., :, None]
+
+        # Gershgorin-damped Newton direction
+        A = -Hf
+        diag = torch.diagonal(A, dim1=-2, dim2=-1)
+        s_scale = torch.clamp(torch.amax(torch.abs(diag), dim=-1), min=ridge)
+        off = torch.sum(torch.abs(A), dim=-1) - torch.abs(diag)
+        tau_g = (torch.clamp(torch.amax(off - diag, dim=-1), min=0.0)
+                 + ridge + 1e-6 * s_scale)
+
+        def solve_tau(tau):
+            p = small_chol.spd_solve_small(A + tau[..., None, None] * eye, gf)
+            ok = torch.all(torch.isfinite(p), dim=-1) & (torch.sum(p * gf, dim=-1) > 0.0)
+            return p, ok
+
+        p1, ok1 = solve_tau(torch.full_like(tau_g, ridge))
+        p2, ok2 = solve_tau(tau_g)
+        p = torch.where(ok1[..., None], p1,
+                        torch.where(ok2[..., None], p2, gf / s_scale[..., None]))
+        p = p * free
+        bad = (~torch.all(torch.isfinite(p), dim=-1)) | (torch.sum(p * gf, dim=-1) <= 0.0)
+        gnorm = torch.sqrt(torch.sum(gf * gf, dim=-1))
+        gstep = gf / torch.clamp(gnorm, min=1e-12)[..., None] * (0.1 * scale)
+        p = torch.where(bad[..., None], gstep, p)
+        pnorm = torch.sqrt(torch.sum(p * p, dim=-1))
+        p = p * torch.clamp(scale / torch.clamp(pnorm, min=1e-30), max=1.0)[..., None]
+
+        # backtracking over both directions; strictly better only
+        a0 = _neg_inf_nonfinite(a0)
+        best_v, best_x = a0, x
+        improved = torch.zeros_like(a0, dtype=torch.bool)
+        for direction in (p, gstep):
+            for k in range(_BACKTRACK_STEPS):
+                cand = torch.clamp(x + 0.5 ** k * direction, lbs, ubs)
+                v = _neg_inf_nonfinite(value(cand))
+                upd = v > best_v
+                best_v = torch.where(upd, v, best_v)
+                best_x = torch.where(upd[..., None], cand, best_x)
+                improved = improved | upd
+        return torch.where(improved[..., None], best_x, x), a0, best_v
+
+    x = torch.clamp(xstarts, lbs, ubs).expand(nl, S, d)
+    frozen = torch.zeros((nl, S), dtype=torch.bool, device=dev)
+    for _ in range(iterations):
+        xn, a0, vbest = one_iteration(x)
+        if loose:
+            # IPNewton-style loose acceptance (reference rbf_optim.jl:26-30):
+            # a start freezes once its relative improvement or step is small
+            improvement = torch.clamp(vbest - a0, min=0.0)
+            small_f = improvement <= f_tol * (torch.abs(a0) + f_tol)
+            small_x = torch.sqrt(torch.sum((xn - x) ** 2, dim=-1)) <= x_tol
+            xn = torch.where(frozen[..., None], x, xn)
+            frozen = frozen | small_f | small_x
+        x = xn
+    vf = _neg_inf_nonfinite(value(x))
+
+    # best start per lane, in start order: first start wins a tie, and a
+    # lane whose every start is -inf returns x = 0, v = -inf
+    best_v = torch.full((nl,), -math.inf, dtype=dt, device=dev)
+    best_x = torch.zeros((nl, d), dtype=dt, device=dev)
+    for s in range(S):
+        upd = vf[:, s] > best_v
+        best_v = torch.where(upd, vf[:, s], best_v)
+        best_x = torch.where(upd[:, None], x[:, s], best_x)
+    return best_x, best_v
+
+
+# --------------------------------------------------------------------------
+# The CUDA kernel
+# --------------------------------------------------------------------------
+
+_KIND_IDS = {k: i for i, k in enumerate(SUPPORTED_KINDS)}
+_RULE_IDS = {r: i for i, r in enumerate(SUPPORTED_RULES)}
+_ENTRY = {torch.float32: "newton_lanes_f32", torch.float64: "newton_lanes_f64"}
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_D = ctypes.c_double
+_ARGTYPES = [_P] * 12 + [_I] * 8 + [_D] * 5 + [_I, _P]
+
+
+def _library():
+    from rollout_bo_tpu_torch.ops import _build
+
+    lib = _build.load("newton_lanes")
+    for name in _ENTRY.values():
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = _ARGTYPES
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _block_shape(cap: int, d: int, S: int, itemsize: int):
+    """(lanes per block, dynamic shared bytes) — must match the layout in
+    csrc/newton_lanes.cu: per lane X, W, c; per thread four cap-long
+    scratch rows and a (d + 1)-long result row."""
+    per_lane = (cap * d + cap * cap + cap) * itemsize
+    per_thread = (4 * cap + d + 1) * itemsize
+    lanes = max(1, _THREADS_TARGET // S)    # S <= _MAX_THREADS is checked by the caller
+    while lanes > 1 and lanes * (per_lane + S * per_thread) > _SMEM_LIMIT:
+        lanes -= 1
+    return lanes, lanes * (per_lane + S * per_thread)
+
+
+def _check_lanes(X, W, c, n, fmini, theta0, lbs, ubs, xstarts, kind, rule):
+    """Validate the lane arguments (both routes); returns lbs, ubs, xstarts
+    as tensors of the lane dtype on the lane device."""
+    if not supported(kind, rule):
+        raise ValueError(f"newton_solve_lanes: unsupported ({kind!r}, {rule!r})")
+    dt, dev = X.dtype, X.device
+    if dt not in _ENTRY:
+        raise TypeError(f"newton_solve_lanes: dtype {dt} (need float32/float64)")
+    if X.dim() != 3:
+        raise ValueError(f"newton_solve_lanes: X must be (L, cap, d), got {tuple(X.shape)}")
+    nl, cap, d = X.shape
+    as_t = lambda a: torch.as_tensor(a, dtype=dt, device=dev)
+    lbs, ubs, xstarts = as_t(lbs), as_t(ubs), as_t(xstarts)
+    S = xstarts.shape[0]
+    want = {"X": (X, (nl, cap, d), dt), "W": (W, (nl, cap, cap), dt),
+            "c": (c, (nl, cap), dt), "n": (n, (nl,), torch.int64),
+            "fmini": (fmini, (nl,), dt), "theta0": (theta0, (nl,), dt),
+            "lbs": (lbs, (d,), dt), "ubs": (ubs, (d,), dt),
+            "xstarts": (xstarts, (S, d), dt)}
+    for name, (t, shape, tdt) in want.items():
+        if t.device != dev or t.dtype != tdt or tuple(t.shape) != shape:
+            raise ValueError(f"newton_solve_lanes: {name} must be {tdt} {shape} on "
+                             f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"newton_solve_lanes: {name} must be contiguous")
+    return lbs, ubs, xstarts
+
+
+def _launch(X, W, c, n, fmini, theta0, ell, lbs, ubs, xstarts, period, *,
+            kind, rule, iterations, sigma_tol, sigma_floor, ridge, f_tol, x_tol):
+    global LAUNCHES
+    dt, dev = X.dtype, X.device
+    nl, cap, d = X.shape
+    S = xstarts.shape[0]
+    as_t = lambda a: torch.as_tensor(a, dtype=dt, device=dev)
+    params = torch.stack([as_t(ell).reshape(()), as_t(period).reshape(())])
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"newton_lanes kernel: d = {d} outside 1..{MAX_D}")
+    if S < 1 or S > _MAX_THREADS:
+        raise ValueError(f"newton_lanes kernel: {S} starts outside 1..{_MAX_THREADS}")
+    lanes, smem = _block_shape(cap, d, S, X.element_size())
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"newton_lanes kernel: capacity {cap} needs {smem} B of "
+                         f"shared memory per lane, over {_SMEM_LIMIT}")
+
+    xout = torch.empty((nl, d), dtype=dt, device=dev)
+    vout = torch.empty((nl,), dtype=dt, device=dev)
+    if nl == 0:
+        return xout, vout
+    fn = getattr(_library(), _ENTRY[dt])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(X.data_ptr(), W.data_ptr(), c.data_ptr(), n.data_ptr(),
+             fmini.data_ptr(), theta0.data_ptr(), params.data_ptr(),
+             lbs.data_ptr(), ubs.data_ptr(), xstarts.data_ptr(),
+             xout.data_ptr(), vout.data_ptr(),
+             nl, cap, d, S, iterations, _KIND_IDS[kind], _RULE_IDS[rule], lanes,
+             sigma_tol, sigma_floor, ridge, f_tol, x_tol, smem, stream)
+    if err != 0:
+        raise RuntimeError(f"newton_lanes kernel launch failed: CUDA error {err}")
+    LAUNCHES += 1
+    return xout, vout
+
+
+def newton_solve_lanes(X, W, c, n, fmini, theta0, ell, lbs, ubs, xstarts,
+                       period=1.0, *, kind="matern52", rule="EI", iterations=12,
+                       sigma_tol=1e-8, sigma_floor=1e-10, ridge=1e-8,
+                       f_tol=0.0, x_tol=0.0):
+    """Multistart Newton argmax per lane. Returns (xstar (L, d), v (L,)).
+
+    X (L, cap, d), W (L, cap, cap) = K^{-1} of the active block with
+    identity padding, c (L, cap), n (L,) int64 active counts, fmini (L,),
+    theta0 (L,) the rule's theta[0]; ell, period, lbs / ubs (d,) and
+    xstarts (S, d) are shared by every lane. The lane dtype is X's
+    (float32 or float64). `f_tol` / `x_tol` > 0 turn on the IPNewton-style
+    loose per-start freeze. Every lane tensor must be contiguous. CUDA
+    tensors run the kernel, CPU tensors the plain version; any other
+    device raises.
+    """
+    lbs, ubs, xstarts = _check_lanes(X, W, c, n, fmini, theta0, lbs, ubs, xstarts,
+                                     kind, rule)
+    kw = dict(kind=kind, rule=rule, iterations=iterations, sigma_tol=sigma_tol,
+              sigma_floor=sigma_floor, ridge=ridge, f_tol=f_tol, x_tol=x_tol)
+    if X.device.type == "cuda":
+        return _launch(X, W, c, n, fmini, theta0, ell, lbs, ubs, xstarts, period, **kw)
+    if X.device.type == "cpu":
+        return newton_solve_lanes_ref(X, W, c, n, fmini, theta0, ell, lbs, ubs,
+                                      xstarts, period, **kw)
+    raise ValueError(f"newton_solve_lanes: no route for device {X.device}")

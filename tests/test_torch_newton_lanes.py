@@ -1,0 +1,294 @@
+"""PyTorch port, the Newton lane solver: plain version vs the JAX kernel.
+
+The JAX kernel (`rollout_bo_tpu/ops/pallas_newton.py::newton_solve_lanes`)
+runs in Pallas interpret mode on the CPU, as tests/test_pallas_newton.py
+runs it; the port's CPU route is the plain version
+`newton_solve_lanes_ref`. Both see the same lanes (the JAX package's
+states, carried across as numpy arrays). The criteria and tolerances are
+those of test_pallas_solve_matches_xla_solver:
+(a) the solver's value matches a plain re-evaluation of the acquisition at
+    its argmax (f32: rtol 2e-3; log rules atol 2e-3 in log space, where
+    the k0 - kx.K^{-1}kx variance form amplifies f32 op-order noise);
+(b) its solution is never worse than the JAX kernel's beyond 5e-4
+    relative (a tiny fp difference may flip a backtracking accept into a
+    better basin, never a much worse one) — or, on a lane where the JAX
+    kernel beats the JAX XLA solver too, never worse than that solver. The
+    JAX kernel's f32 erf polynomial has an error floor of ~1e-7 in Phi, so
+    on an EI plateau where the exact Phi underflows it sees a gradient that
+    the exact-erf solvers (the XLA solver and this port) do not, and may
+    climb out of it; the port is held to the same exact-erf solver there.
+The float64 loose-POI case holds the port to the JAX XLA solver at rtol
+1e-6, as the JAX package holds its kernel.
+
+The CUDA kernel itself is compared with the plain version on the card by
+tests/test_torch_cuda.py and chip_smoke.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rollout_bo_tpu.models import decision_rules as jdr
+from rollout_bo_tpu.models import surrogate as jsg
+from rollout_bo_tpu.ops import kernels as jK
+from rollout_bo_tpu.ops import pallas_newton as pn
+from rollout_bo_tpu.ops import qmc
+from rollout_bo_tpu.rollout import solvers as jsolvers
+from rollout_bo_tpu_torch.models import decision_rules as dr
+from rollout_bo_tpu_torch.models import surrogate as sg
+from rollout_bo_tpu_torch.ops import newton_lanes as nl
+from rollout_bo_tpu_torch.rollout import solvers
+
+
+def _jax_states(L, n, d, cap, kernel, seed, dtype, noise=1e-5):
+    rng = np.random.default_rng(seed)
+    states = []
+    for _ in range(L):
+        X = rng.uniform(-1.0, 1.0, (n, d))
+        y = np.sin(2.0 * X.sum(axis=1)) + 0.2 * rng.standard_normal(n)
+        states.append(jsg.fit(kernel, X, y, capacity=cap, noise=noise, dtype=dtype))
+    return states
+
+
+def _lanes(states):
+    """Stacked lane arrays of the JAX states: X, W = Li^T Li, c, n, fmini."""
+    X = jnp.stack([s.X for s in states])
+    Li = jnp.stack([s.Li for s in states])
+    W = jnp.einsum("lji,ljk->lik", Li, Li)
+    c = jnp.stack([s.c for s in states])
+    n = jnp.stack([s.n for s in states])
+    fmini = jnp.stack([jsg.get_active_minimum(s) for s in states])
+    return X, W, c, n, fmini
+
+
+def _torch_lanes(lanes, dtype):
+    X, W, c, n, fmini = (np.array(a) for a in lanes)
+    t = lambda a: torch.tensor(a, dtype=dtype)
+    return t(X), t(W), t(c), torch.tensor(n, dtype=torch.int64), t(fmini)
+
+
+def _stack(states, lanes):
+    """One state with lane axes `lanes` from single-lane states."""
+    fields = (torch.stack([getattr(s, f) for s in states]).reshape(
+        lanes + getattr(states[0], f).shape) for f in sg.SurrogateState._fields[1:])
+    return sg.SurrogateState(states[0].kernel, *fields)
+
+
+def _port_state(js, dtype):
+    return sg.from_numpy_state(js.kernel.kind, js.kernel.theta, js.X, js.y, js.L,
+                               js.Li, js.c, js.n, js.noise, device="cpu", dtype=dtype)
+
+
+def _solve_both(states, rule_name, xstarts, lbs, ubs, iters, dtype, period=1.0,
+                f_tol=0.0, x_tol=0.0, th=0.0):
+    L = len(states)
+    lanes = _lanes(states)
+    jdt = lanes[0].dtype
+    kth = states[0].kernel.theta
+    kind = states[0].kernel.kind
+    jx, _ = pn.newton_solve_lanes(
+        *lanes, jnp.full((L,), th, jdt), kth[0], lbs, ubs, xstarts, period,
+        kind=kind, rule=rule_name, iterations=iters, f_tol=f_tol, x_tol=x_tol,
+        interpret=True)
+    X, W, c, n, fmini = _torch_lanes(lanes, dtype)
+    x, v = nl.newton_solve_lanes(
+        X, W, c, n, fmini, torch.full((L,), th, dtype=dtype), float(kth[0]),
+        torch.tensor(lbs, dtype=dtype), torch.tensor(ubs, dtype=dtype),
+        torch.tensor(xstarts, dtype=dtype), period,
+        kind=kind, rule=rule_name, iterations=iters, f_tol=f_tol, x_tol=x_tol)
+    return np.asarray(jx), x, v
+
+
+def _xla_best(states, jrule, jth, lbs, ubs, xstarts, iters):
+    """Best start value per lane of the JAX XLA solver, one jitted call."""
+    stacked = jax.tree.map(lambda *a: jnp.stack(a), *states)
+
+    def best(st):
+        _, vals = jsolvers.newton_solve_batch(st, jrule, jth, lbs, ubs, xstarts,
+                                              iterations=iters)
+        return jnp.max(vals)
+
+    return np.asarray(jax.jit(jax.vmap(best))(stacked))
+
+
+def _never_worse(states, jx, x, rule_name, th, xstarts, lbs, ubs, iters, dtype,
+                 rtol=5e-4, atol=1e-6):
+    """Criterion (b): the port's solution value (re-evaluated) is never worse
+    than the lower of the JAX kernel's and the JAX XLA solver's."""
+    rule, jrule = dr.RULES[rule_name](), jdr.RULES[rule_name]()
+    jth = jnp.asarray([th], states[0].X.dtype)
+    v_xla = _xla_best(states, jrule, jth, lbs, ubs, xstarts, iters)
+    for i, js in enumerate(states):
+        v_cross = float(sg.acquisition(_port_state(js, dtype), rule, x[i],
+                                       torch.tensor([th], dtype=dtype)))
+        v_kernel = float(jsg.acquisition(js, jrule, jnp.asarray(jx[i]), jth))
+        v_ref = min(v_kernel, float(v_xla[i]))
+        assert v_cross >= v_ref - rtol * max(1.0, abs(v_ref)) - atol, (i, v_cross, v_ref)
+
+
+@pytest.mark.parametrize("kind,rule_name", [
+    ("matern52", "EI"), ("matern52", "POI"), ("matern52", "LCB"),
+    ("matern52", "LogEI"), ("matern52", "LogPOI"),
+    ("matern32", "EI"), ("matern12", "EI"), ("squared_exponential", "EI"),
+])
+def test_plain_version_matches_jax_kernel(kind, rule_name):
+    L, n, d, cap, S = 5, 7, 3, 12, 4
+    f32 = torch.float32
+    kern = jK.RBFKernel(theta=jnp.asarray([0.8], jnp.float32), kind=kind)
+    states = _jax_states(L, n, d, cap, kern, 3, jnp.float32)
+    lbs, ubs = np.full(d, -1.0), np.full(d, 1.0)
+    xstarts = qmc.generate_initial_guesses(S - 2, lbs, ubs).astype(np.float32)
+    th = 0.5 if rule_name == "LCB" else 0.0
+    jx, x, v = _solve_both(states, rule_name, xstarts, lbs, ubs, 8, f32, th=th)
+    assert x.shape == (L, d) and v.shape == (L,) and x.dtype == f32
+    rule = dr.RULES[rule_name]()
+    theta = torch.tensor([th], dtype=f32)
+    for i, js in enumerate(states):
+        v_cross = float(sg.acquisition(_port_state(js, f32), rule, x[i], theta))
+        atol = 2e-3 if rule_name.startswith("Log") else 1e-6
+        np.testing.assert_allclose(float(v[i]), v_cross, rtol=2e-3, atol=atol)
+    _never_worse(states, jx, x, rule_name, th, xstarts, lbs, ubs, 8, f32)
+
+
+def test_plain_version_at_trid10d_scale():
+    """The bench function's scale: d = 10, box [-100, 100]^10, float32
+    (tests/test_pallas_newton.py::test_pallas_solve_10d_trid_scale)."""
+    from rollout_bo_tpu.models import testfns
+
+    f32 = torch.float32
+    f = testfns.get_function("trid10d")
+    L, n, cap, S = 3, 12, 20, 6
+    rng = np.random.default_rng(11)
+    states = []
+    for _ in range(L):
+        X0 = qmc.randsample(n, f.dim, f.lbs, f.ubs, rng)
+        states.append(jsg.fit(jK.matern52((1.0,)), X0, np.asarray(f.batch(X0)),
+                              capacity=cap, noise=1e-5, dtype=jnp.float32))
+    xstarts = qmc.generate_initial_guesses(S - 2, f.lbs, f.ubs).astype(np.float32)
+    jx, x, v = _solve_both(states, "EI", xstarts, f.lbs, f.ubs, 10, f32)
+    theta = torch.zeros(1, dtype=f32)
+    v_xla = _xla_best(states, jdr.EI(), jnp.zeros(1, jnp.float32), f.lbs, f.ubs,
+                      xstarts, 10)
+    for i, js in enumerate(states):
+        v_cross = float(sg.acquisition(_port_state(js, f32), dr.EI(), x[i], theta))
+        scale = max(1.0, abs(float(v_xla[i])))
+        np.testing.assert_allclose(float(v[i]), v_cross, rtol=1e-3, atol=1e-5 * scale)
+    _never_worse(states, jx, x, "EI", 0.0, xstarts, f.lbs, f.ubs, 10, f32,
+                 rtol=1e-3, atol=0.0)
+
+
+def test_per_lane_n_and_periodic_kernel():
+    """Lanes with different active counts, and the periodic profile
+    (theta = (lengthscale, period); period 3 > the box diagonal, so K stays
+    well-conditioned in f32)."""
+    f32 = torch.float32
+    d, cap, S = 2, 12, 4
+    lbs, ubs = np.full(d, -1.0), np.full(d, 1.0)
+    xstarts = qmc.generate_initial_guesses(S - 2, lbs, ubs).astype(np.float32)
+    for kern, noise, period in (
+            (jK.RBFKernel(jnp.asarray([0.8], jnp.float32), "matern52"), 1e-5, 1.0),
+            (jK.periodic((0.9, 3.0)), 1e-4, 3.0)):
+        states = _jax_states(4, 7, d, cap, kern, 17, jnp.float32, noise=noise)
+        states[2] = jsg.condition(states[2], jnp.asarray([0.2, -0.3], jnp.float32),
+                                  jnp.asarray(0.5, jnp.float32))
+        states[3] = jsg.fit(kern, np.array([[0.1, 0.2], [-0.5, 0.4]]),
+                            np.array([0.3, -0.2]), capacity=cap, noise=noise,
+                            dtype=jnp.float32)
+        assert len({int(s.n) for s in states}) == 3
+        jx, x, v = _solve_both(states, "EI", xstarts, lbs, ubs, 8, f32,
+                               period=period)
+        theta = torch.zeros(1, dtype=f32)
+        for i, js in enumerate(states):
+            v_cross = float(sg.acquisition(_port_state(js, f32), dr.EI(), x[i], theta))
+            np.testing.assert_allclose(float(v[i]), v_cross, rtol=2e-3, atol=1e-5)
+        _never_worse(states, jx, x, "EI", 0.0, xstarts, lbs, ubs, 8, f32,
+                     rtol=1e-3, atol=0.0)
+
+
+def test_loose_poi_float64_matches_jax_xla_solver():
+    """f64 lanes with the IPNewton-loose freeze (POI: f_tol = x_tol = 1e-3).
+    In f64 the W vs Li op-ordering noise (~1e-12) is far below any freeze
+    threshold, so the frozen solutions coincide with the JAX XLA solver's."""
+    f64 = torch.float64
+    L, n, d, cap, S = 4, 7, 3, 12, 4
+    kern = jK.matern52((0.8,))
+    states = _jax_states(L, n, d, cap, kern, 5, jnp.float64)
+    lbs, ubs = np.full(d, -1.0), np.full(d, 1.0)
+    xstarts = qmc.generate_initial_guesses(S - 2, lbs, ubs)
+    rule, jrule = dr.POI(), jdr.POI()
+    _, x, v = _solve_both(states, "POI", xstarts, lbs, ubs, 8, f64,
+                          f_tol=rule.solve_f_tol, x_tol=rule.solve_x_tol)
+    assert x.dtype == f64
+    theta = torch.zeros(1, dtype=f64)
+    v_xla = _xla_best(states, jrule, jnp.zeros(1), lbs, ubs, xstarts, 8)
+    for i, js in enumerate(states):
+        vbest = float(v_xla[i])
+        v_cross = float(sg.acquisition(_port_state(js, f64), rule, x[i], theta))
+        np.testing.assert_allclose(float(v[i]), v_cross, rtol=1e-6, atol=1e-9)
+        np.testing.assert_allclose(v_cross, vbest, rtol=1e-6, atol=1e-9)
+
+
+def test_maximize_hot_flattens_lane_axes():
+    """maximize_hot on a (2, 3)-lane state equals one flat solver call, and
+    the CPU route launches no kernel."""
+    f64 = torch.float64
+    states = _jax_states(6, 6, 2, 9, jK.matern52((0.8,)), 8, jnp.float64)
+    ports = [_port_state(s, f64) for s in states]
+    st = _stack(ports, (2, 3))
+    lbs, ubs = torch.full((2,), -1.0, dtype=f64), torch.full((2,), 1.0, dtype=f64)
+    xstarts = torch.tensor(qmc.generate_initial_guesses(3, -np.ones(2), np.ones(2)),
+                           dtype=f64)
+    before = nl.LAUNCHES
+    x, v = solvers.maximize_hot(st, dr.EI(), torch.zeros((2, 3, 1), dtype=f64),
+                                lbs, ubs, xstarts, iterations=6)
+    assert nl.LAUNCHES == before
+    assert x.shape == (2, 3, 2) and v.shape == (2, 3)
+    flat = _stack(ports, (6,))
+    W = flat.Li.transpose(-1, -2) @ flat.Li
+    xf, vf = nl.newton_solve_lanes_ref(flat.X, W, flat.c, flat.n,
+                                       sg.get_active_minimum(flat),
+                                       torch.zeros(6, dtype=f64), 0.8, lbs, ubs,
+                                       xstarts, iterations=6)
+    np.testing.assert_allclose(x.reshape(6, 2).numpy(), xf.numpy(), rtol=1e-12)
+    np.testing.assert_allclose(v.reshape(6).numpy(), vf.numpy(), rtol=1e-12)
+
+
+def test_all_starts_nonfinite_gives_zero_and_neg_inf():
+    """A lane whose every start evaluates to NaN (here: a NaN incumbent)
+    returns x = 0, v = -inf (the JAX kernel's sequential start reduction)."""
+    f64 = torch.float64
+    X = torch.zeros((1, 4, 2), dtype=f64)
+    W = 0.1 * torch.eye(4, dtype=f64)[None]
+    c = torch.ones((1, 4), dtype=f64)
+    nan = torch.full((1,), float("nan"), dtype=f64)
+    x, v = nl.newton_solve_lanes(X, W, c, torch.tensor([2]), nan,
+                                 torch.zeros(1, dtype=f64), 0.8,
+                                 torch.full((2,), -1.0, dtype=f64),
+                                 torch.full((2,), 1.0, dtype=f64),
+                                 torch.zeros((3, 2), dtype=f64), iterations=2)
+    assert torch.equal(x, torch.zeros((1, 2), dtype=f64))
+    assert v.item() == float("-inf")
+
+
+def test_arguments_are_checked_on_every_route():
+    """The checks the CUDA route relies on (dtype, shape, contiguity,
+    supported kind / rule) run for CPU tensors too."""
+    f64 = torch.float64
+    X = torch.zeros((2, 4, 2), dtype=f64)
+    W = torch.eye(4, dtype=f64).expand(2, 4, 4).contiguous()
+    hist = torch.zeros((2, 3, 4), dtype=f64)
+    n, z = torch.tensor([2, 3]), torch.zeros(2, dtype=f64)
+    box = (torch.full((2,), -1.0, dtype=f64), torch.full((2,), 1.0, dtype=f64),
+           torch.zeros((3, 2), dtype=f64))
+    ok = nl.newton_solve_lanes(X, W, hist[:, 0].contiguous(), n, z, z, 0.8, *box,
+                               iterations=1)
+    assert ok[0].shape == (2, 2)
+    bad = [((X, W, hist[:, 0], n, z, z), {}, "contiguous"),            # strided view
+           ((X, W, hist[:, 0].contiguous(), n.int(), z, z), {}, "int64"),
+           ((X.float(), W, hist[:, 0].contiguous(), n, z, z), {}, "float32"),
+           ((X, W, hist[:, 0].contiguous(), n, z, z), {"rule": "Random"}, "unsupported")]
+    for args, kw, msg in bad:
+        with pytest.raises(ValueError, match=msg):
+            nl.newton_solve_lanes(*args, 0.8, *box, iterations=1, **kw)
