@@ -8,17 +8,28 @@ Run from the repository root on a machine with one NVIDIA Hopper card
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: compiles csrc/newton_lanes.cu with nvcc (sm_90a) and prints the
-   build seconds and the compiler's register / spill report;
+   build seconds, the compiler's register / stack / spill report and the
+   blocks an SM holds at the bench shape;
 3. kernel vs plain version on the card: the CUDA Newton lane kernel
    against `newton_solve_lanes_ref` on the same inputs, at the bench shape
    (1600 lanes, capacity 24, d 10, 10 starts, matern52 / EI, float32),
    on lanes of that shape whose Newton steps move, at d = 16 (the
-   kernel's maximum), and at small shapes for every kernel kind x rule in
-   float32 and float64 with per-lane active counts, plus the loose freeze
-   (POI).
+   kernel's maximum) in float32 and float64, each timed and set against
+   the least time the card could take for the same work; at small shapes
+   for every kernel kind x rule in float32 and float64 with per-lane active
+   counts, plus the loose freeze (POI); and at the edges of the block
+   layout (1 and 40 starts, 7 and 1601 lanes, a lane with no data and a
+   full one, capacity 64 at d 16 in float64).
    Criteria (tests/test_pallas_newton.py): (a) the kernel's value matches
    a plain re-evaluation of the acquisition at its argmax; (b) its
-   solution is never worse than the plain solver's beyond tolerance;
+   solution is never worse than the plain solver's beyond tolerance. In
+   float32, rounding can part two correct solvers on a lane (another
+   backtracking step at a near-tie, then another basin): where the kernel
+   misses (b) or ends elsewhere than the plain version, the plain
+   version's float64 run on the same inputs arbitrates. (b) is void on a
+   lane where that run and the float32 one are themselves farther apart
+   than (b) grants, and a lane agrees if the kernel ends where the
+   float64 run does; both counts are printed;
 4. main path: `stochastic_solve_fused(select_best=True)` at the exact
    bench.py configuration (trid10d, horizon 3, 200 QMC trajectories, 8
    restarts, 10 + 8 + 2 inner starts, 50 SGA iterations, float32) on the
@@ -29,7 +40,9 @@ Run from the repository root on a machine with one NVIDIA Hopper card
 
 It prints one JSON line describing the kernel (launches on the main path;
 max |v_kernel - v_plain| over the bench-shape lanes; the kernel's and the
-plain version's ms per call at the bench shape), then, as the last line,
+plain version's ms per call at the bench shape; `bound_ms`, the least time
+the card could take for that call, from `lane_solve_work`), then, as the
+last line,
 {"ok": true, "device": {...}}. Any failure raises before those lines and
 exits non-zero; without a CUDA device it exits non-zero at once.
 """
@@ -50,6 +63,10 @@ import torch
 _TOL = {torch.float32: dict(rtol=2e-3, atol=1e-5, worse=5e-4),
         torch.float64: dict(rtol=1e-6, atol=1e-9, worse=1e-6)}
 _LOG_ATOL = {torch.float32: 2e-3, torch.float64: 1e-6}
+# H100 SXM peaks: bytes/s of HBM3; FLOP/s outside the tensor cores (float64
+# at half the float32 rate)
+_PEAK_BYTES = 3.35e12
+_PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 33.5e12}
 
 
 def phase_device():
@@ -66,6 +83,7 @@ def phase_device():
 
 def phase_build():
     from rollout_bo_tpu_torch.ops import _build
+    from rollout_bo_tpu_torch.ops import newton_lanes as nl
 
     t0 = time.perf_counter()
     _build.load("newton_lanes")
@@ -73,9 +91,19 @@ def phase_build():
     built = _build.build_seconds("newton_lanes")
     print(f"build: newton_lanes.cu loaded in {seconds:.2f} s "
           f"({'nvcc ' + format(built, '.2f') + ' s' if built is not None else 'cached'})")
+    inst = ()
     for line in _build.build_log("newton_lanes").splitlines():
+        if "Compiling entry" in line:
+            inst = ("float64" if "kernelId" in line else "float32",
+                    "W staged" if "Lb1E" in line else "W in device memory")
         if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+            print(f"  ptxas ({', '.join(inst)}):", line.strip())
+    lanes, groups, stage_w, smem = nl._block_shape(24, 10, 10, 4)
+    threads = lanes * groups * nl._GROUP
+    blocks = nl._library().newton_lanes_blocks_per_sm(4, int(stage_w), threads, smem)
+    print(f"  bench shape (cap 24, d 10, S 10, float32): blocks of {lanes} lane x {groups} "
+          f"warps = {threads} threads, {smem} B of shared memory, {blocks} blocks "
+          f"({blocks * threads // 32} warps) resident per SM")
     return seconds
 
 
@@ -114,8 +142,19 @@ def _events_ms(fn, reps):
     return start.elapsed_time(stop) / reps, out
 
 
+def _as_f64(st, args):
+    """The same lanes in float64: the state and the solver's arguments, cast."""
+    from rollout_bo_tpu_torch.ops import kernels as K
+
+    cast = lambda a: a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+    st64 = st._replace(kernel=K.RBFKernel(st.kernel.theta.double(), st.kernel.kind),
+                       **{f: cast(getattr(st, f)) for f in ("X", "y", "L", "c", "noise", "Li")})
+    return st64, tuple(cast(a) for a in args)
+
+
 def _compare(st, rule, th, lbs, ubs, xstarts, iterations, label, timing=False):
-    """Kernel vs plain version on the same CUDA lanes; returns the stats."""
+    """Kernel vs plain version on the same CUDA lanes; returns the stats
+    (with `timing`, also both times and the kernel's work and bound)."""
     from rollout_bo_tpu_torch.models import surrogate as sg
     from rollout_bo_tpu_torch.ops import newton_lanes as nl
 
@@ -155,9 +194,21 @@ def _compare(st, rule, th, lbs, ubs, xstarts, iterations, label, timing=False):
     # tests/test_pallas_newton.py::test_pallas_loose_freeze_f32_matches_xla does
     slack = (rule.solve_f_tol * (vr_cross.abs() + 1.0) if rule.solve_f_tol > 0
              else tol["worse"] * scale + 1e-6)
-    ok_b = bool(torch.all(vk_cross >= vr_cross - slack))
     width = float(torch.max(ubs - lbs))
-    agree = float(((xk - xr).abs().amax(dim=-1) <= 1e-3 * width).double().mean())
+    miss = vk_cross < vr_cross - slack
+    far = (xk - xr).abs().amax(dim=-1) > 1e-3 * width
+    agree = 1.0 - float(far.double().mean())
+    void = sided = 0
+    if dt == torch.float32 and bool(torch.any(miss | far)):
+        # the plain version in float64 on the same inputs arbitrates
+        st64, args64 = _as_f64(st, args)
+        x64, _ = nl.newton_solve_lanes_ref(*args64, **kw)
+        value = lambda x: sg.acquisition(st64, rule, x.double(), th.double())
+        undetermined = (value(xr) - value(x64)).abs() > slack
+        with64 = (xk.double() - x64).abs().amax(dim=-1) <= 1e-3 * width
+        void, sided = int((miss & undetermined).sum()), int((far & with64).sum())
+        miss, far = miss & ~undetermined, far & ~with64
+    ok_b = not bool(torch.any(miss))
     starts = torch.maximum(torch.minimum(xstarts, ubs), lbs)
     stayed = (xk[:, None, :] - starts[None]).abs().amax(dim=-1).amin(dim=-1) <= 1e-6 * width
     moved = float((~stayed).double().mean())
@@ -168,11 +219,23 @@ def _compare(st, rule, th, lbs, ubs, xstarts, iterations, label, timing=False):
             f"(a: {ok_a}, max |v - acq(x)| = {float(err.max()):.3e} at lane {i}: "
             f"{float(vk[i])} vs {float(vk_cross[i])}; b: {ok_b}, min kernel - plain = "
             f"{float((vk_cross - vr_cross).min()):.3e})")
+    flops, nbytes = nl.lane_solve_work(st.n.tolist(), st.X.shape[1], st.X.shape[2],
+                                       xstarts.shape[0], iterations, st.X.element_size())
+    bound_ops, bound_bytes = flops / _PEAK_FLOPS[dt] * 1e3, nbytes / _PEAK_BYTES * 1e3
     return dict(max_abs_err=float(vs_plain.max()), max_err_reeval=float(err.max()),
-                agree=agree, moved=moved, ms=ms, plain_ms=plain_ms)
+                agree=agree, apart=int(far.sum()), sided=sided, void=void, moved=moved,
+                ms=ms, plain_ms=plain_ms, flops=flops,
+                bytes=nbytes, bound_ms=max(bound_ops, bound_bytes),
+                bound_by="operations" if bound_ops >= bound_bytes else "bytes")
 
 
-def phase_kernel_checks(dev):
+def _work_line(r, card):
+    return (f"  work {r['flops'] / 1e9:.3f} GFLOP, {r['bytes']} B; bound {r['bound_ms']:.4f} ms "
+            f"(by {r['bound_by']}); kernel {r['ms']:.3f} ms, {r['bound_ms'] / r['ms']:.4f} of "
+            f"the bound reached; plain {r['plain_ms']:.3f} ms; on {card}")
+
+
+def phase_kernel_checks(dev, card):
     from rollout_bo_tpu_torch.models import decision_rules as dr
     from rollout_bo_tpu_torch.models import testfns
     from rollout_bo_tpu_torch.ops import newton_lanes as nl
@@ -196,6 +259,11 @@ def phase_kernel_checks(dev):
           f"lanes that left their start {bench['moved']:.4f} "
           f"(criteria: (a) |v - acq(x)| <= 2e-3 |acq(x)| + 1e-5 max(1, |acq|); "
           f"(b) acq(x_kernel) >= acq(x_plain) - 5e-4 max(1, |acq|) - 1e-6)")
+    print(_work_line(bench, card))
+    # every backtracking candidate ties on these lanes: the tie rule's check
+    if bench["max_abs_err"] != 0.0 or bench["agree"] != 1.0:
+        raise AssertionError(f"bench lanes: max |v_kernel - v_plain| {bench['max_abs_err']} "
+                             f"!= 0 or argmax agreement {bench['agree']} != 1")
 
     # the bench's lanes sit on EI plateaus (lengthscale 1 in a box of width
     # 200), so check the same shape on lanes whose Newton steps move, and
@@ -208,7 +276,8 @@ def phase_kernel_checks(dev):
             st = _lane_state(lanes, d, 24, "matern52", (0.8,), lo, hi, dt, dev, 5)
             th = torch.zeros((st.X.shape[0], 1), dtype=dt, device=dev)
             r = _compare(st, dr.EI(), th, t(lo), t(hi),
-                         t(qmc.generate_initial_guesses(8, lo, hi)), 10, f"d={d} {dt}")
+                         t(qmc.generate_initial_guesses(8, lo, hi)), 10, f"d={d} {dt}",
+                         timing=True)
             if d == 10:
                 # the reported error covers both sets of lanes at the bench shape
                 bench["max_abs_err"] = max(bench["max_abs_err"], r["max_abs_err"])
@@ -216,11 +285,17 @@ def phase_kernel_checks(dev):
                   f"matern52/EI, {dt}: argmax agreement {r['agree']:.4f}, "
                   f"max |v_kernel - v_plain| {r['max_abs_err']:.3e}, max |v - acq(x)| "
                   f"{r['max_err_reeval']:.3e}, lanes that left their start {r['moved']:.4f}")
+            print(_work_line(r, card))
+            print(f"  lanes that end elsewhere than the plain version: {r['sided']} with its "
+                  f"float64 run, {r['apart']} with neither; lanes void for (b): {r['void']}")
+            if r["apart"]:
+                raise AssertionError(f"d={d} {dt}: {r['apart']} lanes end neither where the "
+                                     f"plain version does nor where its float64 run does")
 
     # small shapes: every kind x rule, per-lane n, both dtypes
     d, cap = 3, 12
     lo, hi = np.full(d, -1.0), np.full(d, 1.0)
-    n_small = 0
+    n_small = n_void = 0
     for dt in (torch.float32, torch.float64):
         t = lambda a: torch.tensor(np.asarray(a), dtype=dt, device=dev)
         xs = t(qmc.generate_initial_guesses(6, lo, hi))
@@ -236,12 +311,52 @@ def phase_kernel_checks(dev):
                 if name == "POI":
                     rules.append(dr.POI())
                 for rule in rules:
-                    _compare(st, rule, th, t(lo), t(hi), xs, 8,
-                             f"{kind}/{name}/{dt} loose={rule.solve_f_tol > 0}")
+                    r = _compare(st, rule, th, t(lo), t(hi), xs, 8,
+                                 f"{kind}/{name}/{dt} loose={rule.solve_f_tol > 0}")
                     n_small += 1
+                    n_void += r["void"]
     print(f"kernel vs plain, small shapes: {n_small} kind x rule x dtype cases "
-          f"(per-lane n in 3..12, loose POI in f32 and f64) passed")
+          f"(per-lane n in 3..12, loose POI in f32 and f64) passed; float32 lanes void "
+          f"for (b): {n_void}")
+
+    for label, void in _edge_cases(dev):
+        print(f"kernel vs plain, edge of the block layout: {label} passed; lanes void "
+              f"for (b): {void}")
     return bench
+
+
+def _edge_cases(dev):
+    """Shapes at the edges of the kernel's block layout, each held to the
+    criteria (a) and (b); yields a label and the lanes void for (b) per case."""
+    from rollout_bo_tpu_torch.models import decision_rules as dr
+    from rollout_bo_tpu_torch.ops import newton_lanes as nl
+    from rollout_bo_tpu_torch.ops import qmc
+
+    f32, f64 = torch.float32, torch.float64
+    rng = np.random.default_rng(3)
+    # (label, lanes by active count, d, capacity, starts, dtype, lanes emptied)
+    cases = [("1 start (8 lanes per block)", {5: 20, 9: 21}, 3, 12, 1, f64, 0),
+             ("40 starts (3 starts per warp)", {5: 8, 9: 9}, 3, 12, 40, f64, 0),
+             ("7 lanes of 1 start (a block not filled)", {6: 7}, 2, 8, 1, f32, 0),
+             ("1601 lanes (a last block of one lane)", {4: 800, 7: 801}, 2, 8, 2, f32, 0),
+             ("lanes with n = 0 and n = capacity", {12: 12}, 3, 12, 6, f64, 4),
+             ("capacity 64, d 16, float64 (shared memory: "
+              f"{nl._block_shape(64, 16, 6, 8)[3]} B)", {40: 4, 64: 4}, 16, 64, 6, f64, 0)]
+    for label, sizes, d, cap, S, dt, emptied in cases:
+        t = lambda a: torch.tensor(np.asarray(a), dtype=dt, device=dev)
+        lo, hi = np.full(d, -1.0), np.full(d, 1.0)
+        st = _lane_state(sizes, d, cap, "matern52", (0.8,), lo, hi, dt, dev, 13)
+        rule, theta = dr.EI(), 0.0
+        if emptied:
+            # LCB does not read the incumbent, which a lane without data lacks
+            n = st.n.clone()
+            n[:emptied] = 0
+            st, rule, theta = st._replace(n=n), dr.DecisionRule("LCB"), 0.5
+        xs = t(qmc.generate_initial_guesses(S - 2, lo, hi)) if S > 2 else \
+            t(rng.uniform(lo, hi, (S, d)))
+        th = torch.full((st.X.shape[0], 1), theta, dtype=dt, device=dev)
+        r = _compare(st, rule, th, t(lo), t(hi), xs, 6, label)
+        yield label, r["void"]
 
 
 # --------------------------------------------------------------------------
@@ -265,7 +380,8 @@ def _bench_problem(dev, dtype, name="trid10d", n_obs=12, capacity=20, mc=200,
     rng = np.random.default_rng(1906)
     X0 = qmc.randsample(n_obs, d, f.lbs, f.ubs, rng)
     y0 = f.batch(torch.tensor(X0, dtype=torch.float64)).numpy()
-    state = sg.fit(K.matern52((1.0,)), X0, y0, capacity=capacity, noise=1e-5,
+    state = sg.fit(K.matern52((1.0,), device=dev, dtype=dtype), X0, y0,
+                   capacity=capacity, noise=1e-5,
                    device=dev, dtype=dtype)
     xstarts = t(qmc.generate_initial_guesses(starts, f.lbs, f.ubs))
     z = qmc.gen_low_discrepancy_sequence(mc, d, horizon + 1)
@@ -345,7 +461,7 @@ def main():
     dev = torch.device("cuda", 0)
     phase_build()
     torch.cuda.synchronize()
-    bench = phase_kernel_checks(dev)
+    bench = phase_kernel_checks(dev, smi)
     torch.cuda.synchronize()
     launches, _ = phase_main_path(dev, smi)
     torch.cuda.synchronize()
@@ -358,6 +474,9 @@ def main():
         "max_abs_err": bench["max_abs_err"],
         "ms": bench["ms"],
         "plain_ms": bench["plain_ms"],
+        "bound_ms": bench["bound_ms"],
+        "bound_by": bench["bound_by"],
+        "library_ms": None,     # no single PyTorch call computes a multistart Newton solve
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -9,31 +9,73 @@
 // solves; backtracking over 2 directions x 9 steps. Then the best start
 // per lane wins (first start on a tie, non-finite values count as -inf).
 //
-// What bounds it on an H100: per-lane scalar floating-point work. At the
-// bench shape (1600 lanes, capacity 24, d 10, 10 starts, 10 iterations)
-// one launch does about 5 GFLOP over only ~5 MB of lane state, with
-// branches and small dense solves that no tensor core takes. The design
-// follows from that:
-// - one thread per (lane, start), so every Newton step is sequential
-//   scalar code in one thread and the parallelism is lanes x starts;
-// - a block holds a few lanes x S starts; each lane's X, W and c are
-//   staged once in shared memory and its S threads read them there (the
-//   TPU kept them resident in VMEM for the same reason);
-// - per-thread scratch rows (k(x, X), psi'/rho, b, K^{-1} k) live in shared
-//   memory in thread-fastest order, so a warp's accesses do not conflict;
-// - d x d matrices (Hessian, Cholesky factor) are per-thread arrays and
-//   may spill to local memory; loops over the data run to the lane's
-//   active count n, not the capacity (padding contributes exact zeros).
-// d and the capacity are runtime values (d <= MAX_D); kind, rule and the
-// loose freeze are runtime switches uniform across a launch, so the build
-// is one instantiation per dtype. The math mirrors the plain PyTorch
-// version in rollout_bo_tpu_torch/ops/newton_lanes.py and the closed-form
-// rules in rollout_bo_tpu_torch/models/decision_rules.py.
+// What bounds it on an H100: operations, not bytes. At the bench shape
+// (1600 lanes, capacity 24, d 10, 10 starts, 10 iterations) one launch needs
+// about 4.7 GFLOP of scalar floating-point work (ops/newton_lanes.py::
+// lane_solve_work) over ~5.4 MB of lane state: ~0.07 ms at the card's 67
+// TFLOP/s of float32 outside the tensor cores (float64: half that rate),
+// against ~0.002 ms for the bytes. The work is 16,000 independent solves
+// of ~29 kFLOP per Newton step, each a chain of
+// small reductions, one or two d x d Cholesky solves and data-dependent branches.
+// TMA, wgmma and thread-block clusters have no use here: no large tile is
+// copied (a lane is a few KB, staged once by plain loads) and no product is
+// large enough for a tensor core (the largest is n x n by n x d, n ~ 14).
+//
+// The design: a group of G cooperating threads (G = 32, one warp) owns one
+// (lane, start), so the card sees lanes x starts warps instead of as many
+// threads, and no thread holds a d x d array in local memory.
+// - A block holds `lanes_per_block` lanes x `groups_per_lane` groups. Each
+//   lane's X, W and c are staged once in shared memory, rows padded to an
+//   odd stride so that threads on different rows hit different banks; a
+//   group loops over the starts ws, ws + groups_per_lane, ... When one
+//   lane's W does not fit, it stays in device memory (template kStageW).
+// - Passes over the data (k(x, X), psi'/rho, b; w = W k): thread t takes the
+//   rows t, t + G, ...; mu, the variance and the isotropic terms are
+//   butterfly reductions by __shfl_xor_sync, a fixed tree, so a run repeats
+//   bit for bit and every thread of the group holds the same sum.
+// - Gradients: thread k < d owns component k of every d-vector (x, grad mu,
+//   grad sigma, the free mask, the directions).
+// - Hessian: the rows G_j = a_j r_j are stored once; Q = coef r + ga W G
+//   (n x d) is built with one (rows, column) strip per thread; then each
+//   thread owns a few of the d (d + 1) / 2 symmetric entries and sums
+//   r_j[i] Q_j[k] over the data. No reduction, no read-modify-write.
+// - Cholesky: thread i keeps row i of the factor in registers (loops
+//   unrolled to MAX_D, every index a constant), right-looking, the column
+//   of each step broadcast by shuffles; the forward solve broadcasts one
+//   finished component per step, the backward one reads L' from a copy in
+//   shared memory. Which solve is taken (ridge, Gershgorin shift, scaled
+//   gradient) is uniform across the group.
+// - Backtracking: the 18 candidates x n data rows are dealt to the threads
+//   in tiles of 2 points x 2 rows, for k(x_c, X_j) and then for W k; thread
+//   c sums candidate c's mu and variance in data order. The winner is the
+//   largest value strictly above the current one, the lowest candidate
+//   index on a tie: what the sequential strict `>` loop selects.
+// - Best start: each group keeps its best (value, start, x) in start order;
+//   after a barrier the lane's first group picks the largest value, lowest
+//   start on a tie.
+// Shared memory per group (words of T, dp = d | 1): 5 cap rows + 2 cap x
+// max(dp, 18) (G and Q, reused for the candidates' k and W k columns) +
+// 2 d dp (A and its factor) + 18 dp (candidates) + 7 dp (vectors) + dp + 2
+// (result). At the bench shape that is 1,492 words: 5,968 B in float32, so a
+// block of one lane x 10 groups (320 threads) takes 63,320 B with the lane's
+// 3,640 B. float32 is held to 64 registers (__launch_bounds__), so three
+// such blocks, 30 warps, are resident per SM (shared memory would allow
+// three as well); float64 keeps 128 registers and one or two blocks.
+// rollout_bo_tpu_torch/ops/newton_lanes.py::_block_shape computes the same
+// layout and must match `GroupScratch` and the kernel's carve-up below.
+//
+// d and the capacity are runtime values (d <= MAX_D <= G); kind, rule and the
+// loose freeze are runtime switches uniform across a launch. The math
+// mirrors the plain PyTorch version in rollout_bo_tpu_torch/ops/
+// newton_lanes.py and the closed-form rules in rollout_bo_tpu_torch/models/
+// decision_rules.py.
 //
 // Built by rollout_bo_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC
 // and bound through the plain C entry points at the bottom (ctypes).
+// -DNEWTON_LANES_PROFILE adds cycle counts per phase of an iteration, for
+// scripts/ab_newton_lanes_cuda.py; the package builds without it.
 
 #include <cuda_runtime.h>
 
@@ -52,7 +94,16 @@ constexpr double kZClamp = 30.0;
 constexpr double kInvSqrt2Pi = 0.3989422804014327;
 constexpr double kHalfLog2Pi = 0.9189385332046727;
 constexpr double kPi = 3.141592653589793;
-constexpr int kBacktrack = 9;
+constexpr int kBacktrack = 9;            // steps per direction
+constexpr int kCand = 2 * kBacktrack;    // candidates per iteration
+constexpr int kG = 32;                   // threads that share one (lane, start): a warp
+constexpr int kMaxThreads = 512;         // per block; the wrapper sizes blocks within it
+// Blocks of kMaxThreads that an SM must hold. 2 caps float32 at 64 registers,
+// so that three 320-thread blocks (30 warps) are resident at the bench shape:
+// measured faster than 80, 96 or 128 registers with fewer warps, spills and
+// all. float64 keeps 128 registers; its shared memory allows one or two blocks.
+template <typename T> constexpr int min_blocks() { return sizeof(T) == 4 ? 2 : 1; }
+static_assert(MAX_D <= kG, "thread k of a group owns component k of a d-vector");
 
 __constant__ double kCCoef[13] = {
     7.357126067616959e-05, -0.003030332555429463, -0.9460333971085013,
@@ -72,6 +123,8 @@ __device__ __forceinline__ float m_exp(float x) { return expf(x); }
 __device__ __forceinline__ double m_exp(double x) { return exp(x); }
 __device__ __forceinline__ float m_log(float x) { return logf(x); }
 __device__ __forceinline__ double m_log(double x) { return log(x); }
+__device__ __forceinline__ float m_rsqrt(float x) { return rsqrtf(x); }
+__device__ __forceinline__ double m_rsqrt(double x) { return 1.0 / sqrt(x); }
 __device__ __forceinline__ float m_sqrt(float x) { return sqrtf(x); }
 __device__ __forceinline__ double m_sqrt(double x) { return sqrt(x); }
 __device__ __forceinline__ float m_sin(float x) { return sinf(x); }
@@ -171,11 +224,22 @@ __device__ void profile_terms(int kind, T rho, T sq, T ell, T period, T& psi,
   }
 }
 
+// psi alone (the backtracking candidates): the same expressions as above
 template <typename T>
 __device__ __forceinline__ T profile_psi(int kind, T rho, T sq, T ell, T period) {
-  T psi, a, b, iso;
-  profile_terms(kind, rho, sq, ell, period, psi, a, b, iso);
-  return psi;
+  if (kind == PERIODIC) {
+    const T su = m_sin(T(kPi) / period * rho);
+    return m_exp(-(T(2) / (ell * ell)) * su * su);
+  } else if (kind == MATERN52) {
+    const T s = m_sqrt(T(5)) / ell * rho;
+    return (T(1) + s * (T(1) + s / T(3))) * m_exp(-s);
+  } else if (kind == MATERN32) {
+    const T s = m_sqrt(T(3)) / ell * rho;
+    return (T(1) + s) * m_exp(-s);
+  } else if (kind == MATERN12) {
+    return m_exp(-(T(1) / ell) * rho);
+  }
+  return m_exp(-sq / (T(2) * (ell * ell)));
 }
 
 // ---- decision rules (models/decision_rules.py) ------------------------------
@@ -296,137 +360,286 @@ __device__ void rule_partials(int rule, T mu, T sigma, T th, T fm, T stol, T* ou
   out[4] = (z * up + u) / s2 * dsig;
 }
 
-// ---- one lane, one start ---------------------------------------------------------
-template <typename T> struct LaneCtx {
-  const T* X;   // (cap, d) in shared memory
-  const T* W;   // (cap, cap) in shared memory
-  const T* c;   // (cap,) in shared memory
-  T* kx;        // per-thread scratch rows, element j at [j * stride]
-  T* av;
-  T* bv;
-  T* wv;
-  int stride;
-  int n, cap, d, kind, rule;
-  T ell, period, k0, iso0, fm, th, stol, sfloor;
-};
+#ifdef NEWTON_LANES_PROFILE
+// cycles per phase of group_iteration, summed over every group's thread 0
+__device__ unsigned long long g_phase_cycles[8];
+#define PHASE_MARK(i)                                                   \
+  do {                                                                  \
+    const long long now_ = clock64();                                   \
+    if (t == 0) atomicAdd(&g_phase_cycles[i], (unsigned long long)(now_ - mark_)); \
+    mark_ = now_;                                                       \
+  } while (0)
+#define PHASE_START() long long mark_ = clock64()
+#else
+#define PHASE_MARK(i)
+#define PHASE_START()
+#endif
 
-// mu, sigma at x (the backtracking candidates' value path)
-template <typename T> __device__ T lane_value(const LaneCtx<T>& L, const T* x) {
-  const int d = L.d;
-  T mu = T(0);
-  for (int j = 0; j < L.n; ++j) {
-    const T* Xj = L.X + j * d;
-    T sq = T(0);
-    for (int k = 0; k < d; ++k) {
-      const T r = x[k] - Xj[k];
-      sq += r * r;
-    }
-    const T psi = profile_psi(L.kind, m_sqrt(jmax(sq, T(0))), sq, L.ell, L.period);
-    L.kx[j * L.stride] = psi;
-    mu += psi * L.c[j];
-  }
-  T quad = T(0);
-  for (int j = 0; j < L.n; ++j) {
-    const T* Wj = L.W + j * L.cap;
-    T wj = T(0);
-    for (int l = 0; l < L.n; ++l) wj += Wj[l] * L.kx[l * L.stride];
-    quad += L.kx[j * L.stride] * wj;
-  }
-  const T var = jmax(L.k0 - quad, L.sfloor * L.sfloor);
-  return rule_value(L.rule, mu, m_sqrt(var), L.th, L.fm, L.stol);
+// ---- a group of kG threads: reductions with a fixed butterfly tree -------------
+template <typename T> __device__ __forceinline__ T group_sum(unsigned m, T v) {
+#pragma unroll
+  for (int o = kG / 2; o > 0; o >>= 1) v += __shfl_xor_sync(m, v, o, kG);
+  return v;
+}
+// NaN-propagating maximum, like the sequential jmax chain
+template <typename T> __device__ __forceinline__ T group_max(unsigned m, T v) {
+#pragma unroll
+  for (int o = kG / 2; o > 0; o >>= 1) v = jmax(v, __shfl_xor_sync(m, v, o, kG));
+  return v;
+}
+__device__ __forceinline__ int group_min(unsigned m, int v) {
+#pragma unroll
+  for (int o = kG / 2; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(m, v, o, kG));
+  return v;
 }
 
-// Solve (A + tau I) p = g by Cholesky; NaN entries when not PD.
+// ---- one lane and one group's scratch ----------------------------------------------
+template <typename T> struct Lane {
+  const T* X;  // (cap, dp) in shared memory
+  const T* W;  // rows at stride wst: shared memory (kStageW) or device memory
+  const T* c;  // (cap,) in shared memory
+  const T* lb;  // (d,) in shared memory
+  const T* ub;
+  int n, d, dp, wst, kind, rule;
+  T ell, period, k0, fm, th, stol, sfloor;
+};
+
+// Offsets into one group's shared memory, in words of T; the Python
+// _block_shape counts the same words.
+template <typename T> struct GroupScratch {
+  T* base;
+  int cap, d, dp;
+  __device__ __forceinline__ T* kx() const { return base; }  // k(x, X)
+  __device__ __forceinline__ T* av() const { return base + cap; }  // psi'/rho
+  __device__ __forceinline__ T* bv() const { return base + 2 * cap; }
+  __device__ __forceinline__ T* wv() const { return base + 3 * cap; }  // W k
+  __device__ __forceinline__ T* ia() const { return base + 4 * cap; }  // a, or iso at rho = 0
+  __device__ __forceinline__ T* Gm() const { return base + 5 * cap; }  // (cap, dp) a_j r_j
+  __device__ __forceinline__ T* Q() const { return Gm() + cap * dp; }  // (cap, dp)
+  // after Q is spent, the candidates' k(x, X) and W k, (cap, kCand) each
+  __device__ __forceinline__ T* kxc() const { return Gm(); }
+  __device__ __forceinline__ T* wc() const { return Gm() + cap * kCand; }
+  __device__ static int gq_words(int cap, int dp) {
+    return cap * (dp > kCand ? 2 * dp : 2 * kCand);
+  }
+  __device__ __forceinline__ T* A() const { return Gm() + gq_words(cap, dp); }  // (d, dp)
+  __device__ __forceinline__ T* Lc() const { return A() + d * dp; }  // (d, dp) its factor
+  __device__ __forceinline__ T* cand() const { return Lc() + d * dp; }  // (kCand, dp)
+  __device__ __forceinline__ T* vec(int i) const { return cand() + (kCand + i) * dp; }
+  __device__ __forceinline__ T* xs() const { return vec(0); }  // current point
+  __device__ __forceinline__ T* gm() const { return vec(1); }  // grad mu
+  __device__ __forceinline__ T* gs() const { return vec(2); }  // grad sigma
+  __device__ __forceinline__ T* fr() const { return vec(3); }  // free mask
+  __device__ __forceinline__ T* gf() const { return vec(4); }  // free gradient
+  __device__ __forceinline__ T* pv() const { return vec(5); }  // Newton direction
+  __device__ __forceinline__ T* gv() const { return vec(6); }  // gradient step
+  __device__ __forceinline__ T* res() const { return vec(7); }  // (dp + 2) best of the group
+  __device__ static int words(int cap, int d, int dp) {
+    return 5 * cap + gq_words(cap, dp) + 2 * d * dp + (kCand + 7) * dp + dp + 2;
+  }
+};
+
+// The rule's value at kNc points x_c (rows of xc at stride dp), by the whole
+// group; thread c gets the value of x_c, c + kG, ... in turn through `take`.
+// k(x_c, X_j) and (W k)_j are computed in tiles of 2 points x 2 data rows
+// per thread: four independent chains from four loads per step, and half
+// the loads of one (point, row) pair per thread. A tile at the ragged edge
+// repeats its last valid row or point. Every sum runs over the data in
+// order, as a single thread would.
+template <int kNc, typename T, typename F>
+__device__ __forceinline__ void candidate_values(const Lane<T>& L, const GroupScratch<T>& S,
+                                                 const T* xc, int t, unsigned m, F take) {
+  constexpr int kCp = (kNc + 1) / 2;  // point pairs
+  const int d = L.d, n = L.n, dp = L.dp, wst = L.wst;
+  const int ntiles = ((n + 1) / 2) * kCp;
+  T* kxc = S.kxc();
+  T* wc = S.wc();
+  for (int q = t; q < ntiles; q += kG) {
+    const int jp = q / kCp;
+    const int c0 = 2 * (q - jp * kCp), c1 = min(c0 + 1, kNc - 1);
+    const int j0 = 2 * jp, j1 = min(j0 + 1, n - 1);
+    const T* xa = xc + c0 * dp;
+    const T* xb = xc + c1 * dp;
+    const T* Xa = L.X + j0 * dp;
+    const T* Xb = L.X + j1 * dp;
+    T saa = T(0), sab = T(0), sba = T(0), sbb = T(0);  // s<point><row>
+    for (int k = 0; k < d; ++k) {
+      const T xak = xa[k], xbk = xb[k], Xak = Xa[k], Xbk = Xb[k];
+      const T raa = xak - Xak, rab = xak - Xbk, rba = xbk - Xak, rbb = xbk - Xbk;
+      saa += raa * raa;
+      sab += rab * rab;
+      sba += rba * rba;
+      sbb += rbb * rbb;
+    }
+    kxc[j0 * kNc + c0] = profile_psi(L.kind, m_sqrt(jmax(saa, T(0))), saa, L.ell, L.period);
+    kxc[j1 * kNc + c0] = profile_psi(L.kind, m_sqrt(jmax(sab, T(0))), sab, L.ell, L.period);
+    kxc[j0 * kNc + c1] = profile_psi(L.kind, m_sqrt(jmax(sba, T(0))), sba, L.ell, L.period);
+    kxc[j1 * kNc + c1] = profile_psi(L.kind, m_sqrt(jmax(sbb, T(0))), sbb, L.ell, L.period);
+  }
+  __syncwarp(m);
+  for (int q = t; q < ntiles; q += kG) {
+    const int jp = q / kCp;
+    const int c0 = 2 * (q - jp * kCp), c1 = min(c0 + 1, kNc - 1);
+    const int j0 = 2 * jp, j1 = min(j0 + 1, n - 1);
+    const T* Wa = L.W + j0 * wst;
+    const T* Wb = L.W + j1 * wst;
+    const T* ka = kxc + c0;
+    const T* kb = kxc + c1;
+    T waa = T(0), wab = T(0), wba = T(0), wbb = T(0);  // w<point><row>
+    for (int l = 0; l < n; ++l) {
+      const T kal = ka[l * kNc], kbl = kb[l * kNc], Wal = Wa[l], Wbl = Wb[l];
+      waa += Wal * kal;
+      wab += Wbl * kal;
+      wba += Wal * kbl;
+      wbb += Wbl * kbl;
+    }
+    wc[j0 * kNc + c0] = waa;
+    wc[j1 * kNc + c0] = wab;
+    wc[j0 * kNc + c1] = wba;
+    wc[j1 * kNc + c1] = wbb;
+  }
+  __syncwarp(m);
+  for (int c = t; c < kNc; c += kG) {
+    T mu = T(0), quad = T(0);
+    for (int j = 0; j < n; ++j) {
+      const T kj = kxc[j * kNc + c];
+      mu += kj * L.c[j];
+      quad += kj * wc[j * kNc + c];
+    }
+    const T var = jmax(L.k0 - quad, L.sfloor * L.sfloor);
+    take(c, finite_or_neg_inf(rule_value(L.rule, mu, m_sqrt(var), L.th, L.fm, L.stol)));
+  }
+}
+
+// Solve (A + tau I) p = g by Cholesky, thread i on row i; g_t and p_t are
+// thread t's components. False (on every thread) when the matrix is not
+// positive definite or p is no ascent direction. Row t of the factor lives
+// in registers (a[], every index a constant after unrolling to MAX_D).
+// Right-looking: step j broadcasts column j by shuffles, four at a time
+// with no branch between them so that they pipeline, and each thread
+// updates its own row; the subtractions reach each entry in the order of
+// the left-looking loop. Rows at and beyond d hold exact zeros. The forward
+// solve broadcasts one finished component per step; the backward solve
+// reads L' from the copy in shared memory (Lc, written once).
 template <typename T>
-__device__ bool chol_solve(const T* A, T tau, const T* g, int d, T* Lc, T* p) {
-  for (int j = 0; j < d; ++j) {
-    T s = A[j * d + j] + tau;
-    for (int k = 0; k < j; ++k) s -= Lc[j * d + k] * Lc[j * d + k];
-    Lc[j * d + j] = m_sqrt(s);
-    const T inv = T(1) / Lc[j * d + j];
-    for (int i = j + 1; i < d; ++i) {
-      T t = A[i * d + j];
-      for (int k = 0; k < j; ++k) t -= Lc[i * d + k] * Lc[j * d + k];
-      Lc[i * d + j] = t * inv;
+__device__ __noinline__ bool chol_solve(const T* A, T tau, T g_t, int d, int dp, T* Lc, int t,
+                                   unsigned m, T& p_t) {
+  const bool row = t < d;
+  T a[MAX_D];
+#pragma unroll
+  for (int k = 0; k < MAX_D; ++k)
+    a[k] = (row && k <= t) ? A[t * dp + k] + (k == t ? tau : T(0)) : T(0);
+  T inv_t = T(1);
+#pragma unroll
+  for (int j = 0; j < MAX_D; ++j) {
+    if (j < d) {
+      const T sj = __shfl_sync(m, a[j], j, kG);
+      const T inv = m_rsqrt(sj);
+      const T l = (row && t > j) ? a[j] * inv : (t == j ? sj * inv : T(0));  // L[t][j]
+      if (t == j) inv_t = inv;
+      a[j] = l;
+#pragma unroll
+      for (int k0 = 0; k0 < MAX_D; k0 += 4) {
+        if (k0 + 3 > j && k0 < d) {
+#pragma unroll
+          for (int k = (k0 > j + 1 ? k0 : j + 1); k < k0 + 4; ++k)
+            a[k] -= l * __shfl_sync(m, l, k, kG);  // L[t][j] L[k][j]; used where k <= t
+        }
+      }
     }
   }
-  T z[MAX_D];
-  for (int i = 0; i < d; ++i) {
-    T acc = g[i];
-    for (int k = 0; k < i; ++k) acc -= Lc[i * d + k] * z[k];
-    z[i] = acc / Lc[i * d + i];
+#pragma unroll
+  for (int k = 0; k < MAX_D; ++k)
+    if (row && k <= t) Lc[t * dp + k] = a[k];
+  __syncwarp(m);
+  T acc = row ? g_t : T(0);
+  T z_t = T(0);
+#pragma unroll
+  for (int k = 0; k < MAX_D; ++k) {
+    if (k < d) {
+      const T zk = __shfl_sync(m, acc * inv_t, k, kG);
+      if (t == k) z_t = zk;
+      if (t > k) acc -= a[k] * zk;
+    }
   }
-  bool finite = true;
-  T dot = T(0);
-  for (int i = d - 1; i >= 0; --i) {
-    T acc = z[i];
-    for (int k = i + 1; k < d; ++k) acc -= Lc[k * d + i] * p[k];
-    p[i] = acc / Lc[i * d + i];
+  acc = z_t;
+  p_t = T(0);
+  for (int k = d - 1; k >= 0; --k) {
+    const T pk = __shfl_sync(m, acc * inv_t, k, kG);
+    if (t == k) p_t = pk;
+    if (t < k) acc -= Lc[k * dp + t] * pk;
   }
-  for (int i = 0; i < d; ++i) {
-    finite = finite && m_finite(p[i]);
-    dot += p[i] * g[i];
-  }
+  const bool finite = __all_sync(m, m_finite(p_t));
+  const T dot = group_sum(m, p_t * g_t);
+  __syncwarp(m);  // every read of Lc is done before it is written again
   return finite && dot > T(0);
 }
 
-// One projected-Newton iteration from x; writes the next point to xn and
-// returns the current value a0 (non-finite -> -inf) and the best value.
+// One projected-Newton iteration of the group's start from x (component t in
+// x_t, all of it in S.xs()). Returns the next point's component t in xn_t,
+// the current value a0 (non-finite -> -inf) and the best value; all three
+// results of a reduction are the same on every thread.
 template <typename T>
-__device__ void lane_iteration(const LaneCtx<T>& L, const T* x, const T* lb,
-                               const T* ub, T scale, T ridge, T* xn, T& a0,
-                               T& vbest) {
-  const int d = L.d;
-  T gm[MAX_D], gs[MAX_D], r[MAX_D], u[MAX_D];
-  T H[MAX_D * MAX_D];
-  for (int k = 0; k < d; ++k) gm[k] = gs[k] = T(0);
+__device__ void group_iteration(const Lane<T>& L, const GroupScratch<T>& S, int t,
+                                unsigned m, T x_t, T scale, T ridge, T& xn_t, T& a0,
+                                T& vbest) {
+  const int d = L.d, dp = L.dp, n = L.n;
+  const bool comp = t < d;
+  const T* xs = S.xs();
 
-  // pass 1: k(x, X), psi'/rho, b; mu and grad mu; iso . c
+  PHASE_START();
+  // pass 1: k(x, X), psi'/rho, b, G_j = a_j r_j; mu; iso . c
   T mu = T(0), iso_c = T(0);
-  for (int j = 0; j < L.n; ++j) {
-    const T* Xj = L.X + j * d;
+  for (int j = t; j < n; j += kG) {
+    const T* Xj = L.X + j * dp;
     T sq = T(0);
     for (int k = 0; k < d; ++k) {
-      r[k] = x[k] - Xj[k];
-      sq += r[k] * r[k];
+      const T r = xs[k] - Xj[k];
+      sq += r * r;
     }
     const T rho = m_sqrt(jmax(sq, T(0)));
     T psi, a, b, iso;
     profile_terms(L.kind, rho, sq, L.ell, L.period, psi, a, b, iso);
-    L.kx[j * L.stride] = psi;
-    L.av[j * L.stride] = a;
-    L.bv[j * L.stride] = b;
+    const T ia = rho > T(kEps) ? a : iso;
+    S.kx()[j] = psi;
+    S.av()[j] = a;
+    S.bv()[j] = b;
+    S.ia()[j] = ia;
     const T cj = L.c[j];
     mu += psi * cj;
-    for (int k = 0; k < d; ++k) gm[k] += a * cj * r[k];
-    iso_c += cj * (rho > T(kEps) ? a : iso);
+    iso_c += cj * ia;
+    T* Gj = S.Gm() + j * dp;
+    for (int k = 0; k < d; ++k) Gj[k] = a * (xs[k] - Xj[k]);
   }
-  // pass 2: w = K^{-1} k(x, X); variance
-  T quad = T(0);
-  for (int j = 0; j < L.n; ++j) {
-    const T* Wj = L.W + j * L.cap;
+  mu = group_sum(m, mu);
+  iso_c = group_sum(m, iso_c);
+  __syncwarp(m);
+  // pass 2: w = K^{-1} k(x, X); variance; iso . w
+  T quad = T(0), iso_w = T(0);
+  for (int j = t; j < n; j += kG) {
+    const T* Wj = L.W + j * L.wst;
     T wj = T(0);
-    for (int l = 0; l < L.n; ++l) wj += Wj[l] * L.kx[l * L.stride];
-    L.wv[j * L.stride] = wj;
-    quad += L.kx[j * L.stride] * wj;
+    for (int l = 0; l < n; ++l) wj += Wj[l] * S.kx()[l];
+    S.wv()[j] = wj;
+    quad += S.kx()[j] * wj;
+    iso_w += wj * S.ia()[j];
   }
+  quad = group_sum(m, quad);
+  iso_w = group_sum(m, iso_w);
   const T var = jmax(L.k0 - quad, L.sfloor * L.sfloor);
   const T sigma = m_sqrt(var);
   const T ssafe = jmax(sigma, L.sfloor);
-  // pass 3: grad sigma, iso . w
-  T iso_w = T(0);
-  for (int j = 0; j < L.n; ++j) {
-    const T* Xj = L.X + j * d;
-    const T aj = L.av[j * L.stride], wj = L.wv[j * L.stride];
-    T sq = T(0);
-    for (int k = 0; k < d; ++k) {
-      const T rk = x[k] - Xj[k];
-      sq += rk * rk;
-      gs[k] += aj * wj * rk;
+  __syncwarp(m);
+  // pass 3: grad mu and grad sigma, component t
+  T gm_t = T(0), gs_t = T(0);
+  if (comp) {
+    for (int j = 0; j < n; ++j) {
+      const T gjt = S.Gm()[j * dp + t];
+      gm_t += L.c[j] * gjt;
+      gs_t += S.wv()[j] * gjt;
     }
-    iso_w += wj * (m_sqrt(jmax(sq, T(0))) > T(kEps) ? aj : L.iso0);
+    gs_t = -gs_t / ssafe;
   }
-  for (int k = 0; k < d; ++k) gs[k] = -gs[k] / ssafe;
 
   a0 = rule_value(L.rule, mu, sigma, L.th, L.fm, L.stol);
   T pr[5];
@@ -434,215 +647,325 @@ __device__ void lane_iteration(const LaneCtx<T>& L, const T* x, const T* lb,
   const T gmu = pr[0], gsig = pr[1], gmumu = pr[2], gsigsig = pr[3], gmusig = pr[4];
   const T hs = gsig / ssafe;  // gsig * hess_sigma = hs * (ssafe * hess_sigma)
 
+  // gradient and the active set at the box faces, component t
+  const T btol = T(1e-9) * scale;
+  T fr_t = T(0), gf_t = T(0);
+  if (comp) {
+    const T g_t = gmu * gm_t + gsig * gs_t;
+    const bool lo = (x_t <= L.lb[t] + btol) && (g_t < T(0));
+    const bool hi = (x_t >= L.ub[t] - btol) && (g_t > T(0));
+    fr_t = (lo || hi) ? T(0) : T(1);
+    gf_t = g_t * fr_t;
+    S.gm()[t] = gm_t;
+    S.gs()[t] = gs_t;
+    S.fr()[t] = fr_t;
+    S.gf()[t] = gf_t;
+  }
+
+  PHASE_MARK(0);  // the three passes, the rule, the active set
   // H = gmumu gm gm' + gmu Hmu + gsigsig gs gs' + gsig Hsig + gmusig (gm gs' + gs gm')
   // with Hmu = iso_c I + sum_j c_j b_j r_j r_j' and
-  // ssafe Hsig = -gs gs' - G' W G - sum_j w_j b_j r_j r_j' - iso_w I, G_j = a_j r_j
-  for (int i = 0; i < d; ++i) {
-    for (int k = 0; k < d; ++k) {
-      H[i * d + k] = gmumu * gm[i] * gm[k] + gsigsig * gs[i] * gs[k] +
-                     gmusig * (gm[i] * gs[k] + gs[i] * gm[k]) - hs * gs[i] * gs[k];
+  // ssafe Hsig = -gs gs' - G' W G - sum_j w_j b_j r_j r_j' - iso_w I, G_j = a_j r_j.
+  // The sums over the data are sum_j r_j Q_j' with
+  // Q_j = (gmu c_j - hs w_j) b_j r_j - hs a_j (W G)_j:
+  // strip (rows tj, tj + jstep, ...; column tk) of Q per thread
+  const int jstep = kG / d;
+  const int tj = t / d, tk = t - tj * d;
+  if (tj < jstep) {
+    const T xk = xs[tk];
+    const T* Gk = S.Gm() + tk;
+    auto store = [&](int j, T u) {
+      const T bj = S.bv()[j];
+      const T coef = gmu * L.c[j] * bj - hs * S.wv()[j] * bj;
+      const T ga = -hs * S.av()[j];
+      S.Q()[j * dp + tk] = coef * (xk - L.X[j * dp + tk]) + ga * u;
+    };
+    int j = tj;
+    for (; j + jstep < n; j += 2 * jstep) {  // two rows at a time
+      const T* Wa = L.W + j * L.wst;
+      const T* Wb = Wa + jstep * L.wst;
+      T ua = T(0), ub = T(0);
+      for (int l = 0; l < n; ++l) {
+        const T gl = Gk[l * dp];
+        ua += Wa[l] * gl;
+        ub += Wb[l] * gl;
+      }
+      store(j, ua);
+      store(j + jstep, ub);
     }
-    H[i * d + i] += gmu * iso_c - hs * iso_w;
+    if (j < n) {
+      const T* Wa = L.W + j * L.wst;
+      T ua = T(0);
+      for (int l = 0; l < n; ++l) ua += Wa[l] * Gk[l * dp];
+      store(j, ua);
+    }
   }
-  for (int j = 0; j < L.n; ++j) {
-    const T* Xj = L.X + j * d;
-    for (int k = 0; k < d; ++k) {
-      r[k] = x[k] - Xj[k];
-      u[k] = T(0);
-    }
-    const T* Wj = L.W + j * L.cap;
-    for (int l = 0; l < L.n; ++l) {
-      const T wa = Wj[l] * L.av[l * L.stride];
-      const T* Xl = L.X + l * d;
-      for (int k = 0; k < d; ++k) u[k] += wa * (x[k] - Xl[k]);
-    }
-    const T bj = L.bv[j * L.stride];
-    const T coef = gmu * L.c[j] * bj - hs * L.wv[j * L.stride] * bj;
-    const T ga = -hs * L.av[j * L.stride];
-    for (int i = 0; i < d; ++i) {
-      const T ci = coef * r[i], gi = ga * r[i];
-      for (int k = 0; k < d; ++k) H[i * d + k] += ci * r[k] + gi * u[k];
-    }
+  __syncwarp(m);
+  PHASE_MARK(1);  // the Q strips
+  // symmetric entries (i >= k) of H, a few per thread; A = -Hf on the free
+  // set, the identity on the active one
+  const int npairs = d * (d + 1) / 2;
+  for (int e = t; e < npairs; e += kG) {
+    int i = static_cast<int>((sqrtf(8.0f * e + 1.0f) - 1.0f) * 0.5f);
+    while (i * (i + 1) / 2 > e) --i;
+    while ((i + 1) * (i + 2) / 2 <= e) ++i;
+    const int k = e - i * (i + 1) / 2;
+    const T gmi = S.gm()[i], gmk = S.gm()[k], gsi = S.gs()[i], gsk = S.gs()[k];
+    T h = gmumu * gmi * gmk + gsigsig * gsi * gsk + gmusig * (gmi * gsk + gsi * gmk) -
+          hs * gsi * gsk;
+    if (i == k) h += gmu * iso_c - hs * iso_w;
+    const T xi = xs[i];
+    for (int j = 0; j < n; ++j) h += (xi - L.X[j * dp + i]) * S.Q()[j * dp + k];
+    const T fi = S.fr()[i], fk = S.fr()[k];
+    const T aik = -(h * fi * fk - (i == k ? T(1) - fi : T(0)));
+    S.A()[i * dp + k] = aik;
+    S.A()[k * dp + i] = aik;
   }
+  __syncwarp(m);
 
-  // active-set reduction at the box faces; A = -Hf overwrites H
-  const T btol = T(1e-9) * scale;
-  T g[MAX_D], fr[MAX_D], gf[MAX_D];
-  for (int k = 0; k < d; ++k) {
-    g[k] = gmu * gm[k] + gsig * gs[k];
-    const bool lo = (x[k] <= lb[k] + btol) && (g[k] < T(0));
-    const bool hi = (x[k] >= ub[k] - btol) && (g[k] > T(0));
-    fr[k] = (lo || hi) ? T(0) : T(1);
-    gf[k] = g[k] * fr[k];
-  }
-  T* A = H;
-  for (int i = 0; i < d; ++i)
-    for (int k = 0; k < d; ++k)
-      A[i * d + k] = -(H[i * d + k] * fr[i] * fr[k] - (i == k ? T(1) - fr[i] : T(0)));
-
+  PHASE_MARK(2);  // the entries of H
   // Gershgorin-damped Newton direction
-  T dmax = neg_inf<T>(), offmax = neg_inf<T>();
-  for (int i = 0; i < d; ++i) {
-    const T aii = A[i * d + i];
-    dmax = jmax(dmax, m_abs(aii));
-    T row = T(0);
-    for (int k = 0; k < d; ++k) row += m_abs(A[i * d + k]);
-    offmax = jmax(offmax, row - m_abs(aii) - aii);
+  T adiag = neg_inf<T>(), off = neg_inf<T>();
+  if (comp) {
+    const T* Ai = S.A() + t * dp;
+    const T aii = Ai[t];
+    T rowsum = T(0);
+    for (int k = 0; k < d; ++k) rowsum += m_abs(Ai[k]);
+    adiag = m_abs(aii);
+    off = rowsum - m_abs(aii) - aii;
   }
-  const T s_scale = jmax(dmax, ridge);
-  const T tau_g = jmax(offmax, T(0)) + ridge + T(1e-6) * s_scale;
-  T Lc[MAX_D * MAX_D], p[MAX_D], p2[MAX_D];
-  if (!chol_solve(A, ridge, gf, d, Lc, p)) {
-    if (chol_solve(A, tau_g, gf, d, Lc, p2)) {
-      for (int k = 0; k < d; ++k) p[k] = p2[k];
-    } else {
-      for (int k = 0; k < d; ++k) p[k] = gf[k] / s_scale;
-    }
+  const T s_scale = jmax(group_max(m, adiag), ridge);
+  const T tau_g = jmax(group_max(m, off), T(0)) + ridge + T(1e-6) * s_scale;
+  T p_t;
+  if (!chol_solve(S.A(), ridge, gf_t, d, dp, S.Lc(), t, m, p_t)) {
+    if (!chol_solve(S.A(), tau_g, gf_t, d, dp, S.Lc(), t, m, p_t)) p_t = gf_t / s_scale;
   }
-  T gnorm2 = T(0), pg = T(0);
-  bool finite = true;
-  for (int k = 0; k < d; ++k) {
-    p[k] *= fr[k];
-    finite = finite && m_finite(p[k]);
-    pg += p[k] * gf[k];
-    gnorm2 += gf[k] * gf[k];
-  }
+  PHASE_MARK(3);  // Gershgorin and the Cholesky solves
+  p_t *= fr_t;
+  const bool finite = __all_sync(m, m_finite(p_t));
+  const T pg = group_sum(m, p_t * gf_t);
+  const T gnorm2 = group_sum(m, gf_t * gf_t);
   const bool bad = !finite || pg <= T(0);
   const T gden = jmax(m_sqrt(gnorm2), T(1e-12));
-  T gstep[MAX_D];
-  for (int k = 0; k < d; ++k) gstep[k] = gf[k] / gden * (T(0.1) * scale);
-  T pn2 = T(0);
-  for (int k = 0; k < d; ++k) {
-    if (bad) p[k] = gstep[k];
-    pn2 += p[k] * p[k];
-  }
+  const T gstep_t = gf_t / gden * (T(0.1) * scale);
+  if (bad) p_t = gstep_t;
+  const T pn2 = group_sum(m, p_t * p_t);
   const T shrink = jmin(T(1), scale / jmax(m_sqrt(pn2), T(1e-30)));
-  for (int k = 0; k < d; ++k) p[k] *= shrink;
-
-  // backtracking over both directions; strictly better only
-  a0 = finite_or_neg_inf(a0);
-  vbest = a0;
-  for (int k = 0; k < d; ++k) xn[k] = x[k];
-  T cand[MAX_D];
-  for (int dir = 0; dir < 2; ++dir) {
-    const T* dv = dir == 0 ? p : gstep;
-    T t = T(1);
-    for (int step = 0; step < kBacktrack; ++step, t *= T(0.5)) {
-      for (int k = 0; k < d; ++k) cand[k] = clip(x[k] + t * dv[k], lb[k], ub[k]);
-      const T v = finite_or_neg_inf(lane_value(L, cand));
-      if (v > vbest) {
-        vbest = v;
-        for (int k = 0; k < d; ++k) xn[k] = cand[k];
-      }
-    }
+  p_t *= shrink;
+  if (comp) {
+    S.pv()[t] = p_t;
+    S.gv()[t] = gstep_t;
   }
+  __syncwarp(m);
+
+  PHASE_MARK(4);  // the directions
+  // backtracking over both directions, one candidate per thread: direction
+  // 0 (Newton) steps 1, 1/2, ... then direction 1 (gradient); strictly
+  // better than a0 only, the lowest candidate on a tie
+  a0 = finite_or_neg_inf(a0);
+  for (int c = t; c < kCand; c += kG) {
+    const int dir = c / kBacktrack, step = c - dir * kBacktrack;
+    const T* dv = dir == 0 ? S.pv() : S.gv();
+    const T tt = T(1) / T(1 << step);
+    T* xc = S.cand() + c * dp;
+    for (int k = 0; k < d; ++k) xc[k] = clip(xs[k] + tt * dv[k], L.lb[k], L.ub[k]);
+  }
+  __syncwarp(m);
+  T own_v = neg_inf<T>();
+  int own_c = kCand;
+  candidate_values<kCand>(L, S, S.cand(), t, m, [&](int c, T v) {
+    if (v > own_v) {
+      own_v = v;
+      own_c = c;
+    }
+  });
+  PHASE_MARK(5);  // the candidates' values
+  const T vmax = group_max(m, own_v);  // no NaN left: a plain maximum
+  const int win = group_min(m, own_v == vmax ? own_c : kCand);
+  __syncwarp(m);
+  if (vmax > a0 && win < kCand) {
+    vbest = vmax;
+    xn_t = comp ? S.cand()[win * dp + t] : T(0);
+  } else {
+    vbest = a0;
+    xn_t = x_t;
+  }
+  PHASE_MARK(6);  // the winner
 }
 
-template <typename T>
-__global__ void newton_lanes_kernel(const T* __restrict__ X, const T* __restrict__ W,
-                                    const T* __restrict__ c,
-                                    const long long* __restrict__ n_lane,
-                                    const T* __restrict__ fmini,
-                                    const T* __restrict__ theta0,
-                                    const T* __restrict__ params,
-                                    const T* __restrict__ lbs, const T* __restrict__ ubs,
-                                    const T* __restrict__ xstarts, T* __restrict__ xout,
-                                    T* __restrict__ vout, int num_lanes, int cap, int d,
-                                    int S, int iterations, int kind, int rule,
-                                    int lanes_per_block, T stol, T sfloor, T ridge,
-                                    T f_tol, T x_tol) {
+template <typename T, bool kStageW>
+__global__ void __launch_bounds__(kMaxThreads, min_blocks<T>())
+    newton_lanes_kernel(const T* __restrict__ X, const T* __restrict__ W,
+                        const T* __restrict__ c, const long long* __restrict__ n_lane,
+                        const T* __restrict__ fmini, const T* __restrict__ theta0,
+                        const T* __restrict__ params, const T* __restrict__ lbs,
+                        const T* __restrict__ ubs, const T* __restrict__ xstarts,
+                        T* __restrict__ xout, T* __restrict__ vout, int num_lanes, int cap,
+                        int d, int S, int iterations, int kind, int rule,
+                        int lanes_per_block, int groups_per_lane, T stol, T sfloor, T ridge,
+                        T f_tol, T x_tol) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nth = blockDim.x;
   const int tid = threadIdx.x;
+  const int dp = d | 1;
+  const int wst = kStageW ? (cap | 1) : cap;
   const int lane0 = blockIdx.x * lanes_per_block;
   const int here = min(lanes_per_block, num_lanes - lane0);
 
+  // block: X (lanes, cap, dp), W (lanes, cap, wst) when staged, c (lanes, cap),
+  // the box (2, dp); then one GroupScratch per group
   T* sX = reinterpret_cast<T*>(smem_raw);
-  T* sW = sX + lanes_per_block * cap * d;
-  T* sc = sW + lanes_per_block * cap * cap;
-  T* scr = sc + lanes_per_block * cap;
-  T* sres = scr + 4 * cap * nth;
+  T* sW = sX + lanes_per_block * cap * dp;
+  T* sc = sW + (kStageW ? lanes_per_block * cap * wst : 0);
+  T* sbox = sc + lanes_per_block * cap;
+  T* sgroups = sbox + 2 * dp;
+  const int group_words = GroupScratch<T>::words(cap, d, dp);
 
-  // stage this block's lanes (contiguous in device memory)
-  for (int i = tid; i < here * cap * d; i += nth) sX[i] = X[(size_t)lane0 * cap * d + i];
-  for (int i = tid; i < here * cap * cap; i += nth) sW[i] = W[(size_t)lane0 * cap * cap + i];
+  // stage this block's lanes (contiguous in device memory) at padded strides
+  for (int i = tid; i < here * cap * d; i += nth) {
+    const int r = i / d;
+    sX[r * dp + (i - r * d)] = X[(size_t)lane0 * cap * d + i];
+  }
+  if (kStageW) {
+    for (int i = tid; i < here * cap * cap; i += nth) {
+      const int r = i / cap;
+      sW[r * wst + (i - r * cap)] = W[(size_t)lane0 * cap * cap + i];
+    }
+  }
   for (int i = tid; i < here * cap; i += nth) sc[i] = c[(size_t)lane0 * cap + i];
+  for (int i = tid; i < d; i += nth) {
+    sbox[i] = lbs[i];
+    sbox[dp + i] = ubs[i];
+  }
   __syncthreads();
 
-  const int ll = tid / S;
-  const int s = tid % S;
+  const int t = tid & (kG - 1);
+  const int g = tid / kG;
+  const int ll = g / groups_per_lane;
+  const int ws = g - ll * groups_per_lane;
   const int lane = lane0 + ll;
   const bool active = ll < here;
+  const unsigned m = 0xffffffffu;
+  GroupScratch<T> Sg;
+  Sg.base = sgroups + (size_t)g * group_words;
+  Sg.cap = cap;
+  Sg.d = d;
+  Sg.dp = dp;
+  const bool comp = t < d;
+
   if (active) {
-    LaneCtx<T> L;
-    L.X = sX + ll * cap * d;
-    L.W = sW + ll * cap * cap;
+    Lane<T> L;
+    L.X = sX + ll * cap * dp;
+    L.W = kStageW ? sW + ll * cap * wst : W + (size_t)lane * cap * cap;
     L.c = sc + ll * cap;
-    L.kx = scr + tid;
-    L.av = scr + cap * nth + tid;
-    L.bv = scr + 2 * cap * nth + tid;
-    L.wv = scr + 3 * cap * nth + tid;
-    L.stride = nth;
+    L.lb = sbox;
+    L.ub = sbox + dp;
     const long long nl = n_lane[lane];
     L.n = nl < 0 ? 0 : (nl > cap ? cap : static_cast<int>(nl));
-    L.cap = cap;
     L.d = d;
+    L.dp = dp;
+    L.wst = wst;
     L.kind = kind;
     L.rule = rule;
     L.ell = params[0];
     L.period = params[1];
-    T b0, a0_, iso0;
-    profile_terms(kind, T(0), T(0), L.ell, L.period, L.k0, a0_, b0, iso0);
-    L.iso0 = iso0;
+    T a_, b_, iso_;
+    profile_terms(kind, T(0), T(0), L.ell, L.period, L.k0, a_, b_, iso_);
     L.fm = fmini[lane];
     L.th = theta0[lane];
     L.stol = stol;
     L.sfloor = sfloor;
 
-    T lb[MAX_D], ub[MAX_D], x[MAX_D], xn[MAX_D];
-    T scale = neg_inf<T>();
-    for (int k = 0; k < d; ++k) {
-      lb[k] = lbs[k];
-      ub[k] = ubs[k];
-      scale = jmax(scale, ub[k] - lb[k]);
-      x[k] = clip(xstarts[s * d + k], lb[k], ub[k]);
-    }
+    const T lb_t = comp ? L.lb[t] : T(0), ub_t = comp ? L.ub[t] : T(0);
+    const T scale = group_max(m, comp ? ub_t - lb_t : neg_inf<T>());
     const bool loose = f_tol > T(0) || x_tol > T(0);
-    for (int it = 0; it < iterations; ++it) {
-      T a0, vbest;
-      lane_iteration(L, x, lb, ub, scale, ridge, xn, a0, vbest);
-      bool freeze = false;
-      if (loose) {
-        // IPNewton-style loose acceptance (reference rbf_optim.jl:26-30);
-        // a frozen start keeps its point, so it may stop iterating
-        const T improvement = jmax(vbest - a0, T(0));
-        T dx2 = T(0);
-        for (int k = 0; k < d; ++k) dx2 += (xn[k] - x[k]) * (xn[k] - x[k]);
-        freeze = improvement <= f_tol * (m_abs(a0) + f_tol) || m_sqrt(dx2) <= x_tol;
+    // the group's best start so far, in start order (strict >: first wins)
+    T best_v = neg_inf<T>(), best_x = T(0);
+    int best_s = -1;
+    for (int s = ws; s < S; s += groups_per_lane) {
+      T x_t = comp ? clip(xstarts[s * d + t], lb_t, ub_t) : T(0);
+      if (comp) Sg.xs()[t] = x_t;
+      __syncwarp(m);
+      for (int it = 0; it < iterations; ++it) {
+        T xn_t, a0, vbest;
+        group_iteration(L, Sg, t, m, x_t, scale, ridge, xn_t, a0, vbest);
+        bool freeze = false;
+        if (loose) {
+          // IPNewton-style loose acceptance (reference rbf_optim.jl:26-30);
+          // a frozen start keeps its point, so it may stop iterating
+          const T improvement = jmax(vbest - a0, T(0));
+          const T dx2 = group_sum(m, (xn_t - x_t) * (xn_t - x_t));
+          freeze = improvement <= f_tol * (m_abs(a0) + f_tol) || m_sqrt(dx2) <= x_tol;
+        }
+        x_t = xn_t;
+        if (comp) Sg.xs()[t] = x_t;
+        __syncwarp(m);
+        if (freeze) break;
       }
-      for (int k = 0; k < d; ++k) x[k] = xn[k];
-      if (freeze) break;
+      T v = T(0);
+      candidate_values<1>(L, Sg, Sg.xs(), t, m, [&](int, T v0) { v = v0; });
+      v = __shfl_sync(m, v, 0, kG);
+      if (v > best_v) {
+        best_v = v;
+        best_x = x_t;
+        best_s = s;
+      }
     }
-    sres[tid] = finite_or_neg_inf(lane_value(L, x));
-    for (int k = 0; k < d; ++k) sres[(1 + k) * nth + tid] = x[k];
+    T* res = Sg.res();
+    if (t == 0) {
+      res[0] = best_v;
+      res[1] = T(best_s);
+    }
+    if (comp) res[2 + t] = best_x;
   }
   __syncthreads();
 
-  // best start per lane, in start order (first start wins a tie)
-  if (active && s == 0) {
+  // best start per lane: the largest value, the lowest start on a tie (what
+  // a strict > in start order selects); every start -inf gives x = 0
+  if (active && ws == 0 && comp) {
     T best = neg_inf<T>();
-    int arg = -1;
-    for (int j = 0; j < S; ++j) {
-      const T v = sres[tid + j];
-      if (v > best) {
+    int arg = -1, arg_s = 0;
+    for (int j = 0; j < groups_per_lane; ++j) {
+      const T* res = sgroups + (size_t)(g + j) * group_words + (Sg.res() - Sg.base);
+      const T v = res[0];
+      const int s = static_cast<int>(res[1]);
+      if (s >= 0 && (v > best || (v == best && s < arg_s))) {
         best = v;
         arg = j;
+        arg_s = s;
       }
     }
-    for (int k = 0; k < d; ++k)
-      xout[(size_t)lane * d + k] = arg < 0 ? T(0) : sres[(1 + k) * nth + tid + arg];
-    vout[lane] = best;
+    const T* res = sgroups + (size_t)(g + (arg < 0 ? 0 : arg)) * group_words +
+                   (Sg.res() - Sg.base);
+    xout[(size_t)lane * d + t] = arg < 0 ? T(0) : res[2 + t];
+    if (t == 0) vout[lane] = best;
   }
+}
+
+template <typename T, bool kStageW>
+int launch_as(const void* X, const void* W, const void* c, const void* n,
+              const void* fmini, const void* theta0, const void* params, const void* lbs,
+              const void* ubs, const void* xstarts, void* xout, void* vout, int num_lanes,
+              int cap, int d, int S, int iterations, int kind, int rule,
+              int lanes_per_block, int groups_per_lane, double stol, double sfloor,
+              double ridge, double f_tol, double x_tol, int smem, void* stream) {
+  auto kernel = newton_lanes_kernel<T, kStageW>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int blocks = (num_lanes + lanes_per_block - 1) / lanes_per_block;
+  const int threads = lanes_per_block * groups_per_lane * kG;
+  kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(X), static_cast<const T*>(W), static_cast<const T*>(c),
+      static_cast<const long long*>(n), static_cast<const T*>(fmini),
+      static_cast<const T*>(theta0), static_cast<const T*>(params),
+      static_cast<const T*>(lbs), static_cast<const T*>(ubs),
+      static_cast<const T*>(xstarts), static_cast<T*>(xout), static_cast<T*>(vout),
+      num_lanes, cap, d, S, iterations, kind, rule, lanes_per_block, groups_per_lane,
+      T(stol), T(sfloor), T(ridge), T(f_tol), T(x_tol));
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -650,28 +973,45 @@ int launch(const void* X, const void* W, const void* c, const void* n,
            const void* fmini, const void* theta0, const void* params,
            const void* lbs, const void* ubs, const void* xstarts, void* xout,
            void* vout, int num_lanes, int cap, int d, int S, int iterations,
-           int kind, int rule, int lanes_per_block, double stol, double sfloor,
-           double ridge, double f_tol, double x_tol, int smem, void* stream) {
-  if (d < 1 || d > MAX_D || S < 1 || lanes_per_block < 1) return (int)cudaErrorInvalidValue;
-  auto kernel = newton_lanes_kernel<T>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int blocks = (num_lanes + lanes_per_block - 1) / lanes_per_block;
-  kernel<<<blocks, lanes_per_block * S, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(X), static_cast<const T*>(W), static_cast<const T*>(c),
-      static_cast<const long long*>(n), static_cast<const T*>(fmini),
-      static_cast<const T*>(theta0), static_cast<const T*>(params),
-      static_cast<const T*>(lbs), static_cast<const T*>(ubs),
-      static_cast<const T*>(xstarts), static_cast<T*>(xout), static_cast<T*>(vout),
-      num_lanes, cap, d, S, iterations, kind, rule, lanes_per_block, T(stol),
-      T(sfloor), T(ridge), T(f_tol), T(x_tol));
-  return (int)cudaGetLastError();
+           int kind, int rule, int lanes_per_block, int groups_per_lane, int stage_w,
+           double stol, double sfloor, double ridge, double f_tol, double x_tol,
+           int smem, void* stream) {
+  if (d < 1 || d > MAX_D || S < 1 || lanes_per_block < 1 || groups_per_lane < 1 ||
+      lanes_per_block * groups_per_lane * kG > kMaxThreads)
+    return (int)cudaErrorInvalidValue;
+  auto fn = stage_w ? launch_as<T, true> : launch_as<T, false>;
+  return fn(X, W, c, n, fmini, theta0, params, lbs, ubs, xstarts, xout, vout, num_lanes,
+            cap, d, S, iterations, kind, rule, lanes_per_block, groups_per_lane, stol,
+            sfloor, ridge, f_tol, x_tol, smem, stream);
 }
 
 }  // namespace
+
+#ifdef NEWTON_LANES_PROFILE
+// copies the phase cycles to out[8] and sets them to 0
+extern "C" int newton_lanes_phase_cycles(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_phase_cycles, sizeof(g_phase_cycles));
+  if (e != cudaSuccess) return (int)e;
+  const unsigned long long zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  return (int)cudaMemcpyToSymbol(g_phase_cycles, zero, sizeof(zero));
+}
+#endif
+
+// blocks of `threads` threads and `smem` dynamic bytes that one SM holds
+extern "C" int newton_lanes_blocks_per_sm(int itemsize, int stage_w, int threads, int smem) {
+  int blocks = 0;
+  cudaError_t e;
+  if (itemsize == 4) {
+    auto k = stage_w ? newton_lanes_kernel<float, true> : newton_lanes_kernel<float, false>;
+    cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, threads, smem);
+  } else {
+    auto k = stage_w ? newton_lanes_kernel<double, true> : newton_lanes_kernel<double, false>;
+    cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, threads, smem);
+  }
+  return e == cudaSuccess ? blocks : -(int)e;
+}
 
 #define NEWTON_LANES_ENTRY(NAME, T)                                                \
   extern "C" int NAME(const void* X, const void* W, const void* c, const void* n, \
@@ -679,13 +1019,13 @@ int launch(const void* X, const void* W, const void* c, const void* n,
                       const void* lbs, const void* ubs, const void* xstarts,      \
                       void* xout, void* vout, int num_lanes, int cap, int d,      \
                       int S, int iterations, int kind, int rule,                  \
-                      int lanes_per_block, double stol, double sfloor,            \
-                      double ridge, double f_tol, double x_tol, int smem,         \
-                      void* stream) {                                             \
+                      int lanes_per_block, int groups_per_lane, int stage_w,      \
+                      double stol, double sfloor, double ridge, double f_tol,     \
+                      double x_tol, int smem, void* stream) {                     \
     return launch<T>(X, W, c, n, fmini, theta0, params, lbs, ubs, xstarts, xout,  \
                      vout, num_lanes, cap, d, S, iterations, kind, rule,          \
-                     lanes_per_block, stol, sfloor, ridge, f_tol, x_tol, smem,    \
-                     stream);                                                     \
+                     lanes_per_block, groups_per_lane, stage_w, stol, sfloor,     \
+                     ridge, f_tol, x_tol, smem, stream);                          \
   }
 
 NEWTON_LANES_ENTRY(newton_lanes_f32, float)

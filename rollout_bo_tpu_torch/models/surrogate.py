@@ -86,7 +86,7 @@ def _refactor(kernel: RBFKernel, X, y, n, noise):
 
 
 def fit(kernel: RBFKernel, X, y, *, capacity: int = DEFAULT_CAPACITY,
-        noise: float = 1e-6, device="cpu", dtype=torch.float64) -> SurrogateState:
+        noise: float = 1e-6, device="cuda", dtype=torch.float64) -> SurrogateState:
     """Surrogate from (..., N, d) data padded to `capacity` (rbs.jl:77-118)."""
     X = torch.as_tensor(X, dtype=dtype, device=device)
     y = torch.as_tensor(y, dtype=dtype, device=device)

@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -26,7 +27,7 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_LOADED: dict[str, ctypes.CDLL] = {}
+_LOADED: dict[tuple[str, tuple[str, ...]], ctypes.CDLL] = {}
 _BUILD_SECONDS: dict[str, float] = {}
 
 
@@ -41,27 +42,29 @@ def _nvcc() -> str:
     return str(path)
 
 
-def _target(name: str) -> Path:
+def _target(name: str, defines: tuple[str, ...] = ()) -> Path:
     src = SRC_DIR / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = " ".join(NVCC_FLAGS + tuple(defines))
+    key = hashlib.sha256(src.read_bytes() + flags.encode()).hexdigest()
     return BUILD_DIR / f"{name}-{key[:16]}.so"
 
 
-def build_log(name: str) -> str:
+def build_log(name: str, defines: tuple[str, ...] = ()) -> str:
     """nvcc's output (registers, shared memory, spills) for `name`."""
-    log = _target(name).with_suffix(".log")
+    log = _target(name, defines).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build `csrc/<name>.cu` if needed and load it (cached per process)."""
-    if name in _LOADED:
-        return _LOADED[name]
-    out = _target(name)
+def load(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Build `csrc/<name>.cu` if needed and load it (cached per process).
+    `defines` are extra `-DNAME=value` flags: a variant for measurement."""
+    if (name, defines) in _LOADED:
+        return _LOADED[name, defines]
+    out = _target(name, defines)
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         _BUILD_SECONDS[name] = time.perf_counter() - t0
@@ -69,8 +72,8 @@ def load(name: str) -> ctypes.CDLL:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}{proc.stderr}")
         os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
-    _LOADED[name] = ctypes.CDLL(str(out))
-    return _LOADED[name]
+    _LOADED[name, defines] = ctypes.CDLL(str(out))
+    return _LOADED[name, defines]
 
 
 def build_seconds(name: str) -> float | None:

@@ -121,24 +121,24 @@ def _make(kind, theta, device, dtype):
     return RBFKernel(torch.as_tensor(theta, dtype=dtype, device=device), kind)
 
 
-def matern52(theta=(1.0,), *, device="cpu", dtype=torch.float64) -> RBFKernel:
+def matern52(theta=(1.0,), *, device="cuda", dtype=torch.float64) -> RBFKernel:
     return _make("matern52", theta, device, dtype)
 
 
-def matern32(theta=(1.0,), *, device="cpu", dtype=torch.float64) -> RBFKernel:
+def matern32(theta=(1.0,), *, device="cuda", dtype=torch.float64) -> RBFKernel:
     return _make("matern32", theta, device, dtype)
 
 
-def matern12(theta=(1.0,), *, device="cpu", dtype=torch.float64) -> RBFKernel:
+def matern12(theta=(1.0,), *, device="cuda", dtype=torch.float64) -> RBFKernel:
     return _make("matern12", theta, device, dtype)
 
 
-def squared_exponential(theta=(1.0,), *, device="cpu",
+def squared_exponential(theta=(1.0,), *, device="cuda",
                         dtype=torch.float64) -> RBFKernel:
     return _make("squared_exponential", theta, device, dtype)
 
 
-def periodic(theta=(1.0, 1.0), *, device="cpu", dtype=torch.float64) -> RBFKernel:
+def periodic(theta=(1.0, 1.0), *, device="cuda", dtype=torch.float64) -> RBFKernel:
     return _make("periodic", theta, device, dtype)
 
 

@@ -8,9 +8,9 @@ d ~10). A lane is one (restart, trajectory) pair; the bench configuration
 has 8 x 200 = 1600 lanes per call.
 
 - `newton_solve_lanes` is the entry point. For CUDA tensors it launches the
-  hand-written kernel `csrc/newton_lanes.cu` (one thread per (lane,
-  start), the lane's GP staged in shared memory); it raises rather than
-  fall back. For CPU tensors it runs the plain version.
+  hand-written kernel `csrc/newton_lanes.cu` (one warp per (lane, start),
+  the lane's GP staged in shared memory); it raises rather than fall
+  back. For CPU tensors it runs the plain version.
 - `newton_solve_lanes_ref` is the plain PyTorch version: the same math
   in the same W = K^{-1} formulation, batch-first over (lane, start). The
   CPU tests hold it against the JAX kernel, and `chip_smoke.py` holds the
@@ -37,6 +37,7 @@ __all__ = [
     "MAX_D",
     "LAUNCHES",
     "supported",
+    "lane_solve_work",
     "newton_solve_lanes",
     "newton_solve_lanes_ref",
 ]
@@ -45,10 +46,13 @@ SUPPORTED_KINDS = ("matern52", "matern32", "matern12",
                    "squared_exponential", "periodic")
 SUPPORTED_RULES = ("EI", "POI", "LCB", "LogEI", "LogPOI")
 MAX_D = 16                     # must match csrc/newton_lanes.cu
-_MAX_THREADS = 1024
+MAX_STARTS = 1024
+_GROUP = 32                    # threads per (lane, start): kG in csrc/newton_lanes.cu
+_MAX_THREADS = 512             # per block: kMaxThreads in csrc/newton_lanes.cu
 _SMEM_LIMIT = 227 * 1024       # Hopper: dynamic shared memory per block
-_THREADS_TARGET = 128
+_GROUPS_TARGET = 8             # groups per block when one lane has fewer starts
 _BACKTRACK_STEPS = 9
+_CANDIDATES = 2 * _BACKTRACK_STEPS
 _EPS = 1e-14                   # must match kEps in csrc/newton_lanes.cu
 
 # Kernel launches since the counter was last reset (set it to 0 to count).
@@ -291,7 +295,7 @@ _ENTRY = {torch.float32: "newton_lanes_f32", torch.float64: "newton_lanes_f64"}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
-_ARGTYPES = [_P] * 12 + [_I] * 8 + [_D] * 5 + [_I, _P]
+_ARGTYPES = [_P] * 12 + [_I] * 10 + [_D] * 5 + [_I, _P]
 
 
 def _library():
@@ -307,15 +311,86 @@ def _library():
 
 
 def _block_shape(cap: int, d: int, S: int, itemsize: int):
-    """(lanes per block, dynamic shared bytes) — must match the layout in
-    csrc/newton_lanes.cu: per lane X, W, c; per thread four cap-long
-    scratch rows and a (d + 1)-long result row."""
-    per_lane = (cap * d + cap * cap + cap) * itemsize
-    per_thread = (4 * cap + d + 1) * itemsize
-    lanes = max(1, _THREADS_TARGET // S)    # S <= _MAX_THREADS is checked by the caller
-    while lanes > 1 and lanes * (per_lane + S * per_thread) > _SMEM_LIMIT:
-        lanes -= 1
-    return lanes, lanes * (per_lane + S * per_thread)
+    """(lanes per block, groups per lane, W staged?, dynamic shared bytes).
+
+    Must match the layout in csrc/newton_lanes.cu. A group of 32 threads
+    (a warp) owns one (lane, start); a block holds `lanes` lanes x
+    `groups` groups, and a group loops over the starts g, g + groups, ...
+    In words of the lane dtype, with dp = d | 1 and wst = cap | 1 (odd
+    strides keep rows on different banks): per lane X (cap, dp), W (cap,
+    wst) when staged and c (cap,); per block the box (2, dp); per group
+    (`GroupScratch`) 5 cap-long rows, 2 cap x max(dp, 18) for the Hessian
+    strips and the candidates' columns, A and its factor (d, dp) each, 18
+    candidates and 7 vectors of dp, and a (dp + 2)-long result. When one
+    lane with one group does not fit, W stays in device memory. Raises
+    ValueError when even that exceeds the block's shared memory."""
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"newton_lanes kernel: d = {d} outside 1..{MAX_D}")
+    if not 1 <= S <= MAX_STARTS:
+        raise ValueError(f"newton_lanes kernel: {S} starts outside 1..{MAX_STARTS}")
+    dp, wst = d | 1, cap | 1
+    per_group = (5 * cap + 2 * cap * max(dp, _CANDIDATES) + 2 * d * dp
+                 + (_CANDIDATES + 7) * dp + dp + 2)
+    max_groups = _MAX_THREADS // _GROUP
+    chunks = -(-S // max_groups)          # starts per group
+    groups = -(-S // chunks)
+    lanes = max(1, _GROUPS_TARGET // groups)
+
+    def nbytes(lanes, groups, stage_w):
+        per_lane = cap * dp + cap + (cap * wst if stage_w else 0)
+        return (lanes * (per_lane + groups * per_group) + 2 * dp) * itemsize
+
+    for stage_w in (True, False):
+        nl, ng = lanes, groups
+        while nbytes(nl, ng, stage_w) > _SMEM_LIMIT and (nl > 1 or ng > 1):
+            if nl > 1:
+                nl -= 1
+            else:
+                ng -= 1
+        if nbytes(nl, ng, stage_w) <= _SMEM_LIMIT:
+            return nl, ng, stage_w, nbytes(nl, ng, stage_w)
+    raise ValueError(f"newton_lanes kernel: capacity {cap} at d = {d} needs "
+                     f"{nbytes(1, 1, False)} B of shared memory for one lane, "
+                     f"over {_SMEM_LIMIT}")
+
+
+def lane_solve_work(n, cap: int, d: int, S: int, iterations: int, itemsize: int):
+    """(floating-point operations, bytes) that one `newton_solve_lanes` call needs.
+
+    `n` holds the lanes' active counts: loops over the data run to n, not
+    to the capacity. Operations are the fewest the function needs, whoever
+    computes it (a multiply-add is two), per (lane, start, iteration): the
+    18 backtracking values (k(x, X), W k, mu, the variance, the rule); the
+    three passes, with each difference x - X_j taken once; the rule and its
+    partials; the Hessian as W G (2 n^2 d), the rows Q_j, and the d (d + 1)
+    / 2 symmetric entries summed over the data (n d (d + 1)); one d x d
+    Cholesky solve; the direction's norms. Then one value per (lane,
+    start). Left out, so that the count stays a floor: the second,
+    Gershgorin-damped solve (only where the first fails) and whatever the
+    loose freeze saves by ending a start early. Bytes count each input
+    once (X, W, c, n, fmini, theta0 per lane; the box, the starts and the
+    two kernel parameters once) and each output once."""
+    profile, profile_terms, rule, partials = 12, 25, 30, 60
+    sym = d * (d + 1) // 2
+    flops = 0
+    for ni in (int(v) for v in n):
+        value = ni * (3 * d + profile) + 2 * ni * ni + 4 * ni + rule
+        passes = (ni * (3 * d + profile_terms + 4 + d)           # k, a, b, G; mu, iso . c
+                  + 2 * ni * ni + 4 * ni                         # w = W k; variance, iso . w
+                  + 4 * ni * d + d)                              # grad mu, grad sigma
+        hessian = (2 * ni * ni * d                               # W G
+                   + ni * (3 * d + 6)                            # Q_j
+                   + 2 * ni * sym                                # sum_j r_j Q_j', i >= k
+                   + 8 * sym + 6 * d)                            # rank-one terms, active set
+        chol = d ** 3 / 3.0 + 2 * d * d + 4 * d
+        direction = 2 * d * d + 20 * d                           # Gershgorin, norms
+        iteration = (_CANDIDATES * (value + 3 * d) + passes + rule + partials
+                     + hessian + chol + direction)
+        flops += S * (iterations * iteration + value)
+    lanes = len(n)
+    read = (lanes * (cap * d + cap * cap + cap + 2) + 2 * d + S * d + 2) * itemsize + 8 * lanes
+    written = lanes * (d + 1) * itemsize
+    return float(flops), int(read + written)
 
 
 def _check_lanes(X, W, c, n, fmini, theta0, lbs, ubs, xstarts, kind, rule):
@@ -354,14 +429,7 @@ def _launch(X, W, c, n, fmini, theta0, ell, lbs, ubs, xstarts, period, *,
     S = xstarts.shape[0]
     as_t = lambda a: torch.as_tensor(a, dtype=dt, device=dev)
     params = torch.stack([as_t(ell).reshape(()), as_t(period).reshape(())])
-    if not 1 <= d <= MAX_D:
-        raise ValueError(f"newton_lanes kernel: d = {d} outside 1..{MAX_D}")
-    if S < 1 or S > _MAX_THREADS:
-        raise ValueError(f"newton_lanes kernel: {S} starts outside 1..{_MAX_THREADS}")
-    lanes, smem = _block_shape(cap, d, S, X.element_size())
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"newton_lanes kernel: capacity {cap} needs {smem} B of "
-                         f"shared memory per lane, over {_SMEM_LIMIT}")
+    lanes, groups, stage_w, smem = _block_shape(cap, d, S, X.element_size())
 
     xout = torch.empty((nl, d), dtype=dt, device=dev)
     vout = torch.empty((nl,), dtype=dt, device=dev)
@@ -374,7 +442,8 @@ def _launch(X, W, c, n, fmini, theta0, ell, lbs, ubs, xstarts, period, *,
              lbs.data_ptr(), ubs.data_ptr(), xstarts.data_ptr(),
              xout.data_ptr(), vout.data_ptr(),
              nl, cap, d, S, iterations, _KIND_IDS[kind], _RULE_IDS[rule], lanes,
-             sigma_tol, sigma_floor, ridge, f_tol, x_tol, smem, stream)
+             groups, int(stage_w), sigma_tol, sigma_floor, ridge, f_tol, x_tol,
+             smem, stream)
     if err != 0:
         raise RuntimeError(f"newton_lanes kernel launch failed: CUDA error {err}")
     LAUNCHES += 1

@@ -122,3 +122,63 @@ def test_kernel_raises_instead_of_falling_back(dev):
                               torch.full((d,), -1.0, device=dev),
                               torch.full((d,), 1.0, device=dev),
                               torch.zeros((3, d), device=dev), iterations=1)
+
+
+# (lanes by active count, d, capacity, starts, dtype, lanes emptied to n = 0)
+_EDGE_SHAPES = {
+    "one_start": ({5: 20, 9: 21}, 3, 12, 1, torch.float64, 0),
+    "forty_starts": ({5: 8, 9: 9}, 3, 12, 40, torch.float64, 0),
+    "seven_lanes_block_not_filled": ({6: 7}, 2, 8, 1, torch.float32, 0),
+    "1601_lanes_last_block_of_one": ({4: 800, 7: 801}, 2, 8, 2, torch.float64, 0),
+    "n_zero_and_n_capacity": ({12: 12}, 3, 12, 6, torch.float64, 4),
+    "capacity_64_d_16_float64": ({40: 4, 64: 4}, 16, 64, 6, torch.float64, 0),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(_EDGE_SHAPES))
+def test_kernel_at_the_edges_of_the_block_layout(dev, shape):
+    """One and many starts per warp, a last block that is not full, a lane
+    without data beside a full one, and the shared-memory edge: the same
+    criteria (a) and (b) against the plain version."""
+    sizes, d, cap, S, dtype, emptied = _EDGE_SHAPES[shape]
+    rng = np.random.default_rng(13)
+    kern = K.RBFKernel(torch.tensor((0.8,), dtype=dtype, device=dev), "matern52")
+    parts = []
+    for n, count in sizes.items():
+        X = rng.uniform(-1.0, 1.0, (count, n, d))
+        parts.append(sg.fit(kern, X, np.sin(2.0 * X.sum(axis=-1)), capacity=cap,
+                            noise=1e-3 if dtype == torch.float32 else 1e-4,
+                            device=dev, dtype=dtype))
+    cat = {f: torch.cat([getattr(p, f) for p in parts])
+           for f in ("X", "y", "L", "c", "n", "Li")}
+    st = sg.SurrogateState(kern, noise=parts[0].noise, **cat)
+    rule, theta = dr.EI(), 0.0
+    if emptied:
+        # LCB does not read the incumbent, which a lane without data lacks
+        n = st.n.clone()
+        n[:emptied] = 0
+        st, rule, theta = st._replace(n=n), dr.DecisionRule("LCB"), 0.5
+    L = st.X.shape[0]
+    lo, hi = -np.ones(d), np.ones(d)
+    starts = qmc.generate_initial_guesses(S - 2, lo, hi) if S > 2 else \
+        rng.uniform(lo, hi, (S, d))
+    xstarts = torch.tensor(starts, dtype=dtype, device=dev)
+    lbs = torch.full((d,), -1.0, dtype=dtype, device=dev)
+    th = torch.full((L, 1), theta, dtype=dtype, device=dev)
+    W = st.Li.transpose(-1, -2) @ st.Li
+    args = (st.X, W, st.c, st.n, sg.get_active_minimum(st), th[:, 0].contiguous(),
+            st.kernel.theta[0], lbs, -lbs, xstarts)
+    kw = dict(kind="matern52", rule=rule.name, iterations=6)
+    before = nl.LAUNCHES
+    xk, vk = nl.newton_solve_lanes(*args, **kw)
+    torch.cuda.synchronize()
+    assert nl.LAUNCHES == before + 1
+    xr, vr = nl.newton_solve_lanes_ref(*args, **kw)
+    assert xk.shape == (L, d) and vk.shape == (L,)
+    vk_cross = sg.acquisition(st, rule, xk, th)
+    vr_cross = sg.acquisition(st, rule, xr, th)
+    f32 = dtype == torch.float32
+    torch.testing.assert_close(vk, vk_cross, rtol=2e-3 if f32 else 1e-6,
+                               atol=1e-6 if f32 else 1e-9)
+    slack = (5e-4 if f32 else 1e-6) * vr_cross.abs().clamp(min=1.0) + 1e-6
+    assert torch.all(vk_cross >= vr_cross - slack)

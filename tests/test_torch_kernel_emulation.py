@@ -1,0 +1,154 @@
+"""PyTorch port: the CUDA Newton lane kernel, built by g++ and run on the CPU.
+
+There is no CUDA compiler or card where the CPU tests run, so the kernel's
+own control flow (the warp-cooperative passes, shuffles, tiles, the block
+layout that `_block_shape` mirrors) would be tested only on the card. Here
+`tests/cuda_emulation/cuda_emu.h` maps the CUDA features the source uses
+onto OS threads and barriers, g++ builds `csrc/newton_lanes.cu` with its
+`<<<...>>>` launch replaced by a loop over blocks, and the same C entry
+points run on CPU tensors. Each case is held to the criteria of
+tests/test_torch_cuda.py against the plain version: (a) the kernel's value
+matches a plain re-evaluation of the acquisition at its argmax (float32
+rtol 2e-3, float64 1e-6); (b) its solution is never worse than the plain
+solver's beyond 5e-4 relative in float32 / 1e-6 in float64.
+
+This checks the arithmetic and the indexing, not the compiler or the card:
+tests/test_torch_cuda.py and chip_smoke.py do that. Skipped without g++.
+"""
+
+import ctypes
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from rollout_bo_tpu_torch.models import decision_rules as dr
+from rollout_bo_tpu_torch.models import surrogate as sg
+from rollout_bo_tpu_torch.ops import kernels as K
+from rollout_bo_tpu_torch.ops import newton_lanes as nl
+from rollout_bo_tpu_torch.ops import qmc
+
+_HERE = Path(__file__).resolve().parent
+_SOURCE = _HERE.parent / "rollout_bo_tpu_torch" / "csrc" / "newton_lanes.cu"
+# what the emulation replaces in the source, and with what
+_PATCHES = (
+    ("#include <cuda_runtime.h>", '#include "cuda_emu.h"'),
+    ("extern __shared__ __align__(16) unsigned char smem_raw[];",
+     "unsigned char* smem_raw = emu_smem;"),
+    ("kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(",
+     "emu_launch(kernel, blocks, threads, smem)("),
+)
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """The kernel's C entry points, built for the host."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to build the host emulation of the kernel")
+    text = _SOURCE.read_text()
+    for old, new in _PATCHES:
+        assert text.count(old) == 1, f"the emulation expects one {old!r} in the source"
+        text = text.replace(old, new)
+    out = tmp_path_factory.mktemp("kernel_emulation")
+    (out / "newton_lanes_emu.cpp").write_text(text)
+    proc = subprocess.run(
+        [gxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread",
+         f"-I{_HERE / 'cuda_emulation'}", "-o", str(out / "emu.so"),
+         str(out / "newton_lanes_emu.cpp")], capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    lib = ctypes.CDLL(str(out / "emu.so"))
+    for name in nl._ENTRY.values():
+        getattr(lib, name).argtypes = nl._ARGTYPES
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def _solve(lib, X, W, c, n, fmini, th0, ell, lbs, ubs, xstarts, period, *, kind, rule,
+           iterations, f_tol=0.0, x_tol=0.0):
+    """The wrapper's launch, on CPU pointers: same block shape, same arguments."""
+    dt = X.dtype
+    L, cap, d = X.shape
+    S = xstarts.shape[0]
+    lanes, groups, stage_w, smem = nl._block_shape(cap, d, S, X.element_size())
+    params = torch.tensor([float(ell), float(period)], dtype=dt)
+    xout = torch.full((L, d), float("nan"), dtype=dt)
+    vout = torch.full((L,), float("nan"), dtype=dt)
+    err = getattr(lib, nl._ENTRY[dt])(
+        X.data_ptr(), W.data_ptr(), c.data_ptr(), n.data_ptr(), fmini.data_ptr(),
+        th0.data_ptr(), params.data_ptr(), lbs.data_ptr(), ubs.data_ptr(),
+        xstarts.data_ptr(), xout.data_ptr(), vout.data_ptr(), L, cap, d, S, iterations,
+        nl._KIND_IDS[kind], nl._RULE_IDS[rule], lanes, groups, int(stage_w),
+        1e-8, 1e-10, 1e-8, f_tol, x_tol, smem, None)
+    assert err == 0
+    return xout, vout
+
+
+# name: (lanes by active count, d, capacity, starts, kind, rule, dtype, emptied)
+_CASES = {
+    "matern52_EI_f32": ({3: 2, 6: 2, 9: 2}, 3, 12, 6, "matern52", "EI", torch.float32, 0),
+    "matern52_EI_f64_d10_like_the_bench": ({13: 1, 15: 1}, 10, 24, 10, "matern52", "EI",
+                                           torch.float64, 0),
+    "periodic_LogEI_f64": ({4: 2, 7: 2}, 2, 8, 4, "periodic", "LogEI", torch.float64, 0),
+    "matern32_POI_loose_f64": ({5: 2, 8: 2}, 3, 12, 4, "matern32", "POI", torch.float64, 0),
+    "sqexp_LogPOI_f64": ({5: 2, 8: 1}, 3, 12, 5, "squared_exponential", "LogPOI",
+                         torch.float64, 0),
+    "matern12_LCB_n0_and_full_one_start": ({12: 9}, 2, 12, 1, "matern12", "LCB",
+                                           torch.float64, 3),
+    "forty_starts_in_chunks": ({4: 2, 7: 1}, 2, 8, 40, "matern52", "EI", torch.float64, 0),
+    "d16_capacity_64_f64": ({40: 1, 64: 1}, 16, 64, 3, "matern52", "EI", torch.float64, 0),
+    "W_left_in_device_memory_f32": ({5: 2, 11: 1}, 4, 240, 3, "matern52", "EI",
+                                    torch.float32, 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_CASES))
+def test_emulated_kernel_matches_plain_version(emulated, case):
+    sizes, d, cap, S, kind, rule_name, dtype, emptied = _CASES[case]
+    rng = np.random.default_rng(3)
+    f32 = dtype == torch.float32
+    theta = (0.9, 3.0) if kind == "periodic" else (0.8,)
+    kern = K.RBFKernel(torch.tensor(theta, dtype=dtype), kind)
+    parts = []
+    for n, count in sizes.items():
+        X = rng.uniform(-1.0, 1.0, (count, n, d))
+        y = np.sin(2.0 * X.sum(axis=-1)) + 0.2 * rng.standard_normal((count, n))
+        parts.append(sg.fit(kern, X, y, capacity=cap, noise=1e-3 if f32 else 1e-4,
+                            device="cpu", dtype=dtype))
+    cat = {f: torch.cat([getattr(p, f) for p in parts])
+           for f in ("X", "y", "L", "c", "n", "Li")}
+    st = sg.SurrogateState(kern, noise=parts[0].noise, **cat)
+    if emptied:
+        n = st.n.clone()
+        n[:emptied] = 0
+        st = st._replace(n=n)
+    rule = dr.RULES[rule_name]()            # POI: the loose freeze
+    L = st.X.shape[0]
+    lo, hi = -np.ones(d), np.ones(d)
+    starts = qmc.generate_initial_guesses(S - 2, lo, hi) if S > 2 else \
+        rng.uniform(lo, hi, (S, d))
+    t = lambda a: torch.tensor(np.asarray(a), dtype=dtype)
+    th = torch.full((L, 1), 0.5 if rule_name == "LCB" else 0.0, dtype=dtype)
+    W = st.Li.transpose(-1, -2) @ st.Li
+    period = kern.theta[1] if kind == "periodic" else 1.0
+    args = (st.X, W, st.c, st.n, sg.get_active_minimum(st), th[:, 0].contiguous(),
+            kern.theta[0], t(lo), t(hi), t(starts), period)
+    kw = dict(kind=kind, rule=rule_name, iterations=5, f_tol=rule.solve_f_tol,
+              x_tol=rule.solve_x_tol)
+    assert nl._block_shape(cap, d, S, st.X.element_size())[2] == (cap < 200)
+    xk, vk = _solve(emulated, *args, **kw)
+    xr, _ = nl.newton_solve_lanes_ref(*args, **kw)
+    assert bool(torch.all(torch.isfinite(xk))) and bool(torch.all(torch.isfinite(vk)))
+    vk_cross = sg.acquisition(st, rule, xk, th)
+    vr_cross = sg.acquisition(st, rule, xr, th)
+    log = rule_name.startswith("Log")
+    torch.testing.assert_close(vk, vk_cross, rtol=2e-3 if f32 else 1e-6,
+                               atol=(2e-3 if f32 else 1e-6) if log else (1e-6 if f32 else 1e-9))
+    if rule.solve_f_tol > 0:
+        slack = rule.solve_f_tol * (vr_cross.abs() + 1.0)
+    else:
+        slack = (5e-4 if f32 else 1e-6) * vr_cross.abs().clamp(min=1.0) + 1e-6
+    assert torch.all(vk_cross >= vr_cross - slack)

@@ -157,7 +157,7 @@ def test_fit_and_from_numpy_state(kind):
     js = jsg.fit(jK.RBFKernel(jnp.asarray(theta), kind), X, y, capacity=12,
                  noise=1e-5, dtype=jnp.float64)
     st = sg.fit(K.RBFKernel(_t(theta), kind), X, y, capacity=12, noise=1e-5,
-                dtype=f64)
+                device="cpu", dtype=f64)
     assert int(st.n) == int(js.n) == 7
     for got, want in ((st.X, js.X), (st.y, js.y), (st.L, js.L), (st.Li, js.Li),
                       (st.c, js.c)):

@@ -24,6 +24,8 @@ The CUDA kernel itself is compared with the plain version on the card by
 tests/test_torch_cuda.py and chip_smoke.py.
 """
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -38,6 +40,7 @@ from rollout_bo_tpu.ops import qmc
 from rollout_bo_tpu.rollout import solvers as jsolvers
 from rollout_bo_tpu_torch.models import decision_rules as dr
 from rollout_bo_tpu_torch.models import surrogate as sg
+from rollout_bo_tpu_torch.ops import kernels as K
 from rollout_bo_tpu_torch.ops import newton_lanes as nl
 from rollout_bo_tpu_torch.rollout import solvers
 
@@ -292,3 +295,94 @@ def test_arguments_are_checked_on_every_route():
     for args, kw, msg in bad:
         with pytest.raises(ValueError, match=msg):
             nl.newton_solve_lanes(*args, 0.8, *box, iterations=1, **kw)
+
+
+# --------------------------------------------------------------------------
+# What surrounds the CUDA kernel: the block shape, the work count, the
+# defaults. (The kernel itself runs only on the card.)
+# --------------------------------------------------------------------------
+
+_BLOCK_THREADS = 1024          # CUDA's limit per block
+_BLOCK_SHARED = 232_448        # Hopper: 227 KB of dynamic shared memory
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("S", [1, 10, 32, 40, 1024])
+@pytest.mark.parametrize("cap", [4, 12, 24, 48, 64])
+def test_block_shape_fits_the_card(cap, S, itemsize):
+    """Every supported d: the block fits the card's thread and shared-memory
+    limits, holds at least one lane and one group, covers every start, and
+    its byte count is the layout's (lane state + box + groups' scratch)."""
+    for d in range(1, nl.MAX_D + 1):
+        lanes, groups, stage_w, smem = nl._block_shape(cap, d, S, itemsize)
+        assert lanes >= 1 and 1 <= groups <= S
+        assert lanes * groups * nl._GROUP <= nl._MAX_THREADS <= _BLOCK_THREADS
+        assert 0 < smem <= _BLOCK_SHARED
+        dp = d | 1
+        per_group = (5 * cap + 2 * cap * max(dp, 18) + 2 * d * dp + 25 * dp + dp + 2)
+        per_lane = cap * dp + cap + (cap * (cap | 1) if stage_w else 0)
+        assert smem == (lanes * (per_lane + groups * per_group) + 2 * dp) * itemsize
+        assert stage_w      # these capacities keep W in shared memory
+
+
+def test_block_shape_bench_and_beyond():
+    # the bench shape: one lane x 10 warps, 63,320 B in float32
+    assert nl._block_shape(24, 10, 10, 4) == (1, 10, True, 63320)
+    assert nl._block_shape(24, 10, 10, 8) == (1, 10, True, 126640)
+    # few starts: several lanes per block; many: starts in chunks per group
+    assert nl._block_shape(24, 10, 1, 4)[:2] == (8, 1)
+    assert nl._block_shape(24, 10, 40, 4)[:2] == (1, 14)
+    assert nl._block_shape(24, 10, 1024, 4)[:2] == (1, 16)
+    # a capacity whose W = K^{-1} alone exceeds the block: W stays in device
+    # memory (240 x 241 floats = 231,360 B)
+    lanes, groups, stage_w, smem = nl._block_shape(240, 10, 10, 4)
+    assert lanes == 1 and groups >= 1 and not stage_w and smem <= _BLOCK_SHARED
+    for bad in (dict(cap=24, d=0, S=4), dict(cap=24, d=17, S=4),
+                dict(cap=24, d=4, S=0), dict(cap=24, d=4, S=1025)):
+        with pytest.raises(ValueError, match="outside"):
+            nl._block_shape(bad["cap"], bad["d"], bad["S"], 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        nl._block_shape(2000, 16, 4, 8)
+
+
+def test_lane_solve_work_at_the_bench_shape_and_its_growth():
+    n = [13] * 534 + [14] * 533 + [15] * 533
+    flops, nbytes = nl.lane_solve_work(n, 24, 10, 10, 10, 4)
+    assert 0.8 * 5.2e9 <= flops <= 1.2 * 5.2e9
+    read = 1600 * (24 * 10 + 24 * 24 + 24 + 2) * 4 + 1600 * 8 + (2 * 10 + 10 * 10 + 2) * 4
+    assert nbytes == read + 1600 * 11 * 4                    # 5.4 MB in, 70 KB out
+    assert 5.38e6 <= read <= 5.42e6 and 1600 * 11 * 4 == 70_400
+    work = lambda **kw: nl.lane_solve_work(**{**dict(n=[14] * 8, cap=24, d=10, S=10,
+                                                     iterations=10, itemsize=4), **kw})[0]
+    base = work()
+    # linear in the starts and (up to the final value per start) the iterations
+    assert work(S=20) == pytest.approx(2 * base, rel=1e-12)
+    assert work(iterations=20) == pytest.approx(2 * base, rel=0.01)
+    assert work(n=[14] * 16) == pytest.approx(2 * base, rel=1e-12)
+    # quadratic in n where that term leads; more than linear in d (the
+    # d (d + 1) / 2 entries of H over the data, the d^3 / 3 factorization)
+    assert 2.5 < work(n=[28] * 8, cap=32) / base < 4.0
+    assert 3.5 < nl.lane_solve_work([200] * 2, 256, 10, 10, 10, 4)[0] / \
+        nl.lane_solve_work([100] * 2, 256, 10, 10, 10, 4)[0] < 4.0
+    assert 1.5 < work(d=16) / work(d=8) < 4.0
+    assert nl.lane_solve_work([3] * 2, 8, 16, 2, 4, 8)[0] / \
+        nl.lane_solve_work([3] * 2, 8, 8, 2, 4, 8)[0] > 2.0
+    # loops run to n, not to the capacity; bytes count the capacity
+    assert work(cap=48) == base
+    assert nl.lane_solve_work([14] * 8, 48, 10, 10, 10, 4)[1] > \
+        nl.lane_solve_work([14] * 8, 24, 10, 10, 10, 4)[1]
+
+
+@pytest.mark.parametrize("fn", [sg.fit, K.matern52, K.matern32, K.matern12,
+                                K.squared_exponential, K.periodic])
+def test_entry_points_default_to_the_card(fn):
+    """Entry points that create tensors run on the card unless the caller
+    asks for the CPU (as every CPU test does); no availability switch."""
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert "is_available" not in inspect.getsource(fn)
+
+
+def test_entry_points_take_the_cpu_when_asked():
+    kern = K.matern52((0.8,), device="cpu")
+    st = sg.fit(kern, np.zeros((2, 1)), np.zeros(2), capacity=4, device="cpu")
+    assert kern.theta.device.type == "cpu" and st.X.device.type == "cpu"
