@@ -19,7 +19,12 @@ Run from the repository root on a machine with one NVIDIA Hopper card
    for every kernel kind x rule in float32 and float64 with per-lane active
    counts, plus the loose freeze (POI); and at the edges of the block
    layout (1 and 40 starts, 7 and 1601 lanes, a lane with no data and a
-   full one, capacity 64 at d 16 in float64).
+   full one, capacity 64 at d 16 in float64); and at the two shapes the BO
+   loops give it, both in float64 at d 6 (hartmann6d): the myopic loop's
+   (1 lane of 104 observations in a capacity-105 buffer, 64 + 2 starts, 12
+   iterations) and the non-myopic loop's (2000 lanes = 10 restarts x 200
+   trajectories, fantasy capacity 23, 16 + 2 starts), each timed and set
+   against its bound.
    Criteria (tests/test_pallas_newton.py): (a) the kernel's value matches
    a plain re-evaluation of the acquisition at its argmax; (b) its
    solution is never worse than the plain solver's beyond tolerance. In
@@ -36,7 +41,35 @@ Run from the repository root on a machine with one NVIDIA Hopper card
    card; checks a finite winner inside the box, that the kernel ran
    3 x (SGA iterations + 1) times, and that a small float64 run of the
    same path agrees with the CPU route (the plain solver); times the
-   median of 3 acquisitions after a warm-up.
+   median of 2 acquisitions after a warm-up;
+5. myopic BO, one full-protocol trial through the experiment CLI
+   (`experiments.myopic.main`): hartmann6d, budget 100, 64 starts, EI / POI
+   / LCB / Random, 5 initial samples, Matern-5/2 with the MLE every
+   iteration, float64. Checks every CSV (header, sentinel, one row of 100
+   finite numbers), gaps in [0, 1] and non-decreasing, 100 kernel launches
+   per solved acquisition and none for Random, the fitted lengthscale in
+   [0.1, 5], EI's final gap > 0. Prints per acquisition the final gap, the
+   seconds per BO iteration (the solve alone: median; solve, observe,
+   condition and MLE: mean), the seconds per MLE refit, the fitted
+   lengthscale and the share of solves whose winner left its start point;
+6. non-myopic BO, one trial through `experiments.nonmyopic.main` at the
+   CLI's width: hartmann6d, horizon 2, 200 QMC trajectories, 8 + 2
+   restarts, 50 SGA iterations, 16 + 2 starts, MLE on, float64, budget 15
+   (depth; the widths are the CLI's defaults). Same CSV checks; kernel
+   launches = sum over BO iterations of horizon x (SGA iterations + 1),
+   plus one per fallback taken. Prints seconds per BO iteration, SGA
+   iterations per acquisition, fallbacks, the final gap and the share of
+   solver lanes that left their start. Then one BO iteration with
+   `--deterministic-solve` at the same width (8 Gauss-Hermite nodes: 512
+   quadrature trajectories per restart), timed;
+7. small float64 trials, card against CPU route: a 4-iteration myopic
+   trial, a 2-iteration non-myopic trial (h 1, 8 samples) and one
+   `deterministic=True` iteration (h 1, 4 Gauss-Hermite nodes), each run
+   on the card and with device="cpu": the same sampled points to 1e-6 of
+   the box width and the same fitted lengthscale to 1e-6 relative.
+
+`--phases 3 5` runs only the phases named (1 and 2 always run); a partial
+run prints neither of the two closing lines.
 
 It prints one JSON line describing the kernel (launches on the main path;
 max |v_kernel - v_plain| over the bench-shape lanes; the kernel's and the
@@ -49,11 +82,16 @@ exits non-zero; without a CUDA device it exits non-zero at once.
 
 from __future__ import annotations
 
+import argparse
+import contextlib
+import csv
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -322,6 +360,29 @@ def phase_kernel_checks(dev, card):
     for label, void in _edge_cases(dev):
         print(f"kernel vs plain, edge of the block layout: {label} passed; lanes void "
               f"for (b): {void}")
+
+    # the shapes the BO loops give the kernel (phases 5 and 6): hartmann6d in
+    # float64, the solver's default 12 iterations
+    f = testfns.get_function("hartmann6d")
+    t64 = lambda a: torch.tensor(np.asarray(a), dtype=torch.float64, device=dev)
+    for label, sizes, cap, starts in (
+            ("myopic loop (1 lane, n 104 of capacity 105, S 66)", {104: 1}, 105, 64),
+            ("non-myopic loop (2000 lanes, n 6..21 of capacity 23, S 18)",
+             {6: 500, 12: 500, 17: 500, 21: 500}, 23, 16)):
+        st = _lane_state(sizes, f.dim, cap, "matern52", (0.6,), f.lbs, f.ubs,
+                         torch.float64, dev, 17, f=f)
+        th = torch.zeros((st.X.shape[0], 1), dtype=torch.float64, device=dev)
+        xs = t64(qmc.generate_initial_guesses(starts, f.lbs, f.ubs))
+        lanes, groups, stage_w, smem = nl._block_shape(cap, f.dim, xs.shape[0], 8)
+        r = _compare(st, dr.EI(), th, t64(f.lbs), t64(f.ubs), xs, 12, label, timing=True)
+        print(f"kernel vs plain, {label}, d 6, matern52/EI, float64: blocks of {lanes} "
+              f"lane x {groups} warps, W {'staged' if stage_w else 'in device memory'}, "
+              f"{smem} B of shared memory; argmax agreement {r['agree']:.4f}, "
+              f"max |v_kernel - v_plain| {r['max_abs_err']:.3e}, max |v - acq(x)| "
+              f"{r['max_err_reeval']:.3e}, lanes that left their start {r['moved']:.4f}")
+        print(_work_line(r, card))
+        if r["agree"] != 1.0:
+            raise AssertionError(f"{label}: argmax agreement {r['agree']} != 1 in float64")
     return bench
 
 
@@ -420,14 +481,14 @@ def phase_main_path(dev, card):
           f"{launches} kernel launches, v_best {float(v):.6g}, first call {first_s:.3f} s")
 
     times = []
-    for _ in range(3):
+    for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         acquire()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     median = statistics.median(times)
-    print(f"main path: median {median:.4f} s per acquisition over 3 runs "
+    print(f"main path: median {median:.4f} s per acquisition over 2 runs "
           f"({', '.join(f'{s:.4f}' for s in times)}) on {card}")
 
     # a small float64 run of the same path: the card (kernel) against the
@@ -456,15 +517,253 @@ def _setup_small(dev):
     return state, tp, EI(), xstarts, rs
 
 
-def main():
+# --------------------------------------------------------------------------
+# phases 5-7: the BO loops through the experiment CLIs
+# --------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _recording():
+    """Records what the CLIs do not return: each trial's result with its
+    wall seconds and the kernel-launch count at its end, the seconds of each
+    MLE refit, and per lane-solver call the share of lanes whose argmax is
+    at none of its start points."""
+    from rollout_bo_tpu_torch.models import surrogate as sg
+    from rollout_bo_tpu_torch.ops import newton_lanes as nl
+    from rollout_bo_tpu_torch.rollout import bo, solvers
+
+    rec = dict(trials=[], mle_s=[], moved=[])
+    hot, refit = solvers.maximize_hot, sg.optimize_hypers
+    loops = {name: getattr(bo, name) for name in ("run_myopic_bo", "run_nonmyopic_bo")}
+
+    def maximize_hot(state, rule, theta, lbs, ubs, xstarts, **kw):
+        x, v = hot(state, rule, theta, lbs, ubs, xstarts, **kw)
+        starts = torch.maximum(torch.minimum(xstarts, ubs), lbs)
+        away = (x[..., None, :] - starts).abs().amax(dim=-1).amin(dim=-1)
+        rec["moved"].append((away > 1e-6 * torch.max(ubs - lbs)).double().mean())
+        return x, v
+
+    def optimize_hypers(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = refit(*args, **kw)
+        torch.cuda.synchronize()
+        rec["mle_s"].append(time.perf_counter() - t0)
+        return out
+
+    def timed(loop):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            res = loop(*args, **kw)
+            rec["trials"].append(dict(
+                res=res, seconds=time.perf_counter() - t0, launches=nl.LAUNCHES,
+                mle_s=rec["mle_s"][:], moved=torch.stack(rec["moved"]).cpu().numpy()
+                if rec["moved"] else np.zeros(0)))
+            rec["mle_s"].clear()
+            rec["moved"].clear()
+            return res
+        return run
+
+    solvers.maximize_hot, sg.optimize_hypers = maximize_hot, optimize_hypers
+    for name, loop in loops.items():
+        setattr(bo, name, timed(loop))
+    try:
+        yield rec
+    finally:
+        solvers.maximize_hot, sg.optimize_hypers = hot, refit
+        for name, loop in loops.items():
+            setattr(bo, name, loop)
+
+
+def _check_csv(path, budget, *, gaps=False):
+    """Header, sentinel row and one row of `budget` finite numbers."""
+    with open(path) as fh:
+        rows = list(csv.reader(fh))
+    if (len(rows) != 3 or rows[0] != ["trial"] + [str(i) for i in range(1, budget + 1)]
+            or [float(v) for v in rows[1]] != [-1.0] * (budget + 1)):
+        raise AssertionError(f"{path}: not header + sentinel + one trial row")
+    row = np.asarray([float(v) for v in rows[2]])
+    if row.shape != (budget,) or not np.all(np.isfinite(row)):
+        raise AssertionError(f"{path}: trial row is not {budget} finite numbers")
+    # the optimizer locations are rounded, so a found optimum may pass 1 by a hair
+    if gaps and not (np.all(row >= 0.0) and np.all(row <= 1.0 + 1e-3)
+                     and np.all(np.diff(row) >= 0.0)):
+        raise AssertionError(f"{path}: gaps outside [0, 1] or decreasing: {row}")
+    return row
+
+
+def _lengthscale_in_bounds(res, label):
+    ell = float(res.state.kernel.theta[0])
+    if not 0.1 <= ell <= 5.0:
+        raise AssertionError(f"{label}: fitted lengthscale {ell} outside [0.1, 5]")
+    return ell
+
+
+def phase_myopic_cli(card, budget=100):
+    from rollout_bo_tpu_torch.experiments import myopic
+    from rollout_bo_tpu_torch.ops import newton_lanes as nl
+
+    acqs = ["ei", "poi", "lcb", "random"]
+    with tempfile.TemporaryDirectory() as out, _recording() as rec:
+        nl.LAUNCHES = 0
+        myopic.main(["--function-name", "hartmann6d", "--trials", "1", "--budget",
+                     str(budget), "--starts", "64", "--acquisitions", *acqs,
+                     "--seed", "1906", "--output-dir", out])
+        torch.cuda.synchronize()
+        outdir = os.path.join(out, "hartmann6d")
+        if not os.path.exists(os.path.join(outdir, "metadata.txt")):
+            raise AssertionError("myopic CLI wrote no metadata.txt")
+        gaps = {}
+        for acq in acqs:
+            for metric in myopic.METRICS:
+                row = _check_csv(os.path.join(outdir, f"{acq}_{metric}.csv"), budget,
+                                 gaps=metric == "gaps")
+                if metric == "gaps":
+                    gaps[acq] = row
+    if len(rec["trials"]) != len(acqs):
+        raise AssertionError(f"{len(rec['trials'])} trials ran, not {len(acqs)}")
+    before = 0
+    for acq, trial in zip(acqs, rec["trials"]):
+        res, launches = trial["res"], trial["launches"] - before
+        before = trial["launches"]
+        want = 0 if acq == "random" else budget
+        if launches != want:
+            raise AssertionError(f"myopic {acq}: {launches} kernel launches, not {want}")
+        line = (f"myopic BO, hartmann6d, {acq}: final gap {gaps[acq][-1]:.4f}, "
+                f"{launches} kernel launches, solve median "
+                f"{statistics.median(res.times):.4f} s (last {res.times[-1]:.4f} s), "
+                f"whole BO iteration {trial['seconds'] / budget:.4f} s")
+        if acq != "random":
+            ell = _lengthscale_in_bounds(res, f"myopic {acq}")
+            line += (f", MLE refit median {statistics.median(trial['mle_s']):.4f} s, "
+                     f"fitted lengthscale {ell:.4f}, solves whose winner left its "
+                     f"start {float(trial['moved'].mean()):.4f}")
+        print(line + f"; on {card}")
+    if not gaps["ei"][-1] > 0.0:
+        raise AssertionError("myopic EI made no progress: final gap 0")
+
+
+def phase_nonmyopic_cli(card, budget=15, horizon=2):
+    from rollout_bo_tpu_torch.experiments import nonmyopic
+    from rollout_bo_tpu_torch.ops import newton_lanes as nl
+
+    with tempfile.TemporaryDirectory() as out, _recording() as rec:
+        nl.LAUNCHES = 0
+        nonmyopic.main(["--function-name", "hartmann6d", "--horizon", str(horizon),
+                        "--trials", "1", "--budget", str(budget), "--mc-samples", "200",
+                        "--batch-size", "8", "--sgd-iterations", "50", "--starts", "16",
+                        "--optimize", "--variance-reduction", "--seed", "1906",
+                        "--output-dir", out])
+        torch.cuda.synchronize()
+        if not os.path.exists(os.path.join(out, "metadata.txt")):
+            raise AssertionError("non-myopic CLI wrote no metadata.txt")
+        for metric in ("times", "gaps", "observations"):
+            row = _check_csv(os.path.join(out, "hartmann6d",
+                                          f"rollout_h{horizon}_{metric}.csv"),
+                             budget, gaps=metric == "gaps")
+            if metric == "gaps":
+                gaps = row
+    (trial,) = rec["trials"]
+    res = trial["res"]
+    want = int(horizon * (res.sga_iterations + 1).sum() + res.fallbacks.sum())
+    if trial["launches"] != want:
+        raise AssertionError(f"non-myopic: {trial['launches']} kernel launches, not "
+                             f"{want} = {horizon} x sum(SGA iterations + 1) + fallbacks")
+    ell = _lengthscale_in_bounds(res, "non-myopic")
+    print(f"non-myopic BO, hartmann6d, h {horizon}, 10 restarts x 200 trajectories, "
+          f"budget {budget}: final gap {gaps[-1]:.4f}, {trial['launches']} kernel "
+          f"launches, acquisition median {statistics.median(res.times):.4f} s "
+          f"(min {res.times.min():.4f}, max {res.times.max():.4f}), whole BO iteration "
+          f"{trial['seconds'] / budget:.4f} s, SGA iterations per acquisition "
+          f"{res.sga_iterations.tolist()}, fallbacks {int(res.fallbacks.sum())}, MLE "
+          f"refit median {statistics.median(trial['mle_s']):.4f} s, fitted lengthscale "
+          f"{ell:.4f}, solver lanes that left their start "
+          f"{float(trial['moved'].mean()):.4f}; on {card}")
+
+    # the Gauss-Hermite (SAA) solver at the same width: 8 nodes, so
+    # 8^(h+1) quadrature trajectories per restart; one BO iteration
+    with tempfile.TemporaryDirectory() as out, _recording() as rec:
+        nl.LAUNCHES = 0
+        nonmyopic.main(["--function-name", "hartmann6d", "--horizon", str(horizon),
+                        "--trials", "1", "--budget", "1", "--batch-size", "8",
+                        "--sgd-iterations", "50", "--starts", "16", "--optimize",
+                        "--deterministic-solve", "--ghq-nodes", "8", "--seed", "1906",
+                        "--output-dir", out])
+        torch.cuda.synchronize()
+        _check_csv(os.path.join(out, "hartmann6d", f"rollout_h{horizon}_observations.csv"), 1)
+    (trial,) = rec["trials"]
+    res = trial["res"]
+    solves, odd = divmod(trial["launches"] - int(res.fallbacks.sum()), horizon)
+    if odd or not 2 <= solves <= 51:
+        raise AssertionError(f"deterministic solve: {trial['launches']} kernel launches are "
+                             f"not {horizon} x (1..50 Adam iterations + 1) + fallbacks")
+    print(f"non-myopic BO, deterministic solve, hartmann6d, h {horizon}, 10 restarts x "
+          f"{8 ** (horizon + 1)} Gauss-Hermite trajectories, 1 BO iteration: acquisition "
+          f"{res.times[0]:.4f} s, {solves - 1} Adam iterations, {trial['launches']} kernel "
+          f"launches, fallbacks {int(res.fallbacks.sum())}, solver lanes that left their "
+          f"start {float(trial['moved'].mean()):.4f}; on {card}")
+
+
+def phase_card_equals_cpu(dev):
+    """Small float64 trials of both loops, the card against the CPU route
+    (which the CPU tests hold to the JAX package)."""
+    from rollout_bo_tpu_torch.models import decision_rules as dr
+    from rollout_bo_tpu_torch.models import testfns
+    from rollout_bo_tpu_torch.rollout import bo
+
+    # hartmann3d: values of order 1 on the unit box, so EI keeps a gradient
+    # (on braninhoo, |f| ~ 100, EI underflows after three iterations, the
+    # starts tie to rounding and the two routes may pick different ones)
+    f = testfns.get_function("hartmann3d")
+    x_init = np.random.default_rng(3).uniform(f.lbs, f.ubs, (5, f.dim))
+    width = float(np.max(f.ubs - f.lbs))
+    nonmyopic = dict(horizon=1, num_starts=8, num_restarts=2, sgd_iters=3, lr=0.05,
+                     solver_iterations=8, x_init=x_init)
+    cases = {
+        "myopic, 4 iterations": lambda device: bo.run_myopic_bo(
+            f, dr.EI(), budget=4, num_starts=8, x_init=x_init, device=device),
+        "non-myopic, 2 iterations (h 1, 8 samples)": lambda device: bo.run_nonmyopic_bo(
+            f, budget=2, mc_iters=8, device=device, **nonmyopic),
+        "deterministic solve, 1 iteration (h 1, 4 nodes)": lambda device: bo.run_nonmyopic_bo(
+            f, budget=1, deterministic=True, ghq_nodes=4, device=device, **nonmyopic),
+    }
+    for label, run in cases.items():
+        gpu, cpu = run(dev), run("cpu")
+        torch.cuda.synchronize()
+        apart = float(np.abs(gpu.X - cpu.X).max())
+        th_gpu, th_cpu = float(gpu.state.kernel.theta[0]), float(cpu.state.kernel.theta[0])
+        if apart > 1e-6 * width or not math.isclose(th_gpu, th_cpu, rel_tol=1e-6):
+            raise AssertionError(f"{label}: card {gpu.X} theta {th_gpu} vs CPU route "
+                                 f"{cpu.X} theta {th_cpu}")
+        print(f"BO loop, small float64, {label}: card == CPU route (points within "
+              f"{apart:.2e} of each other in a box of width {width}, fitted lengthscale "
+              f"{th_gpu:.8f})")
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--phases", type=int, nargs="+", default=[3, 4, 5, 6, 7],
+                   choices=[3, 4, 5, 6, 7], help="phases to run after 1 (device) "
+                   "and 2 (build); a partial run prints no closing lines")
+    phases = set(p.parse_args(argv).phases)
     name, smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
     torch.cuda.synchronize()
-    bench = phase_kernel_checks(dev, smi)
+    if 3 in phases:
+        bench = phase_kernel_checks(dev, smi)
+    if 4 in phases:
+        launches, _ = phase_main_path(dev, smi)
+    if 5 in phases:
+        phase_myopic_cli(smi)
+    if 6 in phases:
+        phase_nonmyopic_cli(smi)
+    if 7 in phases:
+        phase_card_equals_cpu(dev)
     torch.cuda.synchronize()
-    launches, _ = phase_main_path(dev, smi)
-    torch.cuda.synchronize()
+    if phases != {3, 4, 5, 6, 7}:
+        print(f"partial run (phases {sorted(phases)}): no closing lines")
+        return 0
     print(json.dumps({"kernels": [{
         "name": "newton_lanes",
         "route": "cuda",

@@ -30,8 +30,8 @@ import math
 
 import torch
 
-__all__ = ["DecisionRule", "EI", "LogEI", "POI", "LogPOI", "LCB", "RULES",
-           "rule_value", "rule_partials"]
+__all__ = ["DecisionRule", "EI", "LogEI", "POI", "LogPOI", "LCB",
+           "RandomAcquisition", "RULES", "rule_value", "rule_partials"]
 
 # |z| beyond this is saturated (tails < 1e-190); keeps the autodiff chains
 # finite in float32 on huge-range surfaces such as trid10d (|f| ~ 1e5)
@@ -86,6 +86,9 @@ def rule_value(name: str, mu, sigma, th, fmini, sigma_tol: float):
     """g(mu, sigma) of rule `name` (reference decision_rules.jl:84-135)."""
     if name == "LCB":
         return th * sigma - mu
+    if name == "Random":
+        # dispatched by name in the solver (reference decision_rules.jl:129-135)
+        return torch.zeros_like(mu)
     s = torch.clamp(sigma, min=sigma_tol)
     imp = fmini - mu - th
     if name in ("EI", "POI"):
@@ -121,6 +124,9 @@ def rule_partials(name: str, mu, sigma, th, fmini, sigma_tol: float):
         one = torch.ones_like(mu)
         zero = torch.zeros_like(mu)
         return -one, th * one, zero, zero, zero
+    if name == "Random":
+        zero = torch.zeros_like(mu)
+        return zero, zero, zero, zero, zero
     s = torch.clamp(sigma, min=sigma_tol)
     s2 = s * s
     dsig = (sigma > sigma_tol).to(mu.dtype)
@@ -221,4 +227,11 @@ def LCB() -> DecisionRule:
     return DecisionRule("LCB")
 
 
-RULES = {"EI": EI, "LogEI": LogEI, "POI": POI, "LogPOI": LogPOI, "LCB": LCB}
+def RandomAcquisition() -> DecisionRule:
+    """Random search: `solvers.multistart_maximize` draws a uniform point
+    for it instead of solving (reference rbf_optim.jl:76-79)."""
+    return DecisionRule("Random")
+
+
+RULES = {"EI": EI, "LogEI": LogEI, "POI": POI, "LogPOI": LogPOI, "LCB": LCB,
+         "Random": RandomAcquisition}

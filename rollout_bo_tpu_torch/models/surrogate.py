@@ -7,12 +7,17 @@ inverse Li keep the identity-padding invariant of `ops/chol.py`. Every
 field may carry leading lane axes: a rollout holds one state per
 (restart, trajectory) lane, with `n` an integer tensor of the lane shape.
 
-MLE and the cost-aware rules are not ported yet.
+The hyperparameter MLE differentiates the closed-form log-likelihood
+through the masked Cholesky with `torch.autograd`, as the JAX package does
+with `jax.grad`. The cost-aware rules and `lazy_posterior` are not ported
+yet.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
+
+import math
 
 import numpy as np
 import torch
@@ -21,20 +26,32 @@ from rollout_bo_tpu_torch.constants import DEFAULT_CAPACITY
 from rollout_bo_tpu_torch.models.decision_rules import DecisionRule
 from rollout_bo_tpu_torch.ops import chol as chol_ops
 from rollout_bo_tpu_torch.ops import kernels as kern
+from rollout_bo_tpu_torch.ops import small_chol
 from rollout_bo_tpu_torch.ops.kernels import RBFKernel
 
 __all__ = [
     "SurrogateState",
     "Posterior",
     "fit",
+    "refit",
+    "from_numpy",
     "from_numpy_state",
     "condition",
+    "reset",
+    "set_kernel",
     "get_active_minimum",
     "posterior",
     "joint_posterior_cov",
+    "joint_posterior_chol",
+    "gp_draw",
+    "gp_draw_joint",
     "acquisition",
     "acquisition_grad",
     "acquisition_value_grad_hess",
+    "log_likelihood",
+    "dlog_likelihood",
+    "grad_log_likelihood",
+    "optimize_hypers",
     "DEFAULT_CAPACITY",
 ]
 
@@ -76,10 +93,10 @@ class SurrogateState(NamedTuple):
         return rows < self.n[..., None]
 
 
-def _refactor(kernel: RBFKernel, X, y, n, noise):
+def _refactor(kernel: RBFKernel, X, y, n, noise, *, nan_if_not_pd: bool = False):
     """Full masked refactorization: K -> L, L^{-1} -> c."""
     K = kern.eval_KXX(kernel, X, noise=noise)
-    L = chol_ops.masked_cholesky(K, n)
+    L = chol_ops.masked_cholesky(K, n, nan_if_not_pd=nan_if_not_pd)
     Li = chol_ops.tri_inv_padded(L)
     m = chol_ops.active_mask(X.shape[-2], n, dtype=X.dtype, device=X.device)
     return L, Li, chol_ops.psd_apply(Li, y * m)
@@ -103,6 +120,31 @@ def fit(kernel: RBFKernel, X, y, *, capacity: int = DEFAULT_CAPACITY,
     kernel = kernel.to(device=device, dtype=dtype)
     L, Li, c = _refactor(kernel, Xp, yp, n, noise)
     return SurrogateState(kernel, Xp, yp, L, c, n, noise, Li)
+
+
+def from_numpy(X, y, *, device="cuda", dtype=torch.float64, **kw) -> SurrogateState:
+    """`fit` with the default Matern-5/2 kernel; `kw` as for `fit`."""
+    return fit(kern.matern52(device=device, dtype=dtype), X, y, device=device,
+               dtype=dtype, **kw)
+
+
+def refit(state: SurrogateState, *, nan_if_not_pd: bool = False) -> SurrogateState:
+    """Re-factorize on the same data; used after hyperparameter moves."""
+    L, Li, c = _refactor(state.kernel, state.X, state.y, state.n, state.noise,
+                         nan_if_not_pd=nan_if_not_pd)
+    return state._replace(L=L, Li=Li, c=c)
+
+
+def set_kernel(state: SurrogateState, kernel: RBFKernel) -> SurrogateState:
+    """Swap the kernel and refactorize (reference set_kernel!, rbs.jl:123-135)."""
+    return refit(state._replace(kernel=kernel))
+
+
+def reset(state: SurrogateState, X, y) -> SurrogateState:
+    """Re-fit on new data in buffers of the same capacity (reference reset!,
+    rbs.jl:147-164)."""
+    return fit(state.kernel, X, y, capacity=state.capacity, noise=state.noise,
+               device=state.X.device, dtype=state.X.dtype)
 
 
 def from_numpy_state(kind: str, theta, X, y, L, Li, c, n, noise, *,
@@ -214,6 +256,28 @@ def joint_posterior_cov(state: SurrogateState, x):
     return dmu, S
 
 
+def joint_posterior_chol(state: SurrogateState, x):
+    """Joint mean [mu; grad mu] (..., d+1) and the Cholesky factor of the
+    joint (f, grad f) predictive covariance (..., d+1, d+1), NaN where the
+    covariance is not PD (reference `sx.dsigma`, rbs.jl:261-267, 530-539).
+    The Cholesky backward is fragile for a marginally-PD S in float32; the
+    rollout's "reparam" draw differentiates only sqrt(S[0, 0])."""
+    dmu, S = joint_posterior_cov(state, x)
+    return dmu, small_chol.chol_small(S)
+
+
+def gp_draw(state: SurrogateState, x, z):
+    """Scalar posterior draw mu + sigma z (reference gp_draw, rbs.jl:588-611)."""
+    p = posterior(state, x)
+    return p.mu + p.sigma * z
+
+
+def gp_draw_joint(state: SurrogateState, x, z):
+    """Joint (f, grad f) draw dmu + chol(joint cov) z, for z (..., d+1)."""
+    dmu, Ld = joint_posterior_chol(state, x)
+    return dmu + _mv(Ld, z)
+
+
 # --------------------------------------------------------------------------
 # Acquisition values and derivatives at a point
 # --------------------------------------------------------------------------
@@ -253,3 +317,85 @@ def acquisition_value_grad_hess(state: SurrogateState, rule: DecisionRule, x, th
         + gmusig * (cross + cross.transpose(-1, -2))
     )
     return rule(*args), grad, hess
+
+
+# --------------------------------------------------------------------------
+# Hyperparameter MLE (reference rbs.jl:770-829)
+# --------------------------------------------------------------------------
+
+
+def log_likelihood(state: SurrogateState):
+    """Closed-form GP log-marginal-likelihood of the active block:
+    -y^T c / 2 - sum(log diag L) - n log(2 pi) / 2 (rbs.jl:770-776). The
+    identity padding contributes log 1 = 0 to the log-determinant."""
+    dt = state.y.dtype
+    return (-torch.sum(state.y * state.mask.to(dt) * state.c, dim=-1) / 2.0
+            - torch.sum(torch.log(torch.diagonal(state.L, dim1=-2, dim2=-1)), dim=-1)
+            - state.n.to(dt) * math.log(2.0 * math.pi) / 2.0)
+
+
+def _ll_of_theta(theta, state: SurrogateState):
+    """log-likelihood of the state's data under kernel hyperparameters
+    `theta`; NaN (never an exception) where K(theta) is not PD."""
+    return log_likelihood(refit(state._replace(kernel=state.kernel.replace_theta(theta)),
+                                nan_if_not_pd=True))
+
+
+def _detached(state: SurrogateState) -> SurrogateState:
+    return SurrogateState(state.kernel.replace_theta(state.kernel.theta.detach()),
+                          *(t.detach() for t in state[1:]))
+
+
+def grad_log_likelihood(state: SurrogateState):
+    """d log-lik / d theta, by autograd through the masked Cholesky; equals
+    the reference's directional-trace formula (rbs.jl:778-799). NaN, like
+    the likelihood itself, where K(theta) is not positive definite."""
+    state = _detached(state)
+    with torch.enable_grad():
+        theta = state.kernel.theta.clone().requires_grad_(True)
+        ll = _ll_of_theta(theta, state)
+        (g,) = torch.autograd.grad(ll, theta)
+    return torch.where(torch.isfinite(ll.detach()), g, torch.nan)
+
+
+def dlog_likelihood(state: SurrogateState, dtheta):
+    """Directional derivative of the log-likelihood along dtheta (reference
+    delta-log_likelihood, rbs.jl:778-785)."""
+    g = grad_log_likelihood(state)
+    return torch.sum(g * torch.as_tensor(dtheta, dtype=g.dtype, device=g.device))
+
+
+def optimize_hypers(state: SurrogateState, lowerbounds, upperbounds, *,
+                    iterations: int = 60, lr: float = 0.1) -> SurrogateState:
+    """Box-constrained MLE of the kernel hyperparameters; returns the refit
+    state.
+
+    The reference uses Optim.Fminbox(LBFGS) with 30 iterations
+    (rbs.jl:805-829); here, as in the JAX package: a fixed number of
+    projected Adam iterations on log(theta) (all hypers are positive
+    scales). A trial theta at which K is not positive definite has a NaN
+    likelihood; its gradient is zeroed, so that step only decays the
+    momentum. The loop makes no host synchronization. If the final theta
+    itself is outside the PD cone the returned factors are NaN, as in the
+    JAX package, not an exception.
+    """
+    state = _detached(state)
+    dt, dev = state.X.dtype, state.X.device
+    log_lb = torch.log(torch.as_tensor(lowerbounds, dtype=dt, device=dev))
+    log_ub = torch.log(torch.as_tensor(upperbounds, dtype=dt, device=dev))
+    b1, b2, eps = 0.9, 0.999, 1e-8
+
+    lt = torch.clamp(torch.log(state.kernel.theta), log_lb, log_ub)
+    m, v = torch.zeros_like(lt), torch.zeros_like(lt)
+    for i in range(iterations):
+        with torch.enable_grad():
+            leaf = lt.clone().requires_grad_(True)
+            (gi,) = torch.autograd.grad(-_ll_of_theta(torch.exp(leaf), state), leaf)
+        gi = torch.where(torch.isfinite(gi), gi, 0.0)
+        m = b1 * m + (1 - b1) * gi
+        v = b2 * v + (1 - b2) * gi * gi
+        mhat = m / (1 - b1 ** (i + 1))
+        vhat = v / (1 - b2 ** (i + 1))
+        lt = torch.clamp(lt - lr * mhat / (torch.sqrt(vhat) + eps), log_lb, log_ub)
+    return refit(state._replace(kernel=state.kernel.replace_theta(torch.exp(lt))),
+                 nan_if_not_pd=True)

@@ -31,14 +31,24 @@ def active_mask(capacity: int, n, *, dtype, device):
     return (rows < n[..., None]).to(dtype)
 
 
-def masked_cholesky(K, n):
+def masked_cholesky(K, n, *, nan_if_not_pd: bool = False):
     """Cholesky of the active n x n block of K (..., cap, cap), identity in
-    the padding (reference radial_basis_surrogates.jl:93-98)."""
+    the padding (reference radial_basis_surrogates.jl:93-98).
+
+    A block that is not positive definite raises, unless `nan_if_not_pd`:
+    then its whole factor is NaN, with no exception and no host
+    synchronization. The hyperparameter MLE relies on that contract, which
+    is the JAX Cholesky's: a trial theta outside the PD cone gives a NaN
+    likelihood whose gradient the optimizer zeroes."""
     cap = K.shape[-1]
     m = active_mask(cap, n, dtype=torch.bool, device=K.device)
     both = m[..., :, None] & m[..., None, :]
     eye = torch.eye(cap, dtype=K.dtype, device=K.device)
-    return torch.linalg.cholesky(torch.where(both, K, eye))
+    A = torch.where(both, K, eye)
+    if not nan_if_not_pd:
+        return torch.linalg.cholesky(A)
+    L, info = torch.linalg.cholesky_ex(A)
+    return torch.where((info != 0)[..., None, None], torch.nan, L)
 
 
 def tri_inv_padded(L):

@@ -113,6 +113,9 @@ class RBFKernel:
     def d2psi(self, rho):
         return _profile(self.kind, rho, self.theta, 2)
 
+    def replace_theta(self, theta) -> "RBFKernel":
+        return RBFKernel(theta, self.kind)
+
     def to(self, *, device, dtype) -> "RBFKernel":
         return RBFKernel(self.theta.to(device=device, dtype=dtype), self.kind)
 

@@ -1,11 +1,12 @@
-"""Monte-Carlo rollout-acquisition estimator.
+"""Monte-Carlo / Gauss-Hermite rollout-acquisition estimators.
 
-Port of `rollout_bo_tpu/rollout/mc.py::simulate_trajectory_mc` (reference
-`rollout.jl:279-340`), batch-first: the lanes are (..., M) for x0 of shape
-(..., d) and M = mc_iters trajectories, all rolled in one pass. Per-lane
-gradients come from ONE backward pass of the summed rewards, with x0 and
-theta expanded to one leaf per lane: lanes do not interact, so the sum's
-gradient with respect to a lane's leaf is that lane's own gradient.
+Port of `rollout_bo_tpu/rollout/mc.py` (reference `rollout.jl:279-467`),
+batch-first: the lanes are (..., N) for x0 of shape (..., d) and N
+trajectories per start (the MC samples, or the num_nodes^(h+1) quadrature
+index tuples), all rolled in one pass. Per-lane gradients come from ONE
+backward pass of the summed rewards, with x0 and theta expanded to one
+leaf per lane: lanes do not interact, so the sum's gradient with respect
+to a lane's leaf is that lane's own gradient.
 
 Statistics use the sample standard deviation (ddof=1), matching Julia's
 Distributions.std (rollout.jl:328-339).
@@ -13,11 +14,14 @@ Distributions.std (rollout.jl:328-339).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from rollout_bo_tpu_torch.models import fantasy as fant
 from rollout_bo_tpu_torch.models import surrogate as sg
 from rollout_bo_tpu_torch.models.decision_rules import DecisionRule
+from rollout_bo_tpu_torch.ops import quadrature
 from rollout_bo_tpu_torch.rollout import observables as obs
 from rollout_bo_tpu_torch.rollout.trajectory import (
     ExpectedTrajectoryOutput,
@@ -26,7 +30,11 @@ from rollout_bo_tpu_torch.rollout.trajectory import (
     rollout_core,
 )
 
-__all__ = ["simulate_trajectory_mc"]
+__all__ = [
+    "simulate_trajectory_mc",
+    "simulate_trajectory_ghq",
+    "simulate_trajectory_deterministic",
+]
 
 
 def _stats(v, dim):
@@ -36,45 +44,147 @@ def _stats(v, dim):
     return mu, torch.zeros_like(mu)
 
 
-def simulate_trajectory_mc(state: sg.SurrogateState, tp: TrajectoryParams,
-                           rule: DecisionRule, xstarts, *,
-                           with_gradients: bool = True,
-                           iterations: int = 12) -> ExpectedTrajectoryOutput:
-    """MC rollout-acquisition estimate at every tp.x0 (..., d).
-
-    Returns mu / std_mu of shape (...) and, with gradients, grad_x /
-    std_grad_x (..., d) and grad_theta / std_grad_theta (..., p).
-    """
-    fs0 = fant.make_fantasy(state, tp.horizon)
-    M = tp.mc_iters
-    d, p = tp.x0.shape[-1], tp.theta.shape[-1]
-    lanes = tp.x0.shape[:-1] + (M,)
-    x0 = tp.x0.detach()[..., None, :].expand(lanes + (d,)).clone()
-    theta = tp.theta.detach().expand(lanes + (p,)).clone()
-    draw_fn = obs.stochastic_observable(tp.rnstream)
+def _lane_rewards(state, x0, theta, lbs, ubs, xstarts, rule, draw_fn, horizon,
+                  n_lanes, *, with_gradients, iterations, weigh=None):
+    """Rewards max(fmini - min_j y_j, 0) of n_lanes trajectories from every
+    x0 (..., d): r (..., n_lanes) and, with gradients, the per-lane
+    d r / d x0 (..., n_lanes, d) and d r / d theta (..., n_lanes, p), else
+    None for both. `weigh(r, ys)` rescales a lane's reward before it is
+    differentiated."""
+    fs0 = fant.make_fantasy(state, horizon)
+    d, p = x0.shape[-1], theta.shape[-1]
+    lanes = x0.shape[:-1] + (n_lanes,)
+    x0 = x0.detach()[..., None, :].expand(lanes + (d,)).clone()
+    theta = theta.detach().expand(lanes + (p,)).clone()
 
     def rewards():
         fmini = base_fmini(fs0)
-        _, rec = rollout_core(fs0, x0, theta, tp.lbs, tp.ubs, xstarts, rule,
-                              draw_fn, tp.horizon, iterations=iterations)
+        _, rec = rollout_core(fs0, x0, theta, lbs, ubs, xstarts, rule,
+                              draw_fn, horizon, iterations=iterations)
         # maximum, not clamp: a tie splits its gradient as jnp.maximum does
-        return torch.maximum(fmini - torch.amin(rec.ys, dim=-1),
-                             torch.zeros((), dtype=x0.dtype, device=x0.device))
+        r = torch.maximum(fmini - torch.amin(rec.ys, dim=-1),
+                          torch.zeros((), dtype=x0.dtype, device=x0.device))
+        return r if weigh is None else weigh(r, rec.ys)
 
     if not with_gradients:
         with torch.no_grad():
-            mu, smu = _stats(rewards(), -1)
-        return ExpectedTrajectoryOutput(mu=mu, std_mu=smu)
-
+            return rewards(), None, None
     x0.requires_grad_(True)
     theta.requires_grad_(True)
     with torch.enable_grad():
         r = rewards()
         gx, gth = torch.autograd.grad(r.sum(), (x0, theta), allow_unused=True,
                                       materialize_grads=True)
-    r = r.detach()
+    return r.detach(), gx, gth
+
+
+def simulate_trajectory_mc(state: sg.SurrogateState, tp: TrajectoryParams,
+                           rule: DecisionRule, xstarts, *,
+                           with_gradients: bool = True,
+                           iterations: int = 12,
+                           draw_mode: str = "reparam") -> ExpectedTrajectoryOutput:
+    """MC rollout-acquisition estimate at every tp.x0 (..., d) (reference
+    rollout.jl:279-340).
+
+    Returns mu / std_mu of shape (...) and, with gradients, grad_x /
+    std_grad_x (..., d) and grad_theta / std_grad_theta (..., p).
+    draw_mode: "reparam" (exact pathwise gradients, default) or
+    "sample_path" (reference coupling); see
+    `observables.stochastic_observable`.
+    """
+    r, gx, gth = _lane_rewards(
+        state, tp.x0, tp.theta, tp.lbs, tp.ubs, xstarts, rule,
+        obs.stochastic_observable(tp.rnstream, mode=draw_mode), tp.horizon,
+        tp.mc_iters, with_gradients=with_gradients, iterations=iterations)
     mu, smu = _stats(r, -1)
+    if not with_gradients:
+        return ExpectedTrajectoryOutput(mu=mu, std_mu=smu)
     gxm, sgx = _stats(gx, -2)
     gthm, sgth = _stats(gth, -2)
     return ExpectedTrajectoryOutput(mu=mu, std_mu=smu, grad_x=gxm, std_grad_x=sgx,
                                     grad_theta=gthm, std_grad_theta=sgth)
+
+
+def simulate_trajectory_ghq(state: sg.SurrogateState, x0, theta, lbs, ubs, xstarts,
+                            rule: DecisionRule, *, horizon: int, num_nodes: int = 8,
+                            with_gradients: bool = True, iterations: int = 12,
+                            resolve_mode: str = "quadrature",
+                            node_scale: float = 1.0) -> ExpectedTrajectoryOutput:
+    """Gauss-Hermite (SAA / deterministic) rollout estimate at every x0
+    (..., d): reference simulate_trajectory_ghq (rollout.jl:409-467) with
+    tensor-product index sets (utils.jl:217-221). The num_nodes^(h+1) index
+    tuples are the lane axis.
+
+    resolve_mode:
+    - "quadrature": tensor-product GH quadrature: each trajectory weighted
+      by prod_j w_j / pi^((h+1)/2) and summed.
+    - "reference": the reference's scheme (observables.jl:66-72 + mean over
+      samples): only the best step's weight, normalized 1/sqrt(pi), then
+      the *mean* over the index set.
+
+    node_scale multiplies the quadrature nodes: sqrt(log10 e) ~ 0.659
+    integrates against the understated fantasy-noise distribution that the
+    reference's log10 Box-Muller quirk (utils.jl:33-35) draws from in its
+    stochastic runs, for comparisons against those archives.
+    """
+    if resolve_mode not in ("quadrature", "reference"):
+        raise ValueError(f"unknown resolve mode {resolve_mode!r}")
+    dt, dev = state.X.dtype, state.X.device
+    as_t = lambda a: torch.as_tensor(a, dtype=dt, device=dev)
+    nodes_np, weights_np = quadrature.gauss_hermite(num_nodes)
+    idx = torch.as_tensor(quadrature.tensor_product_indices(num_nodes, horizon + 1),
+                          device=dev)                      # (S, h+1)
+    nodes = as_t(nodes_np * node_scale)[idx]
+    weights = as_t(weights_np)[idx]                        # (S, h+1)
+    x0, theta = as_t(x0), as_t(theta)
+
+    weigh = None
+    if resolve_mode == "reference":
+        def weigh(r, ys):
+            best = torch.argmin(ys, dim=-1, keepdim=True)
+            wt = torch.gather(weights.expand(ys.shape), -1, best)[..., 0]
+            return wt * r / math.sqrt(math.pi)
+
+    r, gx, gth = _lane_rewards(
+        state, x0, theta, as_t(lbs), as_t(ubs), as_t(xstarts), rule,
+        obs.gauss_hermite_observable(nodes), horizon, idx.shape[0],
+        with_gradients=with_gradients, iterations=iterations, weigh=weigh)
+
+    if resolve_mode == "reference":
+        stats = _stats
+    else:
+        W = torch.prod(weights, dim=-1) / math.pi ** ((horizon + 1) / 2.0)
+
+        def stats(v, dim):
+            w = W if dim == -1 else W[:, None]
+            mean = torch.sum(w * v, dim=dim)
+            var = torch.sum(w * (v - mean.unsqueeze(dim)) ** 2, dim=dim)
+            return mean, torch.sqrt(torch.clamp(var, min=0.0))
+
+    mu, smu = stats(r, -1)
+    if not with_gradients:
+        return ExpectedTrajectoryOutput(mu=mu, std_mu=smu)
+    gxm, sgx = stats(gx, -2)
+    gthm, sgth = stats(gth, -2)
+    return ExpectedTrajectoryOutput(mu=mu, std_mu=smu, grad_x=gxm, std_grad_x=sgx,
+                                    grad_theta=gthm, std_grad_theta=sgth)
+
+
+def simulate_trajectory_deterministic(state: sg.SurrogateState, x0, theta, lbs, ubs,
+                                      xstarts, rule: DecisionRule, f, *, horizon: int,
+                                      with_gradients: bool = True,
+                                      iterations: int = 12) -> ExpectedTrajectoryOutput:
+    """Ground-truth-observable rollout from every x0 (..., d) (reference
+    DeterministicObservable); f maps (..., d) to (...)."""
+    dt, dev = state.X.dtype, state.X.device
+    as_t = lambda a: torch.as_tensor(a, dtype=dt, device=dev)
+    r, gx, gth = _lane_rewards(
+        state, as_t(x0), as_t(theta), as_t(lbs), as_t(ubs), as_t(xstarts), rule,
+        obs.deterministic_observable(f), horizon, 1,
+        with_gradients=with_gradients, iterations=iterations)
+    r = r[..., 0]
+    if not with_gradients:
+        return ExpectedTrajectoryOutput(mu=r, std_mu=torch.zeros_like(r))
+    gx, gth = gx[..., 0, :], gth[..., 0, :]
+    z = torch.zeros_like
+    return ExpectedTrajectoryOutput(r, z(r), gx, z(gx), gth, z(gth))

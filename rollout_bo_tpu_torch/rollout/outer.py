@@ -1,13 +1,15 @@
 """Outer policy optimization: SGA/Adam on the rollout acquisition.
 
 Port of `rollout_bo_tpu/rollout/outer.py` (reference `optimizers.jl`,
-`utils.jl:114-265`). One solver is ported, `stochastic_solve_fused`, with
-the semantics of the JAX package's `make_fused_sga_program`: every
+`utils.jl:114-306`). The stochastic solver is `stochastic_solve_fused`,
+with the semantics of the JAX package's `make_fused_sga_program`: every
 restart is simulated in lock-step each iteration, a restart freezes when
 the eswavs early-stopping statistic fires, and the loop ends when all have
 stopped. The JAX package's stepped and scanned variants exist to hide
 host<->TPU dispatch cost and are not ported; here the loop is a Python
-loop with a host check of "all stopped" after each iteration.
+loop with a host check of "all stopped" after each iteration. The
+deterministic (Gauss-Hermite) solver runs its restarts in lock-step the
+same way, each with its own stop mask.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ __all__ = [
     "eswavs",
     "FusedSolve",
     "stochastic_solve_fused",
+    "deterministic_solve",
+    "deterministic_solve_batch",
 ]
 
 
@@ -75,6 +79,7 @@ def stochastic_solve_fused(state: sg.SurrogateState, tp: TrajectoryParams,
                            rule: DecisionRule, xstarts, restarts, *,
                            max_iters: int = 50, lr: float = 0.01,
                            inner_iterations: int = 12,
+                           draw_mode: str = "reparam",
                            select_best: bool = False) -> FusedSolve:
     """Multi-restart SGA of the MC rollout acquisition from `restarts` (R, d).
 
@@ -92,7 +97,7 @@ def stochastic_solve_fused(state: sg.SurrogateState, tp: TrajectoryParams,
     while it < max_iters:
         eto = mc_mod.simulate_trajectory_mc(
             state, tp._replace(x0=xs), rule, xstarts,
-            with_gradients=True, iterations=inner_iterations)
+            with_gradients=True, iterations=inner_iterations, draw_mode=draw_mode)
         done = done | eswavs(eto.grad_x, eto.std_grad_x**2, sample_size)
         opt, xs_new = adam_update(opt, xs, eto.grad_x, lr=lr)
         xs_new = torch.clamp(xs_new, tp.lbs, tp.ubs)
@@ -102,8 +107,73 @@ def stochastic_solve_fused(state: sg.SurrogateState, tp: TrajectoryParams,
             break
     vals = mc_mod.simulate_trajectory_mc(
         state, tp._replace(x0=xs), rule, xstarts,
-        with_gradients=False, iterations=inner_iterations).mu
+        with_gradients=False, iterations=inner_iterations, draw_mode=draw_mode).mu
     if select_best:
         j = torch.argmax(vals)
         return FusedSolve(xs[j], vals[j], it)
     return FusedSolve(xs, vals, it)
+
+
+def _deterministic_ascent(simulate, xs, lbs, ubs, *, max_iters, lr, grad_tol):
+    """Adam ascent of the quadrature objective from every row of xs (R, d),
+    all restarts simulated together. A restart whose gradient norm falls
+    below grad_tol keeps the point it had and takes no further part (the
+    JAX package's per-restart `while_loop` under `vmap`)."""
+    opt = adam_init(xs)
+    active = torch.ones(xs.shape[:-1], dtype=torch.bool, device=xs.device)
+    for _ in range(max_iters):
+        eto = simulate(xs, True)
+        stop = torch.linalg.vector_norm(eto.grad_x, dim=-1) < grad_tol
+        opt, xs_new = adam_update(opt, xs, eto.grad_x, lr=lr)
+        xs_new = torch.clamp(xs_new, lbs, ubs)
+        xs = torch.where((active & ~stop)[..., None], xs_new, xs)
+        active = active & ~stop
+        if not bool(active.any()):
+            break
+    return xs
+
+
+def _ghq_simulator(state, theta, lbs, ubs, xstarts, rule, *, horizon, num_nodes,
+                   inner_iterations, node_scale):
+    dt, dev = state.X.dtype, state.X.device
+    as_t = lambda a: torch.as_tensor(a, dtype=dt, device=dev)
+    theta, lbs, ubs, xstarts = as_t(theta), as_t(lbs), as_t(ubs), as_t(xstarts)
+
+    def simulate(x, with_gradients):
+        return mc_mod.simulate_trajectory_ghq(
+            state, x, theta, lbs, ubs, xstarts, rule, horizon=horizon,
+            num_nodes=num_nodes, with_gradients=with_gradients,
+            iterations=inner_iterations, node_scale=node_scale)
+
+    return simulate, as_t, lbs, ubs
+
+
+def deterministic_solve(state: sg.SurrogateState, x0, theta, lbs, ubs, xstarts,
+                        rule: DecisionRule, *, horizon: int, num_nodes: int = 8,
+                        max_iters: int = 50, lr: float = 0.01, grad_tol: float = 1e-4,
+                        inner_iterations: int = 12, node_scale: float = 1.0):
+    """SAA (Gauss-Hermite) ascent of the rollout acquisition from one start
+    x0 (d,): reference deterministic_solve (utils.jl:267-306), the Adam loop
+    on the variance-free quadrature estimate, stopping on ||grad|| <
+    grad_tol. Returns (x_final, ExpectedTrajectoryOutput at x_final)."""
+    simulate, as_t, lbs, ubs = _ghq_simulator(
+        state, theta, lbs, ubs, xstarts, rule, horizon=horizon, num_nodes=num_nodes,
+        inner_iterations=inner_iterations, node_scale=node_scale)
+    x = _deterministic_ascent(simulate, as_t(x0)[None], lbs, ubs, max_iters=max_iters,
+                              lr=lr, grad_tol=grad_tol)[0]
+    return x, simulate(x, True)
+
+
+def deterministic_solve_batch(state: sg.SurrogateState, theta, lbs, ubs, xstarts,
+                              starts, rule: DecisionRule, *, horizon: int,
+                              num_nodes: int = 8, max_iters: int = 50,
+                              lr: float = 0.01, grad_tol: float = 1e-4,
+                              inner_iterations: int = 12, node_scale: float = 1.0):
+    """`deterministic_solve` from every row of starts (R, d) in lock-step.
+    Returns (xs (R, d), values (R,)), the values at the final points."""
+    simulate, as_t, lbs, ubs = _ghq_simulator(
+        state, theta, lbs, ubs, xstarts, rule, horizon=horizon, num_nodes=num_nodes,
+        inner_iterations=inner_iterations, node_scale=node_scale)
+    xs = _deterministic_ascent(simulate, as_t(starts), lbs, ubs, max_iters=max_iters,
+                               lr=lr, grad_tol=grad_tol)
+    return xs, simulate(xs, False).mu

@@ -8,6 +8,12 @@ the card, its plain version for CPU tensors. K^{-1} = Li^T Li is formed
 once per call with one batched matmul, as the JAX package's
 `pallas_newton.get_solver.flat_impl` does.
 
+`multistart_maximize`, the BO loops' solver on one surrogate, is the same
+lane solver called with ONE lane and S starts. The lane solver returns
+each lane's best start only, so `SolveResult` holds `x` and `value` and
+not the JAX package's per-start `xs` / `values`, which nothing in the
+package reads.
+
 The Li-formulated `newton_solve_batch` of the JAX package is not ported:
 the kernel's plain version is the CPU solver. It returns with the
 cost-aware channel, which the lane solver does not cover.
@@ -15,13 +21,20 @@ cost-aware channel, which the lane solver does not cover.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from rollout_bo_tpu_torch.models import surrogate as sg
 from rollout_bo_tpu_torch.models.decision_rules import DecisionRule
 from rollout_bo_tpu_torch.ops import newton_lanes
 
-__all__ = ["supported", "maximize_hot"]
+__all__ = ["supported", "maximize_hot", "multistart_maximize", "SolveResult"]
+
+
+class SolveResult(NamedTuple):
+    x: torch.Tensor        # (d,) argmax over the starts
+    value: torch.Tensor    # () acquisition value there
 
 
 def supported(kind: str, rule: DecisionRule) -> bool:
@@ -60,3 +73,31 @@ def maximize_hot(state: sg.SurrogateState, rule: DecisionRule, theta, lbs, ubs,
             x_tol=float(rule.solve_x_tol),
         )
     return xs.reshape(lead + (d,)), vs.reshape(lead)
+
+
+def multistart_maximize(state: sg.SurrogateState, rule: DecisionRule, theta, lbs,
+                        ubs, xstarts, *, iterations: int = 12,
+                        generator: torch.Generator | None = None) -> SolveResult:
+    """Multistart acquisition maximization on one (unbatched) surrogate
+    (reference multistart_base_solve!): one lane, S starts, through the
+    lane solver: the kernel on the card, its plain version on the CPU.
+
+    For the "Random" rule it returns a uniform sample from the box
+    (reference rbf_optim.jl:76-79, 110-113), drawn on the host from
+    `generator` (a CPU `torch.Generator`) so that one seed gives one stream
+    whichever device the surrogate lives on.
+    """
+    dt, dev = state.X.dtype, state.X.device
+    as_t = lambda a: torch.as_tensor(a, dtype=dt, device=dev).contiguous()
+    lbs, ubs = as_t(lbs), as_t(ubs)
+    if rule.name == "Random":
+        if generator is None:
+            raise ValueError("Random acquisition requires a torch.Generator")
+        u = torch.rand(state.dim, generator=generator, dtype=dt).to(dev)
+        return SolveResult(lbs + (ubs - lbs) * u, torch.zeros((), dtype=dt, device=dev))
+    if state.X.dim() != 2:
+        raise ValueError("multistart_maximize takes one surrogate; maximize_hot "
+                         "solves a batch of lanes")
+    x, v = maximize_hot(state, rule, as_t(theta), lbs, ubs, as_t(xstarts),
+                        iterations=iterations)
+    return SolveResult(x, v)

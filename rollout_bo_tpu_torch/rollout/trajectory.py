@@ -29,6 +29,7 @@ __all__ = [
     "TrajectoryRecord",
     "ExpectedTrajectoryOutput",
     "base_fmini",
+    "sample_path_draw",
     "argmax_with_ift",
     "rollout_core",
 ]
@@ -82,6 +83,22 @@ def base_fmini(fs: fant.FantasyState):
     rows = torch.arange(fs.capacity, device=fs.y.device)
     big = torch.finfo(fs.y.dtype).max
     return torch.amin(torch.where(rows < fs.n_base[..., None], fs.y, big), dim=-1)
+
+
+def sample_path_draw(st: sg.SurrogateState, x, z):
+    """Joint (f, grad f) fantasy draw with sample-path derivative semantics.
+
+    Returns (y, grad_y). Primal: y = [dmu + chol(joint cov) z]_0, the
+    reference gp_draw with gradient (rbs.jl:588-611). Derivative: dy/dx =
+    grad_y, the drawn gradient rows; none with respect to the surrogate
+    state or z: the sample path is a fixed function, as in the reference
+    adjoint's use of observable gradients (observables.jl:124,
+    rollout.jl:164).
+    """
+    draw = sg.gp_draw_joint(st, x, z).detach()
+    gy = draw[..., 1:]
+    y = draw[..., 0] + torch.sum(gy * (x - x.detach()), dim=-1)
+    return y, gy
 
 
 def _detached(st: sg.SurrogateState) -> sg.SurrogateState:

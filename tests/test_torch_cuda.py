@@ -132,6 +132,12 @@ _EDGE_SHAPES = {
     "1601_lanes_last_block_of_one": ({4: 800, 7: 801}, 2, 8, 2, torch.float64, 0),
     "n_zero_and_n_capacity": ({12: 12}, 3, 12, 6, torch.float64, 4),
     "capacity_64_d_16_float64": ({40: 4, 64: 4}, 16, 64, 6, torch.float64, 0),
+    # the shapes the BO loops give the kernel at the CLIs' defaults (d = 6):
+    # one lane of 104 observations with 64 + 2 starts (W staged, 3 warps),
+    # and 10 restarts x 200 trajectories at fantasy capacity 23, 16 + 2 starts
+    "myopic_loop_one_lane_capacity_105": ({104: 1}, 6, 105, 66, torch.float64, 0),
+    "nonmyopic_loop_2000_lanes_capacity_23": (
+        {6: 500, 12: 500, 17: 500, 21: 500}, 6, 23, 18, torch.float64, 0),
 }
 
 
@@ -182,3 +188,59 @@ def test_kernel_at_the_edges_of_the_block_layout(dev, shape):
                                atol=1e-6 if f32 else 1e-9)
     slack = (5e-4 if f32 else 1e-6) * vr_cross.abs().clamp(min=1.0) + 1e-6
     assert torch.all(vk_cross >= vr_cross - slack)
+
+
+@pytest.mark.parametrize("rule_name,theta", [("EI", 0.0), ("LCB", 2.0), ("POI", 0.0)])
+def test_multistart_maximize_card_matches_cpu_route(dev, rule_name, theta):
+    """One surrogate, S starts: one launch on the card, and the same argmax
+    as the plain version on the CPU (float64: 1e-6 of the box width)."""
+    from rollout_bo_tpu_torch.models import testfns
+
+    f = testfns.get_function("hartmann3d")
+    X = np.random.default_rng(2).uniform(f.lbs, f.ubs, (9, 3))
+    y = f.batch(torch.tensor(X)).numpy()
+    xstarts = qmc.generate_initial_guesses(14, f.lbs, f.ubs)
+    rule = dr.RULES[rule_name]()
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        st = sg.fit(K.matern52((0.4,), device=device), X, y, capacity=20, noise=1e-6,
+                    device=device)
+        before = nl.LAUNCHES
+        out[device.type] = solvers.multistart_maximize(st, rule, (theta,), f.lbs, f.ubs,
+                                                       xstarts, iterations=12)
+        assert nl.LAUNCHES == before + (device.type == "cuda")
+    gpu, cpu = out["cuda"], out["cpu"]
+    assert gpu.x.device.type == "cuda" and gpu.x.shape == (3,) and gpu.value.shape == ()
+    if rule.solve_f_tol:     # the loose freeze may stop a start an iteration apart
+        assert float(gpu.value) >= float(cpu.value) - rule.solve_f_tol * (
+            abs(float(cpu.value)) + 1.0)
+    else:
+        torch.testing.assert_close(gpu.x.cpu(), cpu.x, rtol=0.0, atol=1e-6)
+        torch.testing.assert_close(gpu.value.cpu(), cpu.value, rtol=1e-6, atol=1e-9)
+
+
+def test_random_rule_draws_the_same_stream_on_the_card(dev):
+    st = {d.type: sg.fit(K.matern52(device=d), np.zeros((1, 2)), np.zeros(1), capacity=4,
+                         device=d) for d in (dev, torch.device("cpu"))}
+    draw = lambda s: solvers.multistart_maximize(
+        s, dr.RandomAcquisition(), (0.0,), [0.0, -1.0], [1.0, 3.0], np.zeros((2, 2)),
+        generator=torch.Generator().manual_seed(4))
+    before = nl.LAUNCHES
+    gpu, cpu = draw(st["cuda"]), draw(st["cpu"])
+    assert nl.LAUNCHES == before and gpu.x.device.type == "cuda"
+    assert torch.equal(gpu.x.cpu(), cpu.x)
+
+
+def test_myopic_bo_on_the_card_matches_cpu_route(dev):
+    from rollout_bo_tpu_torch.models import testfns
+    from rollout_bo_tpu_torch.rollout import bo
+
+    f = testfns.get_function("hartmann3d")
+    x_init = np.random.default_rng(3).uniform(f.lbs, f.ubs, (5, 3))
+    before = nl.LAUNCHES
+    gpu = bo.run_myopic_bo(f, dr.EI(), budget=4, num_starts=8, x_init=x_init, device=dev)
+    assert nl.LAUNCHES == before + 4 and gpu.state.X.device.type == "cuda"
+    cpu = bo.run_myopic_bo(f, dr.EI(), budget=4, num_starts=8, x_init=x_init, device="cpu")
+    np.testing.assert_allclose(gpu.X, cpu.X, rtol=0.0, atol=1e-6)
+    np.testing.assert_allclose(float(gpu.state.kernel.theta[0]),
+                               float(cpu.state.kernel.theta[0]), rtol=1e-6)

@@ -31,6 +31,11 @@ from rollout_bo_tpu_torch.ops import kernels as K
 from rollout_bo_tpu_torch.ops import newton_lanes as nl
 from rollout_bo_tpu_torch.ops import qmc
 
+# The tensors here are tiny: one intra-op thread. More threads per process only
+# oversubscribe the cores when the suite runs several workers (a multiple of
+# the wall time of these files at 6 workers on 8 cores).
+torch.set_num_threads(1)
+
 _HERE = Path(__file__).resolve().parent
 _SOURCE = _HERE.parent / "rollout_bo_tpu_torch" / "csrc" / "newton_lanes.cu"
 # what the emulation replaces in the source, and with what

@@ -26,6 +26,11 @@ from rollout_bo_tpu_torch.models import fantasy as fant
 from rollout_bo_tpu_torch.models import surrogate as sg
 from rollout_bo_tpu_torch.ops import kernels as K
 
+# The tensors here are tiny: one intra-op thread. More threads per process only
+# oversubscribe the cores when the suite runs several workers (a multiple of
+# the wall time of these files at 6 workers on 8 cores).
+torch.set_num_threads(1)
+
 f64 = torch.float64
 RTOL = 1e-10
 RULES = ["EI", "POI", "LCB", "LogEI", "LogPOI"]

@@ -44,6 +44,11 @@ from rollout_bo_tpu_torch.ops import kernels as K
 from rollout_bo_tpu_torch.ops import newton_lanes as nl
 from rollout_bo_tpu_torch.rollout import solvers
 
+# The tensors here are tiny: one intra-op thread. More threads per process only
+# oversubscribe the cores when the suite runs several workers (a multiple of
+# the wall time of these files at 6 workers on 8 cores).
+torch.set_num_threads(1)
+
 
 def _jax_states(L, n, d, cap, kernel, seed, dtype, noise=1e-5):
     rng = np.random.default_rng(seed)

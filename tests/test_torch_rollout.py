@@ -27,6 +27,11 @@ from rollout_bo_tpu_torch.ops import newton_lanes as nl
 from rollout_bo_tpu_torch.rollout import mc, outer
 from rollout_bo_tpu_torch.rollout.trajectory import TrajectoryParams
 
+# The tensors here are tiny: one intra-op thread. More threads per process only
+# oversubscribe the cores when the suite runs several workers (a multiple of
+# the wall time of these files at 6 workers on 8 cores).
+torch.set_num_threads(1)
+
 f64 = torch.float64
 RTOL = 1e-6
 D, CAP, H, M = 2, 16, 2, 8
