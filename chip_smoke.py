@@ -63,10 +63,34 @@ Run from the repository root on a machine with one NVIDIA Hopper card
    `--deterministic-solve` at the same width (8 Gauss-Hermite nodes: 512
    quadrature trajectories per restart), timed;
 7. small float64 trials, card against CPU route: a 4-iteration myopic
-   trial, a 2-iteration non-myopic trial (h 1, 8 samples) and one
-   `deterministic=True` iteration (h 1, 4 Gauss-Hermite nodes), each run
-   on the card and with device="cpu": the same sampled points to 1e-6 of
-   the box width and the same fitted lengthscale to 1e-6 relative.
+   trial, a 2-iteration non-myopic trial (h 1, 8 samples), one
+   `deterministic=True` iteration (h 1, 4 Gauss-Hermite nodes), a
+   3-iteration adaptive trial (h 1, 8 samples) and a 2-iteration
+   cost-aware non-myopic trial (cost_aware(EI, NonUniformCost), h 1, 8
+   samples), each run on the card and with device="cpu": the same sampled
+   points to 1e-6 of the box width and the same fitted lengthscale to 1e-6
+   relative;
+8. adaptive-horizon BO, one trial through `experiments.adaptive.main` at
+   the CLI's widths: hartmann6d, the alternating schedule h = 0, 2, 0, 2,
+   ..., 100 QMC trajectories, 8 + 2 restarts, 50 SGA iterations, 16 + 2
+   starts, MLE on, float64, budget 15. Checks the four CSVs, that no
+   `hartmann6d_failed.txt` was written (the CLI catches a failed trial),
+   the allocations finite and >= 0, and per BO iteration kernel launches =
+   h x (SGA iterations + 1) + the fallback's one, so none in an h = 0
+   iteration but a fallback's. Prints the acquisition median for h = 0 and
+   h = 2, SGA iterations, the MLE refit median, the final gap and the peak
+   device bytes per h = 2 acquisition;
+9. cost-aware BO through `experiments.cost_aware.main` at the CLI's
+   widths (braninhoo, 100 QMC trajectories, 8 + 2 restarts, 8 + 2 starts,
+   h 1, 50 SGA iterations, float32, modes uniform / nonuniform / gp),
+   budget 1 (depth). Checks the CSVs, costs in [1, 1 + amp], gaps in
+   [0, 1], and kernel launches == fallbacks taken: a cost-aware solve
+   never reaches the kernel (the torch `newton_solve_batch` takes it).
+   Prints per mode the acquisition median, the seconds per simulate call,
+   `newton_solve_batch`'s share of it (CUDA events around each solver
+   call) and the cumulative cost. Then one simulate call at the same
+   width, in turns for plain EI (the kernel) and the three cost-aware
+   rules on the same inputs: the cost channel's price per call.
 
 `--phases 3 5` runs only the phases named (1 and 2 always run); a partial
 run prints neither of the two closing lines.
@@ -532,9 +556,11 @@ def _recording():
     from rollout_bo_tpu_torch.ops import newton_lanes as nl
     from rollout_bo_tpu_torch.rollout import bo, solvers
 
-    rec = dict(trials=[], mle_s=[], moved=[])
+    rec = dict(trials=[], mle_s=[], moved=[], acquisitions=[])
     hot, refit = solvers.maximize_hot, sg.optimize_hypers
-    loops = {name: getattr(bo, name) for name in ("run_myopic_bo", "run_nonmyopic_bo")}
+    acquire = bo._acquire_or_fall_back
+    loops = {name: getattr(bo, name)
+             for name in ("run_myopic_bo", "run_nonmyopic_bo", "run_adaptive_bo")}
 
     def maximize_hot(state, rule, theta, lbs, ubs, xstarts, **kw):
         x, v = hot(state, rule, theta, lbs, ubs, xstarts, **kw)
@@ -551,6 +577,13 @@ def _recording():
         rec["mle_s"].append(time.perf_counter() - t0)
         return out
 
+    def acquire_or_fall_back(acq, fallback, state, rnstream, restarts, h):
+        before = nl.LAUNCHES
+        out = acquire(acq, fallback, state, rnstream, restarts, h)
+        rec["acquisitions"].append(dict(h=h, iterations=int(out[1]), fallback=bool(out[2]),
+                                        launches=nl.LAUNCHES - before))
+        return out
+
     def timed(loop):
         def run(*args, **kw):
             t0 = time.perf_counter()
@@ -558,21 +591,58 @@ def _recording():
             rec["trials"].append(dict(
                 res=res, seconds=time.perf_counter() - t0, launches=nl.LAUNCHES,
                 mle_s=rec["mle_s"][:], moved=torch.stack(rec["moved"]).cpu().numpy()
-                if rec["moved"] else np.zeros(0)))
-            rec["mle_s"].clear()
-            rec["moved"].clear()
+                if rec["moved"] else np.zeros(0), acquisitions=rec["acquisitions"][:]))
+            for key in ("mle_s", "moved", "acquisitions"):
+                rec[key].clear()
             return res
         return run
 
     solvers.maximize_hot, sg.optimize_hypers = maximize_hot, optimize_hypers
+    bo._acquire_or_fall_back = acquire_or_fall_back
     for name, loop in loops.items():
         setattr(bo, name, timed(loop))
     try:
         yield rec
     finally:
         solvers.maximize_hot, sg.optimize_hypers = hot, refit
+        bo._acquire_or_fall_back = acquire
         for name, loop in loops.items():
             setattr(bo, name, loop)
+
+
+@contextlib.contextmanager
+def _simulate_timing():
+    """Per simulate call: its wall seconds (synchronized) and the device time
+    between CUDA events recorded around each `newton_solve_batch` call in it."""
+    from rollout_bo_tpu_torch.rollout import mc, solvers
+
+    rec = dict(simulate_s=[], solver_ms=[])
+    simulate, solve = mc.simulate_trajectory_mc, solvers.newton_solve_batch
+    events = []
+
+    def timed_solve(*args, **kw):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = solve(*args, **kw)
+        stop.record()
+        events.append((start, stop))
+        return out
+
+    def timed_simulate(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = simulate(*args, **kw)
+        torch.cuda.synchronize()
+        rec["simulate_s"].append(time.perf_counter() - t0)
+        rec["solver_ms"].append(sum(a.elapsed_time(b) for a, b in events))
+        events.clear()
+        return out
+
+    mc.simulate_trajectory_mc, solvers.newton_solve_batch = timed_simulate, timed_solve
+    try:
+        yield rec
+    finally:
+        mc.simulate_trajectory_mc, solvers.newton_solve_batch = simulate, solve
 
 
 def _check_csv(path, budget, *, gaps=False):
@@ -704,9 +774,158 @@ def phase_nonmyopic_cli(card, budget=15, horizon=2):
           f"start {float(trial['moved'].mean()):.4f}; on {card}")
 
 
+def phase_adaptive_cli(card, budget=15, horizon=2):
+    from rollout_bo_tpu_torch.experiments import adaptive
+    from rollout_bo_tpu_torch.ops import newton_lanes as nl
+
+    with tempfile.TemporaryDirectory() as out, _recording() as rec:
+        nl.LAUNCHES = 0
+        adaptive.main(["--function-name", "hartmann6d", "--horizon", str(horizon),
+                       "--trials", "1", "--budget", str(budget), "--mc-samples", "100",
+                       "--batch-size", "8", "--sgd-iterations", "50", "--starts", "16",
+                       "--optimize", "--variance-reduction", "--dtype", "float64",
+                       "--seed", "1906", "--output-dir", out])
+        torch.cuda.synchronize()
+        outdir = os.path.join(out, "hartmann6d")
+        if os.path.exists(os.path.join(outdir, "hartmann6d_failed.txt")):
+            with open(os.path.join(outdir, "hartmann6d_failed.txt")) as fh:
+                raise AssertionError(f"the adaptive trial failed:\n{fh.read()}")
+        rows = {m: _check_csv(os.path.join(outdir, f"rollout_h{horizon}_{m}.csv"), budget,
+                              gaps=m == "gaps")
+                for m in ("gaps", "observations", "times", "allocations")}
+    (trial,) = rec["trials"]
+    res, acqs = trial["res"], trial["acquisitions"]
+    if not np.all(rows["allocations"] >= 0.0):
+        raise AssertionError(f"adaptive: negative allocations {rows['allocations']}")
+    hs = [a["h"] for a in acqs]
+    if hs != [0 if b % 2 == 0 else horizon for b in range(budget)]:
+        raise AssertionError(f"adaptive: horizons {hs} are not the alternating schedule")
+    for b, a in enumerate(acqs):
+        want = a["h"] * (a["iterations"] + 1) + a["fallback"]
+        if a["launches"] != want:
+            raise AssertionError(f"adaptive, BO iteration {b} (h {a['h']}): {a['launches']} "
+                                 f"kernel launches, not {want} = h x (SGA iterations + 1) "
+                                 f"+ fallback")
+    if trial["launches"] != sum(a["launches"] for a in acqs):
+        raise AssertionError("adaptive: kernel launches outside the acquisitions")
+    times = {h: [float(res.times[b]) for b, a in enumerate(acqs) if a["h"] == h]
+             for h in (0, horizon)}
+    peak = [int(res.allocations[b]) for b, a in enumerate(acqs) if a["h"] == horizon]
+    ell = _lengthscale_in_bounds(res, "adaptive")
+    print(f"adaptive BO, hartmann6d, h 0 / {horizon} alternating, 10 restarts x 100 "
+          f"trajectories, budget {budget}: final gap {rows['gaps'][-1]:.4f}, "
+          f"{trial['launches']} kernel launches, acquisition median h 0 "
+          f"{statistics.median(times[0]):.4f} s, h {horizon} "
+          f"{statistics.median(times[horizon]):.4f} s (min {min(times[horizon]):.4f}, max "
+          f"{max(times[horizon]):.4f}), SGA iterations per acquisition "
+          f"{[a['iterations'] for a in acqs]}, fallbacks {int(res.fallbacks.sum())}, whole "
+          f"BO iteration {trial['seconds'] / budget:.4f} s, MLE refit median "
+          f"{statistics.median(trial['mle_s']):.4f} s, fitted lengthscale {ell:.4f}, peak "
+          f"device bytes per h {horizon} acquisition {peak}; on {card}")
+    return trial["launches"]
+
+
+def phase_cost_aware_cli(dev, card, budget=1):
+    from rollout_bo_tpu_torch.experiments import cost_aware
+    from rollout_bo_tpu_torch.ops import newton_lanes as nl
+
+    modes = ("uniform", "nonuniform", "gp")
+    amp = 3.0
+    with tempfile.TemporaryDirectory() as out, _recording() as rec, \
+            _simulate_timing() as sim:
+        per_mode = []
+        nl.LAUNCHES = 0
+        for mode in modes:
+            before = len(sim["simulate_s"])
+            cost_aware.main(["--function-name", "braninhoo", "--trials", "1", "--budget",
+                             str(budget), "--modes", mode, "--cost-amp", str(amp),
+                             "--seed", "1906", "--output-dir", out])
+            torch.cuda.synchronize()
+            per_mode.append((sim["simulate_s"][before:], sim["solver_ms"][before:]))
+        base = os.path.join(out, "braninhoo")
+        for mode in modes:
+            for metric in ("gaps", "observations", "times"):
+                _check_csv(os.path.join(base, f"{mode}_rollout_h1_{metric}.csv"), budget,
+                           gaps=metric == "gaps")
+            costs = _check_csv(os.path.join(base, f"{mode}_costs.csv"), budget)
+            if not np.all((costs >= 1.0) & (costs <= 1.0 + amp)):
+                raise AssertionError(f"cost-aware {mode}: costs {costs} outside [1, {1 + amp}]")
+            per_mode[modes.index(mode)] += (costs,)
+    before = 0
+    for mode, trial, (sim_s, solver_ms, costs) in zip(modes, rec["trials"], per_mode):
+        res, launches = trial["res"], trial["launches"] - before
+        before = trial["launches"]
+        if launches != int(res.fallbacks.sum()):
+            raise AssertionError(f"cost-aware {mode}: {launches} kernel launches, not the "
+                                 f"{int(res.fallbacks.sum())} fallbacks taken: a cost-aware "
+                                 "solve reached the lane kernel")
+        share = sum(solver_ms) / 1e3 / sum(sim_s)
+        print(f"cost-aware BO, braninhoo, {mode}, 10 restarts x 100 trajectories, budget "
+              f"{budget}, float32: acquisition median {statistics.median(res.times):.4f} s, "
+              f"{len(sim_s)} simulate calls of {statistics.median(sim_s):.4f} s (median), "
+              f"newton_solve_batch {share:.4f} of their time, {launches} kernel launches = "
+              f"fallbacks, SGA iterations {res.sga_iterations.tolist()}, cumulative cost "
+              f"{costs.sum():.4f}; on {card}")
+    _simulate_cost_against_kernel(dev, card, amp)
+
+
+def _simulate_cost_against_kernel(dev, card, amp, reps=3):
+    """One simulate call (with gradients) at phase 9's width on one
+    braninhoo surrogate: plain EI, which the kernel solves, against the
+    three cost-aware rules, which newton_solve_batch solves; timed in turns
+    (forward, then backward order) after a warm-up of each."""
+    from rollout_bo_tpu_torch.experiments import cost_aware
+    from rollout_bo_tpu_torch.models import decision_rules as dr
+    from rollout_bo_tpu_torch.models import surrogate as sg
+    from rollout_bo_tpu_torch.models import testfns
+    from rollout_bo_tpu_torch.ops import kernels as K
+    from rollout_bo_tpu_torch.ops import newton_lanes as nl
+    from rollout_bo_tpu_torch.ops import qmc
+    from rollout_bo_tpu_torch.rollout import mc
+    from rollout_bo_tpu_torch.rollout.trajectory import TrajectoryParams
+
+    f = testfns.get_function("braninhoo")
+    dt = torch.float32
+    t = lambda a: torch.tensor(np.asarray(a), dtype=dt, device=dev)
+    X = np.random.default_rng(1906).uniform(f.lbs, f.ubs, (3, f.dim))
+    state = sg.fit(K.matern52(device=dev, dtype=dt), X, f.batch(torch.tensor(X)).numpy(),
+                   capacity=4, noise=1e-6, device=dev, dtype=dt)
+    tp = TrajectoryParams(x0=t(qmc.generate_batch(8, f.lbs, f.ubs)), theta=t([0.0]),
+                          lbs=t(f.lbs), ubs=t(f.ubs),
+                          rnstream=t(qmc.gen_low_discrepancy_sequence(100, f.dim, 2)))
+    xstarts = t(qmc.generate_initial_guesses(8, f.lbs, f.ubs))
+    c = cost_aware.make_true_cost(f, "braninhoo", amp, 2.0)
+    rules = {"EI (kernel)": dr.EI()}
+    for mode in ("uniform", "nonuniform", "gp"):
+        rules[mode] = cost_aware.build_rule(mode, c, f, 16, 1906, dt, dev)
+    call = lambda rule: mc.simulate_trajectory_mc(state, tp, rule, xstarts,
+                                                  with_gradients=True)
+    seconds = {name: [] for name in rules}
+    for name, rule in rules.items():
+        call(rule)                                          # warm-up
+    names = list(rules)
+    for r in range(reps):
+        for name in names if r % 2 == 0 else names[::-1]:
+            launches = nl.LAUNCHES
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call(rules[name])
+            torch.cuda.synchronize()
+            seconds[name].append(time.perf_counter() - t0)
+            if nl.LAUNCHES - launches != (name == "EI (kernel)"):
+                raise AssertionError(f"simulate call with {name}: "
+                                     f"{nl.LAUNCHES - launches} kernel launches")
+    base = statistics.median(seconds["EI (kernel)"])
+    print(f"simulate call, braninhoo, h 1, 10 restarts x 100 trajectories, 10 starts, "
+          f"float32, median of {reps} in turns: " + ", ".join(
+              f"{name} {statistics.median(v):.4f} s ({statistics.median(v) / base:.2f}x)"
+              for name, v in seconds.items()) + f"; on {card}")
+
+
 def phase_card_equals_cpu(dev):
-    """Small float64 trials of both loops, the card against the CPU route
+    """Small float64 trials of every loop, the card against the CPU route
     (which the CPU tests hold to the JAX package)."""
+    from rollout_bo_tpu_torch.models import cost_functions as cf
     from rollout_bo_tpu_torch.models import decision_rules as dr
     from rollout_bo_tpu_torch.models import testfns
     from rollout_bo_tpu_torch.rollout import bo
@@ -726,6 +945,11 @@ def phase_card_equals_cpu(dev):
             f, budget=2, mc_iters=8, device=device, **nonmyopic),
         "deterministic solve, 1 iteration (h 1, 4 nodes)": lambda device: bo.run_nonmyopic_bo(
             f, budget=1, deterministic=True, ghq_nodes=4, device=device, **nonmyopic),
+        "adaptive, 3 iterations (h 0, 1, 0; 8 samples)": lambda device: bo.run_adaptive_bo(
+            f, budget=3, mc_iters=8, mle_every=1, device=device, **nonmyopic),
+        "cost-aware non-myopic, 2 iterations (h 1, 8 samples)": lambda device: (
+            bo.run_nonmyopic_bo(f, budget=2, mc_iters=8, device=device, rule=cf.cost_aware(
+                dr.EI(), cf.NonUniformCost(lambda x: 1.0 + torch.sum(x * x))), **nonmyopic)),
     }
     for label, run in cases.items():
         gpu, cpu = run(dev), run("cpu")
@@ -740,10 +964,13 @@ def phase_card_equals_cpu(dev):
               f"{th_gpu:.8f})")
 
 
+_PHASES = (3, 4, 5, 6, 7, 8, 9)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--phases", type=int, nargs="+", default=[3, 4, 5, 6, 7],
-                   choices=[3, 4, 5, 6, 7], help="phases to run after 1 (device) "
+    p.add_argument("--phases", type=int, nargs="+", default=list(_PHASES),
+                   choices=_PHASES, help="phases to run after 1 (device) "
                    "and 2 (build); a partial run prints no closing lines")
     phases = set(p.parse_args(argv).phases)
     name, smi = phase_device()
@@ -760,8 +987,12 @@ def main(argv=None):
         phase_nonmyopic_cli(smi)
     if 7 in phases:
         phase_card_equals_cpu(dev)
+    if 8 in phases:
+        phase_adaptive_cli(smi)
+    if 9 in phases:
+        phase_cost_aware_cli(dev, smi)
     torch.cuda.synchronize()
-    if phases != {3, 4, 5, 6, 7}:
+    if phases != set(_PHASES):
         print(f"partial run (phases {sorted(phases)}): no closing lines")
         return 0
     print(json.dumps({"kernels": [{

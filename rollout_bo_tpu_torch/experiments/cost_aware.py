@@ -1,0 +1,191 @@
+"""Cost-aware rollout BO experiment CLI.
+
+Port of `rollout_bo_tpu/experiments/cost_aware.py`: same flags, defaults,
+protocol and files, plus `--device` (default `cuda`; without a card it
+raises). The cost-aware rules take the torch solver
+`rollout/solvers.py::newton_solve_batch`, never the CUDA lane kernel,
+which has no cost channel (only the exploration fallback, a plain LogEI
+solve, reaches the kernel).
+
+BASELINE configs[3] names "StochasticObservable rollouts with non-uniform
+cost functions"; the reference only aspires to this (README.md:21-26,
+`GaussianProcessCost` is an empty stub at cost_functions.jl:46-47), so the
+protocol here is this repo's: braninhoo with a synthetic evaluation-cost
+surface peaked at ONE of its three global minimizers,
+
+    c(x) = 1 + amp * exp(-||x - (pi, 2.275)||^2 / (2 * width^2)),
+
+run under three cost models:
+
+- uniform:    plain EI rollouts (UniformCost — cost-blind baseline),
+- nonuniform: cost_aware(EI, NonUniformCost(c)) — the known true cost,
+- gp:         cost_aware(EI, GaussianProcessCost(...)) — a GP cost model
+              fit per trial to c(x) measured at a Sobol design (the
+              learned-cost path; fixed per trial so each trial compiles
+              one acquisition program).
+
+A cost-aware run should reach comparable gap while spending LESS
+cumulative evaluation cost (it can steer to either of the two cheap
+minimizers). Outputs per mode: rollout_h{H}_{gaps,observations,times}.csv
+in the reference schema plus {mode}_costs.csv (per-iteration evaluation
+cost of the chosen points) for the cumulative-cost curves.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import numpy as np
+import torch
+
+from rollout_bo_tpu_torch.experiments.myopic import add_device_argument, resolve_device
+from rollout_bo_tpu_torch.models import cost_functions as cf
+from rollout_bo_tpu_torch.models import decision_rules as dr
+from rollout_bo_tpu_torch.models import surrogate as sg
+from rollout_bo_tpu_torch.models import testfns
+from rollout_bo_tpu_torch.ops import kernels as kern
+from rollout_bo_tpu_torch.ops import qmc
+from rollout_bo_tpu_torch.rollout import bo
+from rollout_bo_tpu_torch.utils import logging as log
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser("Cost-aware Rollout Bayesian Optimization CLI")
+    p.add_argument("--seed", type=int, default=1906)
+    p.add_argument("--function-name", default="braninhoo")
+    p.add_argument("--trials", type=int, default=15)
+    p.add_argument("--budget", type=int, default=15)
+    p.add_argument("--starts", type=int, default=8)
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--mc-samples", type=int, default=100)
+    p.add_argument("--horizon", type=int, default=1)
+    p.add_argument("--sgd-iterations", type=int, default=50)
+    p.add_argument("--cost-amp", type=float, default=3.0,
+                   help="peak extra cost at the expensive minimizer")
+    p.add_argument("--cost-width", type=float, default=2.0)
+    p.add_argument("--modes", nargs="+",
+                   default=["uniform", "nonuniform", "gp"],
+                   choices=["uniform", "nonuniform", "gp"])
+    p.add_argument("--cost-design", type=int, default=16,
+                   help="Sobol design size for the gp cost model")
+    p.add_argument("--optimize", action="store_true")
+    p.add_argument("--variance-reduction", action="store_true")
+    p.add_argument("--log10-parity", action="store_true")
+    p.add_argument("--dtype", default="float32",
+                   choices=["float32", "float64"])
+    p.add_argument("--output-dir", required=True)
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="resume by skipping trials already on disk")
+    add_device_argument(p)
+    return p.parse_args(argv)
+
+
+def make_true_cost(f, fn_name: str, amp: float, width: float):
+    """c(x) >= 1 peaked at braninhoo's (pi, 2.275) minimizer (or the
+    domain midpoint for other functions); x (..., d) -> (...)."""
+    if fn_name == "braninhoo":
+        x_exp = np.asarray([np.pi, 2.275])
+    else:
+        x_exp = 0.5 * (np.asarray(f.lbs) + np.asarray(f.ubs))
+
+    def c(x):
+        d2 = torch.sum((x - torch.as_tensor(x_exp, dtype=x.dtype, device=x.device)) ** 2,
+                       dim=-1)
+        return 1.0 + amp * torch.exp(-d2 / (2.0 * width**2))
+
+    return c
+
+
+def build_rule(mode, c, f, design, seed, dtype, device="cuda"):
+    """The mode's cost-aware EI; the gp mode's cost surrogate lives on
+    `device`, beside the main surrogate."""
+    if mode == "uniform":
+        # UniformCost divides by a constant — same argmaxes as plain EI;
+        # run it through the cost machinery anyway so the artifact
+        # exercises the UniformCost path end to end
+        return cf.cost_aware(dr.EI(), cf.UniformCost(1.0))
+    if mode == "nonuniform":
+        return cf.cost_aware(dr.EI(), cf.NonUniformCost(c))
+    # gp: fit the learned cost model to the true cost at a Sobol design
+    # (fixed per trial: the acquisition program closes over the cost
+    # surrogate state, so refitting would recompile per iteration)
+    rng = np.random.default_rng(seed)
+    Xc = qmc.randsample(design, f.dim, f.lbs, f.ubs, rng)
+    yc = c(torch.as_tensor(Xc, dtype=dtype)).double().numpy()
+    cost_state = sg.fit(kern.matern52((1.0,), device=device, dtype=dtype), Xc, yc,
+                        capacity=design, noise=1e-6, device=device, dtype=dtype)
+    return cf.cost_aware(dr.EI(), cf.GaussianProcessCost(cost_state))
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    dtype = getattr(torch, args.dtype)
+
+    f = testfns.get_function(args.function_name)
+    outdir = os.path.join(args.output_dir, args.function_name)
+    os.makedirs(outdir, exist_ok=True)
+    log.write_metadata(
+        outdir, budget=args.budget, number_of_trials=args.trials,
+        number_of_starts=args.starts, batch_size=args.batch_size,
+        mc_samples=args.mc_samples, horizon=args.horizon,
+        sgd_iterations=args.sgd_iterations, cost_amp=args.cost_amp,
+        cost_width=args.cost_width, modes=" ".join(args.modes),
+        should_optimize=args.optimize,
+        should_reduce_variance=args.variance_reduction,
+        log10_parity=args.log10_parity,
+    )
+    c = make_true_cost(f, args.function_name, args.cost_amp, args.cost_width)
+
+    h = args.horizon
+    for mode in args.modes:
+        for metric in ("gaps", "observations", "times"):
+            log.create_csv(
+                os.path.join(outdir, f"{mode}_rollout_h{h}_{metric}"),
+                args.budget)
+        log.create_csv(os.path.join(outdir, f"{mode}_costs"), args.budget)
+
+        done = 0
+        if args.checkpoint_every:
+            done = len(log.read_rows(
+                os.path.join(outdir, f"{mode}_rollout_h{h}_gaps")))
+            if done:
+                print(f"[{mode}] resuming: {done} trial(s) on disk")
+        rng = np.random.default_rng(args.seed)
+        for trial in range(args.trials):
+            x_init = np.asarray(f.lbs) + (np.asarray(f.ubs) - np.asarray(f.lbs)) \
+                * rng.uniform(size=(1, f.dim))
+            if trial < done:
+                continue
+            t0 = time.time()
+            rule = build_rule(mode, c, f, args.cost_design,
+                              args.seed + trial, dtype, device)
+            res = bo.run_nonmyopic_bo(
+                f, horizon=h, mc_iters=args.mc_samples, budget=args.budget,
+                n_init=1, num_starts=args.starts,
+                num_restarts=args.batch_size, sgd_iters=args.sgd_iterations,
+                seed=args.seed + trial,
+                mle_every=1 if args.optimize else 10**9,
+                use_low_discrepancy=args.variance_reduction,
+                log10_parity=args.log10_parity,
+                rule=rule, x_init=x_init, dtype=dtype, device=device,
+            )
+            chosen = np.asarray(res.X)[-args.budget:]
+            costs = c(torch.as_tensor(chosen, dtype=dtype)).double().numpy()
+            log.write_to_csv(
+                os.path.join(outdir, f"{mode}_rollout_h{h}_gaps"), res.gaps)
+            log.write_to_csv(
+                os.path.join(outdir, f"{mode}_rollout_h{h}_observations"),
+                res.y[-args.budget:])
+            log.write_to_csv(
+                os.path.join(outdir, f"{mode}_rollout_h{h}_times"), res.times)
+            log.write_to_csv(os.path.join(outdir, f"{mode}_costs"), costs)
+            print(f"[{mode}] trial {trial + 1}/{args.trials}: final gap "
+                  f"{res.gaps[-1]:.3f} cum-cost {costs.sum():.2f} "
+                  f"({time.time() - t0:.1f}s)")
+
+
+if __name__ == "__main__":
+    main()

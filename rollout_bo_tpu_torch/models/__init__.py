@@ -1,4 +1,19 @@
-from rollout_bo_tpu_torch.models import decision_rules, fantasy, surrogate, testfns
+from rollout_bo_tpu_torch.models import (
+    cost_functions,
+    decision_rules,
+    fantasy,
+    perturbation,
+    surrogate,
+    testfns,
+)
+from rollout_bo_tpu_torch.models.cost_functions import (
+    CostAwareRule,
+    GaussianProcessCost,
+    NonUniformCost,
+    UniformCost,
+    UnitCost,
+    cost_aware,
+)
 from rollout_bo_tpu_torch.models.decision_rules import (
     EI,
     LCB,
@@ -13,6 +28,7 @@ from rollout_bo_tpu_torch.models.surrogate import (
     condition,
     fit,
     from_numpy_state,
+    lazy_posterior,
     optimize_hypers,
     posterior,
 )

@@ -9,8 +9,10 @@ field may carry leading lane axes: a rollout holds one state per
 
 The hyperparameter MLE differentiates the closed-form log-likelihood
 through the masked Cholesky with `torch.autograd`, as the JAX package does
-with `jax.grad`. The cost-aware rules and `lazy_posterior` are not ported
-yet.
+with `jax.grad`. A cost-aware rule (`models/cost_functions.py`) carries
+an x-dependent cost c(x): the acquisition functions divide by it (EI, POI)
+or subtract log c (LogEI, LogPOI), with the quotient-rule gradient and
+Hessian, over the same lane axes as x.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ __all__ = [
     "acquisition",
     "acquisition_grad",
     "acquisition_value_grad_hess",
+    "lazy_posterior",
     "log_likelihood",
     "dlog_likelihood",
     "grad_log_likelihood",
@@ -283,10 +286,35 @@ def gp_draw_joint(state: SurrogateState, x, z):
 # --------------------------------------------------------------------------
 
 
+_COST_FLOOR = 1e-12
+
+
+def _rule_cost(rule, x, order: int):
+    """(mode, c, grad c, hess c)[:order + 2] for a cost-aware rule, else None.
+
+    Mode "divide" maximizes alpha / c (nonnegative rules: EI, POI); mode
+    "subtract_log" maximizes alpha - log c (LogEI, LogPOI): dividing a
+    negative log value by the cost would invert the cost preference.
+    Only the derivatives up to `order` are evaluated.
+    """
+    cost = getattr(rule, "cost", None)
+    if cost is None:
+        return None
+    mode = "subtract_log" if rule.name in ("LogEI", "LogPOI") else "divide"
+    c, *derivs = cost.derivatives(x, order)
+    return (mode, torch.clamp(c, min=_COST_FLOOR), *derivs)
+
+
 def acquisition(state: SurrogateState, rule: DecisionRule, x, theta):
-    """alpha(x) = g(mu(x), sigma(x), theta, fmini) (reference sx.αxθ)."""
+    """alpha(x) = g(mu(x), sigma(x), theta, fmini) (reference sx.αxθ); for a
+    cost-aware rule alpha / c or alpha - log c (see _rule_cost)."""
     p = posterior(state, x)
-    return rule(p.mu, p.sigma, theta, get_active_minimum(state))
+    a = rule(p.mu, p.sigma, theta, get_active_minimum(state))
+    cq = _rule_cost(rule, x, 0)
+    if cq is not None:
+        mode, c = cq
+        a = a - torch.log(c) if mode == "subtract_log" else a / c
+    return a
 
 
 def acquisition_grad(state: SurrogateState, rule: DecisionRule, x, theta):
@@ -294,8 +322,16 @@ def acquisition_grad(state: SurrogateState, rule: DecisionRule, x, theta):
     p = posterior(state, x)
     args = (p.mu, p.sigma, theta, get_active_minimum(state))
     gmu, gsig = rule.partials(*args)[:2]
+    a = rule(*args)
     grad = gmu[..., None] * p.grad_mu + gsig[..., None] * p.grad_sigma
-    return rule(*args), grad
+    cq = _rule_cost(rule, x, 1)
+    if cq is not None:
+        mode, c, gc = cq
+        if mode == "subtract_log":          # (a - log c)' = a' - c'/c
+            a, grad = a - torch.log(c), grad - gc / c[..., None]
+        else:                               # (a/c)' = a'/c - a c'/c^2
+            a, grad = a / c, grad / c[..., None] - (a / c**2)[..., None] * gc
+    return a, grad
 
 
 def acquisition_value_grad_hess(state: SurrogateState, rule: DecisionRule, x, theta):
@@ -307,6 +343,7 @@ def acquisition_value_grad_hess(state: SurrogateState, rule: DecisionRule, x, th
     gmu, gsig, gmumu, gsigsig, gmusig = (
         t[..., None, None] for t in rule.partials(*args))
     gm, gs = p.grad_mu, p.grad_sigma
+    a = rule(*args)
     grad = gmu[..., 0] * gm + gsig[..., 0] * gs
     cross = gm[..., :, None] * gs[..., None, :]
     hess = (
@@ -316,7 +353,53 @@ def acquisition_value_grad_hess(state: SurrogateState, rule: DecisionRule, x, th
         + gsig * p.hess_sigma
         + gmusig * (cross + cross.transpose(-1, -2))
     )
-    return rule(*args), grad, hess
+    cq = _rule_cost(rule, x, 2)
+    if cq is not None:
+        mode, c, gc, Hc = cq
+        c1, c2 = c[..., None], c[..., None, None]
+        gcgc = gc[..., :, None] * gc[..., None, :]
+        if mode == "subtract_log":
+            # A = a - log c: HA = Ha - Hc/c + grad c grad c^T / c^2
+            hess = hess - Hc / c2 + gcgc / c2**2
+            a, grad = a - torch.log(c), grad - gc / c1
+        else:
+            # A = a/c: HA = Ha/c - (grad a grad c^T + grad c grad a^T)/c^2
+            #               - a Hc/c^2 + 2 a grad c grad c^T / c^3
+            xgc = grad[..., :, None] * gc[..., None, :]
+            a2 = a[..., None, None]
+            hess = (hess / c2 - (xgc + xgc.transpose(-1, -2)) / c2**2
+                    - (a2 / c2**2) * Hc + (2.0 * a2 / c2**3) * gcgc)
+            a, grad = a / c, grad / c1 - (a / c**2)[..., None] * gc
+    return a, grad, hess
+
+
+def lazy_posterior(state: SurrogateState, x, rule: DecisionRule | None = None,
+                   theta=None):
+    """Lazily forced posterior record (reference `sx`, rbs.jl:224-310).
+
+    A `utils.lazy.LazyStruct` with the reference's field names: mu,
+    grad_mu, hess_mu, sigma, grad_sigma, hess_sigma, dsigma (the joint
+    (f, grad f) predictive Cholesky) and, given a rule, alpha, grad_alpha,
+    hess_alpha. The posterior fields share ONE `posterior` call and the
+    acquisition fields ONE `acquisition_value_grad_hess` call, each made
+    when a field of its group is first read.
+    """
+    from rollout_bo_tpu_torch.utils.lazy import LazyStruct
+
+    s = LazyStruct()
+    s.p = lambda: posterior(state, x)
+    for name in ("mu", "grad_mu", "hess_mu", "sigma", "grad_sigma", "hess_sigma"):
+        s.set(name, lambda name=name: getattr(s.p, name))
+    s.dmu_dsigma = lambda: joint_posterior_chol(state, x)
+    s.dsigma = lambda: s.dmu_dsigma[1]
+    if rule is not None:
+        th = torch.zeros((1,), dtype=state.X.dtype, device=state.X.device) \
+            if theta is None else theta
+        s.avgh = lambda: acquisition_value_grad_hess(state, rule, x, th)
+        s.alpha = lambda: s.avgh[0]
+        s.grad_alpha = lambda: s.avgh[1]
+        s.hess_alpha = lambda: s.avgh[2]
+    return s
 
 
 # --------------------------------------------------------------------------

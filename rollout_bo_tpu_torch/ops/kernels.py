@@ -230,11 +230,12 @@ def kernel_joint_block(k: RBFKernel, r):
 
 
 def eval_KXX(k: RBFKernel, X, noise=1e-6):
-    """K(X, X) + noise I for X (..., N, d) (reference eval_KXX)."""
+    """K(X, X) + noise I for X (..., N, d) (reference eval_KXX). The
+    distances use `_safe_norm`: the same values, and a gradient with
+    respect to X that is finite on the diagonal (a plain sqrt there gives
+    0 * inf = NaN, which the explicit adjoint's vjp through X would carry)."""
     n = X.shape[-2]
-    diff = X[..., :, None, :] - X[..., None, :, :]
-    rho = torch.sqrt(torch.clamp(torch.sum(diff * diff, dim=-1), min=0.0))
-    K = k.psi(rho)
+    K = k.psi(_safe_norm(X[..., :, None, :] - X[..., None, :, :]))
     eye = torch.eye(n, dtype=X.dtype, device=X.device)
     # exact psi(0) on the diagonal (avoids sqrt-at-zero noise)
     K = torch.where(eye.bool(), k.psi(torch.zeros((), dtype=X.dtype,

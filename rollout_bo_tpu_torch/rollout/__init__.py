@@ -1,5 +1,23 @@
-from rollout_bo_tpu_torch.rollout import bo, mc, observables, outer, solvers, trajectory
-from rollout_bo_tpu_torch.rollout.bo import MyopicBOResult, run_myopic_bo, run_nonmyopic_bo
+from rollout_bo_tpu_torch.rollout import (
+    adjoint,
+    bo,
+    mc,
+    observables,
+    outer,
+    solvers,
+    trajectory,
+    trust_region,
+)
+from rollout_bo_tpu_torch.rollout.adjoint import gradient_adjoint
+from rollout_bo_tpu_torch.rollout.bo import (
+    MyopicBOResult,
+    alternating_horizon,
+    fixed_horizon,
+    run_adaptive_bo,
+    run_myopic_bo,
+    run_nonmyopic_bo,
+    truncated_horizon,
+)
 from rollout_bo_tpu_torch.rollout.mc import (
     simulate_trajectory_deterministic,
     simulate_trajectory_ghq,
@@ -10,7 +28,9 @@ from rollout_bo_tpu_torch.rollout.outer import (
     deterministic_solve_batch,
     stochastic_solve_fused,
 )
+from rollout_bo_tpu_torch.rollout.solvers import newton_solve_batch
 from rollout_bo_tpu_torch.rollout.trajectory import (
     ExpectedTrajectoryOutput,
     TrajectoryParams,
+    TrajectoryRecord,
 )

@@ -1,5 +1,6 @@
-"""Bayesian-optimization loops: myopic (EI / POI / LCB / Random baselines)
-and non-myopic (rollout acquisition).
+"""Bayesian-optimization loops: myopic (EI / POI / LCB / Random baselines),
+non-myopic (rollout acquisition) and adaptive-horizon (rollout acquisition
+at a horizon that follows a schedule).
 
 Port of `rollout_bo_tpu/rollout/bo.py` (reference
 `experiments/myopic_bayesopt.jl:207-263`, `adaptive_bayesopt.jl:479-526`).
@@ -7,8 +8,7 @@ Each loop is a plain Python loop, one BO iteration per pass: acquisition
 solve -> true-function evaluation -> rank-1 condition -> hyperparameter
 MLE. The JAX package fuses k iterations into one scanned device program,
 caches its jitted programs and runs the MLE under a mask; those exist to
-hide host<->TPU dispatch and compile cost and are not ported. The adaptive
-loop and the horizon schedules are not ported yet.
+hide host<->TPU dispatch and compile cost and are not ported.
 
 Per iteration the host reads what the loop needs: the acquisition's best
 value (non-myopic, to decide on the fallback) and the new point with its
@@ -21,6 +21,7 @@ import math
 import os
 import time
 from dataclasses import dataclass, field
+from typing import Callable
 
 import numpy as np
 import torch
@@ -36,7 +37,8 @@ from rollout_bo_tpu_torch.rollout.trajectory import TrajectoryParams
 from rollout_bo_tpu_torch.utils import checkpoint as ckpt
 from rollout_bo_tpu_torch.utils import metrics
 
-__all__ = ["MyopicBOResult", "run_myopic_bo", "run_nonmyopic_bo"]
+__all__ = ["MyopicBOResult", "run_myopic_bo", "run_nonmyopic_bo", "run_adaptive_bo",
+           "alternating_horizon", "fixed_horizon", "truncated_horizon"]
 
 
 @dataclass
@@ -48,10 +50,13 @@ class MyopicBOResult:
     minimum_observations: np.ndarray  # (budget,)
     times: np.ndarray            # (budget,) acquisition-solve wall seconds
     state: sg.SurrogateState = field(repr=False, default=None)
-    # non-myopic only: outer SGA iterations and whether the exploration
-    # fallback was taken, per BO iteration run by this call
+    # non-myopic and adaptive only: outer SGA iterations and whether the
+    # exploration fallback was taken, per BO iteration run by this call
     sga_iterations: np.ndarray | None = None
     fallbacks: np.ndarray | None = None
+    # adaptive only: device bytes allocated above the level before each
+    # acquisition at its peak (the reference's @timed bytes); 0 on the CPU
+    allocations: np.ndarray | None = None
 
 
 def _synchronize(device: torch.device) -> None:
@@ -299,25 +304,66 @@ def run_nonmyopic_bo(
                kernel=kernel, noise=noise, kernel_lbs=kernel_lbs, kernel_ubs=kernel_ubs,
                mle_every=mle_every, dtype=dtype, device=device, x_init=x_init,
                checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every)
-    d = testfn.dim
     theta = t.as_t(theta)
+    make_rnstream = _rnstream_maker(t, mc_iters, use_low_discrepancy, log10_parity)
+    acquire = _rollout_acquirer(t, rule, theta, deterministic=deterministic,
+                                ghq_nodes=ghq_nodes, sgd_iters=sgd_iters, lr=lr,
+                                solver_iterations=solver_iterations, draw_mode=draw_mode,
+                                log10_parity=log10_parity)
+    fallback = _make_exploration_fallback(rule, theta, t.lbs, t.ubs, t.xstarts,
+                                          solver_iterations)
+    if not use_low_discrepancy:
+        # replay the normal draws consumed before the snapshot so that the
+        # resumed stream continues where it left off (the QMC stream is
+        # stateless and needs no replay)
+        for _ in range(t.start):
+            make_rnstream(horizon)
 
-    def make_rnstream():
+    sga_iterations = np.zeros(budget, dtype=int)
+    fallbacks = np.zeros(budget, dtype=bool)
+    # the full reference batch: num_restarts Sobol points + the two
+    # eps-interior near-boundary points (utils.jl:97-106)
+    restarts = t.as_t(qmc.generate_batch(num_restarts, testfn.lbs, testfn.ubs))
+    for b in range(t.start, budget):
+        rnstream = make_rnstream(horizon)
+        t0 = time.perf_counter()
+        xnext, sga_iterations[b], fallbacks[b] = _acquire_or_fall_back(
+            acquire, fallback, t.state, rnstream, restarts, horizon)
+        _synchronize(t.device)
+        t.times[b] = time.perf_counter() - t0
+        t.observe(b, xnext, mle=True)
+    return t.result(sga_iterations=sga_iterations, fallbacks=fallbacks)
+
+
+def _rnstream_maker(t: _Trial, mc_iters, use_low_discrepancy, log10_parity):
+    """make(h) -> the (mc_iters, d+1, h+1) normal stream of one acquisition."""
+    d = t.testfn.dim
+
+    def make(h: int):
         if use_low_discrepancy:
             # log10_parity reproduces the reference's Box-Muller `log10`
             # quirk (utils.jl:33-35): its archived variance-reduction runs
             # fantasize with draws of std log10(e)^0.5 ~ 0.659, not N(0, 1)
             z = qmc.gen_low_discrepancy_sequence(
-                mc_iters, d, horizon + 1, log10_parity=log10_parity)
+                mc_iters, d, h + 1, log10_parity=log10_parity)
         else:
-            z = t.rng.normal(size=(mc_iters, d + 1, horizon + 1))
+            z = t.rng.normal(size=(mc_iters, d + 1, h + 1))
         return t.as_t(z)
 
-    def acquire(state, rnstream, restarts):
+    return make
+
+
+def _rollout_acquirer(t: _Trial, rule, theta, *, deterministic, ghq_nodes, sgd_iters,
+                      lr, solver_iterations, draw_mode, log10_parity):
+    """acquire(state, rnstream, restarts, h) -> (x, value, SGA iterations or
+    -1) of the h-step rollout acquisition: the stochastic solver, or the
+    Gauss-Hermite one with `deterministic` (which ignores the stream)."""
+
+    def acquire(state, rnstream, restarts, h):
         if deterministic:
             xs, vals = outer_mod.deterministic_solve_batch(
                 state, theta, t.lbs, t.ubs, t.xstarts, restarts, rule,
-                horizon=horizon, num_nodes=ghq_nodes, max_iters=sgd_iters, lr=lr,
+                horizon=h, num_nodes=ghq_nodes, max_iters=sgd_iters, lr=lr,
                 inner_iterations=solver_iterations,
                 node_scale=_ghq_node_scale(log10_parity))
             j = torch.argmax(vals)
@@ -330,29 +376,141 @@ def run_nonmyopic_bo(
             select_best=True)
         return res.x, res.value, res.iterations
 
+    return acquire
+
+
+def _acquire_or_fall_back(acquire, fallback, state, rnstream, restarts, h):
+    """(x, SGA iterations, fallback taken): the rollout acquisition's
+    winner, or the exploration fallback's point where the winner's value is
+    not finite and positive."""
+    xnext, vbest, iterations = acquire(state, rnstream, restarts, h)
+    vb = float(vbest)
+    if not math.isfinite(vb) or vb <= 0.0:
+        return fallback(state)[0], iterations, True
+    return xnext, iterations, False
+
+
+def alternating_horizon(max_horizon: int = 1):
+    """Reference adaptive schedule: h alternates 0, max_h, 0, max_h, ...
+    (adaptive_bayesopt.jl:505, `tp.h = budget % 2 == 1 ? 0 : 1`, with the
+    hard-coded 1 generalized to max_horizon). `b` is 0-based."""
+
+    def schedule(b: int, budget: int) -> int:
+        return 0 if (b + 1) % 2 == 1 else max_horizon
+
+    return schedule
+
+
+def fixed_horizon(max_horizon: int):
+    """Constant-horizon schedule: the reference's no-truncated-horizons
+    archive (metadata `Should Truncate Horizon: false`)."""
+
+    def schedule(b: int, budget: int) -> int:
+        return max_horizon
+
+    return schedule
+
+
+def truncated_horizon(max_horizon: int):
+    """The reference's commented-out alternative (adaptive_bayesopt.jl:503):
+    the horizon shrinks with the remaining budget."""
+
+    def schedule(b: int, budget: int) -> int:
+        return min(max_horizon, budget - (b + 1))
+
+    return schedule
+
+
+def _memory_mark(device: torch.device) -> int:
+    """Start a peak-memory window: bytes allocated now (0 off the card)."""
+    if device.type != "cuda":
+        return 0
+    torch.cuda.reset_peak_memory_stats(device)
+    return torch.cuda.memory_allocated(device)
+
+
+def _peak_bytes_since(device: torch.device, mark: int) -> int:
+    """Peak bytes allocated above `mark` since `_memory_mark` (0 off the card,
+    as the JAX package reports on a backend without memory statistics)."""
+    if device.type != "cuda":
+        return 0
+    return max(0, torch.cuda.max_memory_allocated(device) - mark)
+
+
+def run_adaptive_bo(
+    testfn: TestFunction,
+    *,
+    horizon: int = 1,
+    schedule: Callable[[int, int], int] | None = None,
+    mc_iters: int = 25,
+    budget: int = 15,
+    theta=(0.0,),
+    n_init: int = 1,
+    num_starts: int = 16,
+    num_restarts: int = 4,
+    sgd_iters: int = 25,
+    lr: float = 0.01,
+    seed: int = 1906,
+    kernel: kern.RBFKernel | None = None,
+    kernel_lbs=(0.1,),
+    kernel_ubs=(5.0,),
+    noise: float = 1e-6,
+    mle_every: int = 10**9,
+    solver_iterations: int = 12,
+    use_low_discrepancy: bool = True,
+    log10_parity: bool = False,
+    deterministic: bool = False,
+    ghq_nodes: int = 8,
+    rule: DecisionRule | None = None,
+    draw_mode: str = "reparam",
+    dtype=torch.float64,
+    device="cuda",
+    x_init: np.ndarray | None = None,
+) -> MyopicBOResult:
+    """Adaptive-horizon rollout BO trial (reference adaptive_bayesopt.jl:479-526).
+
+    Each BO iteration solves the rollout acquisition at horizon
+    schedule(b, budget) (default: the reference's alternating 0 / h) from
+    the `num_restarts` + 2 restart batch, with a fresh (mc_iters, d+1, h+1)
+    stream; h = 0 rolls out the first draw alone, with no inner solve.
+    `deterministic=True` selects the Gauss-Hermite solver (reference
+    `rollout_solver_saa`). The buffers hold len(x_init) + budget
+    observations (n_init + budget without x_init), as in the JAX package.
+
+    The result carries `times` (acquisition wall seconds, synchronized),
+    `allocations` (peak device bytes per acquisition above the level
+    before it), `sga_iterations` and `fallbacks`.
+    """
+    rule = rule or EI()
+    schedule = schedule or alternating_horizon(horizon)
+    if x_init is not None:
+        n_init = len(x_init)
+    t = _Trial(testfn, budget=budget, n_init=n_init, num_starts=num_starts, seed=seed,
+               kernel=kernel, noise=noise, kernel_lbs=kernel_lbs, kernel_ubs=kernel_ubs,
+               mle_every=mle_every, dtype=dtype, device=device, x_init=x_init,
+               checkpoint_path=None, checkpoint_every=1)
+    theta = t.as_t(theta)
+    make_rnstream = _rnstream_maker(t, mc_iters, use_low_discrepancy, log10_parity)
+    acquire = _rollout_acquirer(t, rule, theta, deterministic=deterministic,
+                                ghq_nodes=ghq_nodes, sgd_iters=sgd_iters, lr=lr,
+                                solver_iterations=solver_iterations, draw_mode=draw_mode,
+                                log10_parity=log10_parity)
     fallback = _make_exploration_fallback(rule, theta, t.lbs, t.ubs, t.xstarts,
                                           solver_iterations)
-    if not use_low_discrepancy:
-        # replay the normal draws consumed before the snapshot so that the
-        # resumed stream continues where it left off (the QMC stream is
-        # stateless and needs no replay)
-        for _ in range(t.start):
-            make_rnstream()
-
     sga_iterations = np.zeros(budget, dtype=int)
     fallbacks = np.zeros(budget, dtype=bool)
-    # the full reference batch: num_restarts Sobol points + the two
-    # eps-interior near-boundary points (utils.jl:97-106)
+    allocations = np.zeros(budget)
     restarts = t.as_t(qmc.generate_batch(num_restarts, testfn.lbs, testfn.ubs))
-    for b in range(t.start, budget):
-        rnstream = make_rnstream()
+    for b in range(budget):
+        h = max(0, int(schedule(b, budget)))
+        rnstream = make_rnstream(h)
+        mark = _memory_mark(t.device)
         t0 = time.perf_counter()
-        xnext, vbest, sga_iterations[b] = acquire(t.state, rnstream, restarts)
-        vb = float(vbest)
-        if not math.isfinite(vb) or vb <= 0.0:
-            xnext, _ = fallback(t.state)
-            fallbacks[b] = True
+        xnext, sga_iterations[b], fallbacks[b] = _acquire_or_fall_back(
+            acquire, fallback, t.state, rnstream, restarts, h)
         _synchronize(t.device)
         t.times[b] = time.perf_counter() - t0
+        allocations[b] = _peak_bytes_since(t.device, mark)
         t.observe(b, xnext, mle=True)
-    return t.result(sga_iterations=sga_iterations, fallbacks=fallbacks)
+    return t.result(sga_iterations=sga_iterations, fallbacks=fallbacks,
+                    allocations=allocations)

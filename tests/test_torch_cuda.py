@@ -244,3 +244,85 @@ def test_myopic_bo_on_the_card_matches_cpu_route(dev):
     np.testing.assert_allclose(gpu.X, cpu.X, rtol=0.0, atol=1e-6)
     np.testing.assert_allclose(float(gpu.state.kernel.theta[0]),
                                float(cpu.state.kernel.theta[0]), rtol=1e-6)
+
+
+# --------------------------------------------------------------------------
+# the cost-aware route: the torch newton_solve_batch, never the kernel
+# --------------------------------------------------------------------------
+
+
+def _cost_rule():
+    from rollout_bo_tpu_torch.models import cost_functions as cf
+
+    return cf.cost_aware(dr.EI(), cf.NonUniformCost(lambda x: 1.0 + torch.sum(x * x)))
+
+
+def _hartmann3d_state(device, lanes=()):
+    from rollout_bo_tpu_torch.models import testfns
+
+    f = testfns.get_function("hartmann3d")
+    X = np.random.default_rng(2).uniform(f.lbs, f.ubs, lanes + (9, 3))
+    y = f.batch(torch.tensor(X)).numpy()
+    return f, sg.fit(K.matern52((0.4,), device=device), X, y, capacity=14, noise=1e-6,
+                     device=device)
+
+
+def test_newton_solve_batch_card_matches_cpu_route(dev):
+    """A small lane batch (3 lanes x 10 starts) with a cost-aware rule: the
+    same per-start solutions on the card as on the CPU (float64, 1e-6 of
+    the box width), and no kernel launch."""
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        f, st = _hartmann3d_state(device, (3,))
+        xstarts = qmc.generate_initial_guesses(8, f.lbs, f.ubs)
+        before = nl.LAUNCHES
+        out[device.type] = solvers.newton_solve_batch(
+            st, _cost_rule(), torch.zeros((3, 1), dtype=torch.float64, device=device),
+            f.lbs, f.ubs, xstarts, iterations=12)
+        assert nl.LAUNCHES == before
+    (xg, vg), (xc, vc) = out["cuda"], out["cpu"]
+    assert xg.device.type == "cuda" and xg.shape == (3, 10, 3) and vg.shape == (3, 10)
+    torch.testing.assert_close(xg.cpu(), xc, rtol=0.0, atol=1e-6)
+    torch.testing.assert_close(vg.cpu(), vc, rtol=1e-6, atol=1e-12)
+
+
+def test_cost_aware_multistart_maximize_card_matches_cpu_route(dev):
+    from rollout_bo_tpu_torch.models import testfns
+
+    f = testfns.get_function("hartmann3d")
+    xstarts = qmc.generate_initial_guesses(14, f.lbs, f.ubs)
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        _, st = _hartmann3d_state(device)
+        before = nl.LAUNCHES
+        out[device.type] = solvers.multistart_maximize(st, _cost_rule(), (0.0,), f.lbs, f.ubs,
+                                                       xstarts, iterations=12)
+        assert nl.LAUNCHES == before
+    torch.testing.assert_close(out["cuda"].x.cpu(), out["cpu"].x, rtol=0.0, atol=1e-6)
+    torch.testing.assert_close(out["cuda"].value.cpu(), out["cpu"].value, rtol=1e-6,
+                               atol=1e-12)
+
+
+def test_maximize_hot_never_launches_the_kernel_for_a_cost_aware_rule(dev):
+    """A CostAwareRule keeps the name "EI", which the kernel supports: the
+    routing must send it to newton_solve_batch all the same."""
+    f, st = _hartmann3d_state(dev, (2, 3))
+    rule = _cost_rule()
+    assert rule.name == "EI" and nl.supported("matern52", rule.name)
+    t = lambda a: torch.tensor(np.asarray(a), dtype=torch.float64, device=dev)
+    before = nl.LAUNCHES
+    x, v = solvers.maximize_hot(st, rule, torch.zeros((2, 3, 1), dtype=torch.float64,
+                                                      device=dev),
+                                t(f.lbs), t(f.ubs), t(qmc.generate_initial_guesses(6, f.lbs,
+                                                                                   f.ubs)),
+                                iterations=6)
+    torch.cuda.synchronize()
+    assert nl.LAUNCHES == before
+    assert x.shape == (2, 3, 3) and bool(torch.all(torch.isfinite(v)))
+    x, v = solvers.maximize_hot(st, dr.EI(), torch.zeros((2, 3, 1), dtype=torch.float64,
+                                                         device=dev),
+                                t(f.lbs), t(f.ubs), t(qmc.generate_initial_guesses(6, f.lbs,
+                                                                                   f.ubs)),
+                                iterations=6)
+    torch.cuda.synchronize()
+    assert nl.LAUNCHES == before + 1                  # the plain rule takes the kernel
