@@ -90,7 +90,24 @@ Run from the repository root on a machine with one NVIDIA Hopper card
    `newton_solve_batch`'s share of it (CUDA events around each solver
    call) and the cumulative cost. Then one simulate call at the same
    width, in turns for plain EI (the kernel) and the three cost-aware
-   rules on the same inputs: the cost channel's price per call.
+   rules on the same inputs: the cost channel's price per call;
+10. the sharded path (`parallel/`), ranks of torch.distributed started
+   with `spawn`, each launching the kernel on its share of the lanes:
+   `sharded_stochastic_solve_fused(select_best=True)` at the bench.py
+   configuration on two gloo ranks sharing cuda:0 at meshes (2, 1) and
+   (1, 2), then on an NCCL group of one rank per card at (ranks, 1). Per
+   rank: the same finite winner inside the box and kernel launches = 3 x
+   (SGA iterations + 1), counted from 0 just before the timed solve;
+   prints each rank's lanes per launch and seconds per acquisition (on
+   the NCCL ranks beside the same solve with no mesh in the same process,
+   medians of 3 in turns). Two
+   ranks sharing one card give no scaling figure. Then a small float64
+   non-myopic trial on a 2-rank mesh, card == CPU route to 1e-6 of the
+   box; and one trial through the CLI with `--nworkers 2 --backend gloo`
+   at its widths (hartmann6d, h 2, 200 trajectories, 8 restarts, 16 + 2
+   starts, MLE on, float64, budget 3: depth only): the CSVs, and per rank
+   launches = 2 x sum(SGA iterations + 1) + fallbacks. With two or more
+   cards also the multi-process worker's `--bench-mc` over NCCL.
 
 `--phases 3 5` runs only the phases named (1 and 2 always run); a partial
 run prints neither of the two closing lines.
@@ -964,7 +981,246 @@ def phase_card_equals_cpu(dev):
               f"{th_gpu:.8f})")
 
 
-_PHASES = (3, 4, 5, 6, 7, 8, 9)
+# --------------------------------------------------------------------------
+# phase 10: the sharded path, ranks of torch.distributed on the card
+# --------------------------------------------------------------------------
+
+
+def _start_ranks(fn, world, backend, tmp, **kw):
+    """Run fn(rank, world, init_method, backend, tmp, kw) in `world` new
+    processes (spawn; a rank that fails ends the others and raises here);
+    returns the reports the ranks wrote to tmp/rank<i>.json."""
+    import torch.multiprocessing as mp
+
+    tag = f"{fn.__name__}-{backend}-{world}"
+    mp.start_processes(fn, args=(world, f"file://{os.path.join(tmp, 'store-' + tag)}",
+                                 backend, os.path.join(tmp, tag), kw),
+                       nprocs=world, start_method="spawn")
+    reports = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"{tag}-rank{r}.json")) as fh:
+            reports.append(json.load(fh))
+    return reports
+
+
+def _rank_sharded(rank, world, init_method, backend, prefix, kw):
+    """One rank: the bench configuration's sharded fused solve at each mesh
+    shape (launches counted from 0 just before the timed solve); with
+    kw["plain"] also the same solve with no mesh in this process, timed in
+    turns with the sharded one (3 each: the medians); with kw["small"] a
+    small float64 trial of the non-myopic loop on the mesh, on the card and
+    on the CPU route."""
+    import torch.distributed as dist
+
+    from rollout_bo_tpu_torch.models import decision_rules as dr
+    from rollout_bo_tpu_torch.models import testfns
+    from rollout_bo_tpu_torch.ops import newton_lanes as nl
+    from rollout_bo_tpu_torch.parallel import mesh as mesh_mod
+    from rollout_bo_tpu_torch.parallel import sharded
+    from rollout_bo_tpu_torch.rollout import bo, outer
+
+    torch.set_num_threads(1)
+    mesh_mod.initialize_distributed(init_method, world, rank, backend=backend)
+    try:
+        dev = mesh_mod.rank_device("cuda")
+        report = dict(rank=rank, device=str(dev), solves=[])
+        state, tp, xstarts, restarts = _bench_problem(dev, torch.float32)
+        for r, m in kw["shapes"]:
+            mesh = mesh_mod.make_mesh(restarts=r, mc=m)
+            solve = lambda: sharded.sharded_stochastic_solve_fused(
+                state, tp, dr.EI(), xstarts, restarts, mesh, max_iters=50, lr=0.01,
+                inner_iterations=10, select_best=True)
+            solve()                                   # warm-up
+            torch.cuda.synchronize()
+            nl.LAUNCHES = 0
+            t0 = time.perf_counter()
+            res = solve()
+            torch.cuda.synchronize()
+            seconds = [time.perf_counter() - t0]
+            launches = nl.LAUNCHES
+            x = res.x.cpu()
+            plain_s = []
+            if kw.get("plain"):
+                plain = lambda: outer.stochastic_solve_fused(
+                    state, tp, dr.EI(), xstarts, restarts, max_iters=50, lr=0.01,
+                    inner_iterations=10, select_best=True)
+                plain()                               # warm-up
+                for turn in ((plain, plain_s), (solve, seconds)) * 2 + ((plain, plain_s),):
+                    run, times = turn
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    run()
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+            report["solves"].append(dict(
+                mesh=[r, m], iterations=res.iterations, launches=launches,
+                seconds=statistics.median(seconds),
+                plain_seconds=statistics.median(plain_s) if plain_s else None,
+                lanes=restarts.shape[0] // r * (tp.mc_iters // m), x=x.tolist(),
+                value=float(res.value),
+                inside=bool(torch.all((x >= tp.lbs.cpu()) & (x <= tp.ubs.cpu())))))
+        if kw.get("small"):
+            f = testfns.get_function("hartmann3d")
+            x_init = np.random.default_rng(3).uniform(f.lbs, f.ubs, (5, f.dim))
+            mesh = mesh_mod.make_mesh(restarts=world, mc=1)
+            for device in (dev, torch.device("cpu")):
+                res = bo.run_nonmyopic_bo(
+                    f, horizon=1, budget=2, mc_iters=8, num_starts=8, num_restarts=2,
+                    sgd_iters=3, lr=0.05, solver_iterations=8, x_init=x_init, device=device,
+                    mesh=mesh)
+                report[f"X_{device.type}"] = res.X.tolist()
+        with open(f"{prefix}-rank{rank}.json", "w") as fh:
+            json.dump(report, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _cli_rank(rank, args, world, init_method):
+    """One rank of the non-myopic CLI's `--nworkers` run, as the CLI starts
+    it, recording per trial its kernel launches (from 0 at the trial's
+    start), SGA iterations and fallbacks to <output dir>/rank<i>.json."""
+    from rollout_bo_tpu_torch.experiments import nonmyopic
+    from rollout_bo_tpu_torch.ops import newton_lanes as nl
+    from rollout_bo_tpu_torch.rollout import bo
+
+    trials, loop = [], bo.run_nonmyopic_bo
+
+    def recorded(*a, **kw):
+        nl.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = loop(*a, **kw)
+        torch.cuda.synchronize()
+        trials.append(dict(launches=nl.LAUNCHES, seconds=time.perf_counter() - t0,
+                           sga_iterations=res.sga_iterations.tolist(),
+                           fallbacks=res.fallbacks.tolist(), times=res.times.tolist(),
+                           X=res.X.tolist()))
+        return res
+
+    bo.run_nonmyopic_bo = recorded
+    try:
+        nonmyopic._rank_main(rank, args, world, init_method)
+    finally:
+        bo.run_nonmyopic_bo = loop
+    with open(os.path.join(args.output_dir, f"rank{rank}.json"), "w") as fh:
+        json.dump(trials, fh)
+
+
+def _check_sharded_solves(reports, label, card):
+    """Every rank: the same finite winner inside the box, its launches =
+    3 x (SGA iterations + 1); prints each rank's lanes per launch and
+    seconds per acquisition."""
+    for i, solves in enumerate(zip(*(r["solves"] for r in reports))):
+        (r0, *_), mesh = solves, solves[0]["mesh"]
+        for rep in solves:
+            if rep["launches"] != 3 * (rep["iterations"] + 1):
+                raise AssertionError(f"{label} mesh {mesh}: {rep['launches']} kernel launches "
+                                     f"on a rank, not 3 x ({rep['iterations']} + 1)")
+            if not (all(map(math.isfinite, rep["x"])) and rep["inside"]
+                    and math.isfinite(rep["value"]) and rep["value"] >= 0.0):
+                raise AssertionError(f"{label} mesh {mesh}: winner {rep['x']} value "
+                                     f"{rep['value']} not finite inside the box")
+            if (rep["x"], rep["value"], rep["iterations"]) != (r0["x"], r0["value"],
+                                                              r0["iterations"]):
+                raise AssertionError(f"{label} mesh {mesh}: the ranks disagree")
+        print(f"sharded path, bench.py configuration, {label}, mesh (restarts {mesh[0]}, mc "
+              f"{mesh[1]}): {r0['iterations']} SGA iterations, v_best {r0['value']:.6g}; "
+              + "; ".join(f"rank {rep_i}: {rep['lanes']} lanes per launch, {rep['launches']} "
+                          f"launches, {rep['seconds']:.4f} s per acquisition"
+                          + ("" if rep["plain_seconds"] is None else
+                             f" ({rep['plain_seconds']:.4f} s with no mesh in the same "
+                             "process, medians of 3 in turns)")
+                          for rep_i, rep in enumerate(solves)) + f"; on {card}")
+
+
+def phase_sharded(card, budget=3, horizon=2):
+    from rollout_bo_tpu_torch.experiments import nonmyopic
+
+    n_cards = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory() as tmp:
+        # two gloo ranks sharing cuda:0 (no scaling: one card), then a small
+        # float64 trial of the loop on the card and on the CPU route
+        reports = _start_ranks(_rank_sharded, 2, "gloo", tmp, shapes=[(2, 1), (1, 2)],
+                               small=True)
+        _check_sharded_solves(reports, "2 gloo ranks sharing cuda:0", card)
+        gpu, cpu = np.asarray(reports[0]["X_cuda"]), np.asarray(reports[0]["X_cpu"])
+        apart = float(np.abs(gpu - cpu).max())
+        if gpu.shape != (7, 3) or apart > 1e-6:     # hartmann3d's box is [0, 1]^3
+            raise AssertionError(f"2-rank trial: card {gpu} vs CPU route {cpu}")
+        print(f"sharded BO loop, small float64 (hartmann3d, h 1, 8 samples, 2 restarts on 2 "
+              f"gloo ranks): card == CPU route (points within {apart:.2e})")
+
+        # NCCL: one rank per card, the restarts split over them
+        world = max(w for w in (1, 2, 4, 8) if w <= n_cards)
+        reports = _start_ranks(_rank_sharded, world, "nccl", tmp, shapes=[(world, 1)],
+                               plain=True)
+        _check_sharded_solves(reports, f"NCCL, {world} rank(s) on {world} card(s)", card)
+
+        # the CLI at its widths on two ranks (budget cut to 3)
+        out = os.path.join(tmp, "cli")
+        real = nonmyopic._rank_main
+        nonmyopic._rank_main = _cli_rank
+        try:
+            t0 = time.perf_counter()
+            nonmyopic.main(["--function-name", "hartmann6d", "--horizon", str(horizon),
+                            "--trials", "1", "--budget", str(budget), "--mc-samples", "200",
+                            "--batch-size", "8", "--sgd-iterations", "50", "--starts", "16",
+                            "--optimize", "--variance-reduction", "--seed", "1906",
+                            "--nworkers", "2", "--backend", "gloo", "--output-dir", out])
+            seconds = time.perf_counter() - t0
+        finally:
+            nonmyopic._rank_main = real
+        gaps = None
+        for metric in ("times", "gaps", "observations"):
+            row = _check_csv(os.path.join(out, "hartmann6d", f"rollout_h{horizon}_{metric}.csv"),
+                             budget, gaps=metric == "gaps")
+            gaps = row if metric == "gaps" else gaps
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(out, f"rank{r}.json")) as fh:
+                (trial,) = json.load(fh)
+            want = horizon * sum(i + 1 for i in trial["sga_iterations"]) + sum(trial["fallbacks"])
+            if trial["launches"] != want:
+                raise AssertionError(f"CLI rank {r}: {trial['launches']} kernel launches, not "
+                                     f"{want} = {horizon} x sum(SGA iterations + 1) + fallbacks")
+            ranks.append(trial)
+        if ranks[0]["X"] != ranks[1]["X"]:
+            raise AssertionError("CLI ranks sampled different points")
+        print(f"non-myopic CLI, --nworkers 2 --backend gloo (2 ranks sharing cuda:0), "
+              f"hartmann6d, h {horizon}, 8 restarts (4 per rank) x 200 trajectories, budget "
+              f"{budget}: final gap {gaps[-1]:.4f}, SGA iterations "
+              f"{ranks[0]['sga_iterations']}, fallbacks {sum(ranks[0]['fallbacks'])}; "
+              + "; ".join(f"rank {r}: {t['launches']} kernel launches, acquisition median "
+                          f"{statistics.median(t['times']):.4f} s, trial {t['seconds']:.2f} s"
+                          for r, t in enumerate(ranks))
+              + f"; CLI wall {seconds:.2f} s; on {card}")
+
+        if n_cards >= 2:
+            _bench_mc_workers(tmp, card)
+
+
+def _bench_mc_workers(tmp, card):
+    """Two processes of the multi-process worker, NCCL on two cards, with
+    its sharded_simulate_mc timing (200 trajectories per rank)."""
+    init = f"file://{os.path.join(tmp, 'worker-store')}"
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "rollout_bo_tpu_torch.parallel.multihost_worker",
+         "--process-id", str(i), "--num-processes", "2", "--port", "0", "--init-method",
+         init, "--bench-mc", "200"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for i in range(2)]
+    try:
+        outputs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for i, (p, o) in enumerate(zip(procs, outputs)):
+        if p.returncode != 0 or f"[p{i}] OK" not in o:
+            raise AssertionError(f"worker {i} failed:\n{o}")
+    print("multihost_worker, NCCL on 2 cards: " + " | ".join(
+        line for o in outputs for line in o.splitlines() if "bench_mc" in line or "winner" in line)
+        + f"; on {card}")
+
+
+_PHASES = (3, 4, 5, 6, 7, 8, 9, 10)
 
 
 def main(argv=None):
@@ -991,6 +1247,8 @@ def main(argv=None):
         phase_adaptive_cli(smi)
     if 9 in phases:
         phase_cost_aware_cli(dev, smi)
+    if 10 in phases:
+        phase_sharded(smi)
     torch.cuda.synchronize()
     if phases != set(_PHASES):
         print(f"partial run (phases {sorted(phases)}): no closing lines")

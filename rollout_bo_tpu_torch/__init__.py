@@ -28,6 +28,6 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
 
-from rollout_bo_tpu_torch import constants, ops, models, rollout, utils  # noqa: E402
+from rollout_bo_tpu_torch import constants, ops, models, parallel, rollout, utils  # noqa: E402
 
 __version__ = "0.1.0"

@@ -7,9 +7,18 @@ rollout_h{H}_{times,gaps,observations}.csv in the reference's archived
 schema. Same flags, defaults, file names and initial-sample stream as the
 JAX package's CLI. Differences: `--device` (default `cuda`; without a card
 it raises); `--outer-solver` accepts only `fused` (the one outer solver of
-this package) and `--nworkers` only 0 or 1 (one device; the multi-GPU
-layer is ROADMAP item 15): other values raise; `--steps-per-call` is
-parsed and has no effect.
+this package): other values raise; `--steps-per-call` is parsed and has no
+effect.
+
+Several ranks: `--nworkers N` (0: every card, or 1 on `--device cpu`).
+When N > 1 divides `--batch-size`, the CLI spawns N processes, one rank
+each, joined by `torch.distributed` (`--backend nccl`, the default, one
+card per rank; `gloo` for ranks that share a card or run on the CPU), on a
+mesh of restarts = N, mc = 1, as the JAX CLI builds it: each rank solves
+its share of the restarts. The rendezvous is a `file://` store in the
+output directory unless `--init-method` names one. Rank 0 alone writes the
+metadata, the CSVs and the progress lines; a rank that fails ends the
+others. When N does not divide the batch, the run takes one device.
 """
 
 from __future__ import annotations
@@ -20,10 +29,13 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from rollout_bo_tpu_torch.experiments.myopic import add_device_argument, resolve_device
 from rollout_bo_tpu_torch.models import decision_rules as dr
 from rollout_bo_tpu_torch.models import testfns
+from rollout_bo_tpu_torch.parallel import mesh as mesh_mod
 from rollout_bo_tpu_torch.rollout import bo
 from rollout_bo_tpu_torch.utils import logging as log
 
@@ -31,9 +43,16 @@ from rollout_bo_tpu_torch.utils import logging as log
 def parse_args(argv=None):
     p = argparse.ArgumentParser("Nonmyopic Bayesian Optimization CLI")
     p.add_argument("--nworkers", type=int, default=0,
-                   help="devices to use: 0 or 1 (one device); sharding the "
-                        "restarts over several GPUs is ROADMAP item 15 and "
-                        "any other value raises")
+                   help="ranks (one process and device each) over which the "
+                        "restarts are split; 0 = every card (1 with --device "
+                        "cpu). Takes effect when it divides --batch-size")
+    p.add_argument("--backend", default="nccl", choices=["nccl", "gloo"],
+                   help="torch.distributed backend of the ranks: nccl needs one "
+                        "card per rank; gloo serves ranks that share a card or "
+                        "run on the CPU")
+    p.add_argument("--init-method", default=None,
+                   help="rendezvous URL of the ranks (default: a file:// store "
+                        "in the output directory)")
     p.add_argument("--seed", type=int, default=1906)
     p.add_argument("--optimize", action="store_true",
                    help="optimize surrogate hyperparameters each iteration")
@@ -99,39 +118,76 @@ def main(argv=None):
             f"--outer-solver {args.outer_solver}: only 'fused' exists in this "
             "package; the batch and scanned programs are not ported (ROADMAP "
             "item 16)")
-    if args.nworkers not in (0, 1):
-        raise NotImplementedError(
-            f"--nworkers {args.nworkers}: this package runs on one device; "
-            "sharding restarts over several GPUs is ROADMAP item 15")
     device = resolve_device(args.device)
-    dtype = getattr(torch, args.dtype)
+    n = args.nworkers or (torch.cuda.device_count() if device.type == "cuda" else 1)
+    if n > 1 and args.batch_size % n == 0:
+        mesh_mod.check_backend(args.backend, n, device.type)
+        _spawn(args, n)
+        return
+    if n > 1:
+        print(f"--nworkers {n} does not divide --batch-size {args.batch_size}: "
+              "running on one device")
+    _run(args, device, None)
 
+
+def _spawn(args, world: int) -> None:
+    """Run `_rank_main` in `world` new processes; a rank that fails ends
+    the others, and the first failure is raised here."""
+    os.makedirs(args.output_dir, exist_ok=True)
+    store = os.path.abspath(os.path.join(args.output_dir, f".rendezvous-{os.getpid()}"))
+    try:
+        mp.start_processes(_rank_main, args=(args, world, args.init_method or f"file://{store}"),
+                           nprocs=world, start_method="spawn")
+    finally:
+        if os.path.exists(store):
+            os.remove(store)
+
+
+def _rank_main(rank: int, args, world: int, init_method: str) -> None:
+    """One rank of a `--nworkers` run: join the group, run the trials on
+    the mesh (restarts = world, mc = 1), leave the group."""
+    torch.set_num_threads(1)
+    mesh_mod.initialize_distributed(init_method, world, rank, backend=args.backend)
+    try:
+        _run(args, mesh_mod.rank_device(args.device), mesh_mod.make_mesh(restarts=world, mc=1))
+    finally:
+        dist.destroy_process_group()
+
+
+def _run(args, device: torch.device, mesh) -> None:
+    """The trials, on one device or as one rank of `mesh`."""
+    lead = mesh is None or mesh.rank == 0
+    dtype = getattr(torch, args.dtype)
     f = testfns.get_function(args.function_name)
     outdir = os.path.join(args.output_dir, args.function_name)
-    os.makedirs(outdir, exist_ok=True)
-    log.write_metadata(
-        os.path.dirname(outdir) or outdir,
-        budget=args.budget, number_of_trials=args.trials,
-        number_of_starts=args.starts, data_directory=args.output_dir,
-        should_optimize=args.optimize, horizon=args.horizon,
-        mc_samples=args.mc_samples, batch_size=args.batch_size,
-        sgd_iterations=args.sgd_iterations,
-        should_reduce_variance=args.variance_reduction,
-        log10_parity=args.log10_parity,
-    )
-
     h = args.horizon
-    for metric in ["times", "gaps", "observations"]:
-        log.create_csv(os.path.join(outdir, f"rollout_h{h}_{metric}"), args.budget)
+    if lead:
+        os.makedirs(outdir, exist_ok=True)
+        log.write_metadata(
+            os.path.dirname(outdir) or outdir,
+            budget=args.budget, number_of_trials=args.trials,
+            number_of_starts=args.starts, data_directory=args.output_dir,
+            should_optimize=args.optimize, horizon=args.horizon,
+            mc_samples=args.mc_samples, batch_size=args.batch_size,
+            sgd_iterations=args.sgd_iterations,
+            should_reduce_variance=args.variance_reduction,
+            log10_parity=args.log10_parity,
+        )
+        for metric in ["times", "gaps", "observations"]:
+            log.create_csv(os.path.join(outdir, f"rollout_h{h}_{metric}"), args.budget)
 
     rng = np.random.default_rng(args.seed)
     # crash-resume: skip trials that already hold a CSV row (create_csv
     # keeps existing rows) instead of recomputing and appending duplicates
     done_trials = 0
     if args.checkpoint_every:
-        done_trials = len(log.read_rows(os.path.join(outdir, f"rollout_h{h}_gaps")))
-        if done_trials:
-            print(f"resuming: {done_trials} completed trial(s) on disk")
+        if lead:
+            done_trials = len(log.read_rows(os.path.join(outdir, f"rollout_h{h}_gaps")))
+            if done_trials:
+                print(f"resuming: {done_trials} completed trial(s) on disk")
+        if mesh is not None:
+            done_trials = int(mesh_mod.broadcast(
+                torch.tensor([done_trials], device=device), mesh))
     n_init = args.initial_observations
     for trial in range(args.trials):
         x_init = np.asarray(f.lbs) + (np.asarray(f.ubs) - np.asarray(f.lbs)) \
@@ -155,7 +211,10 @@ def main(argv=None):
             deterministic=args.deterministic_solve, ghq_nodes=args.ghq_nodes,
             checkpoint_path=ckpt_path,
             checkpoint_every=args.checkpoint_every or 5,
+            mesh=mesh,
         )
+        if not lead:
+            continue
         if ckpt_path is not None and os.path.exists(ckpt_path + ".npz"):
             os.remove(ckpt_path + ".npz")  # completed trial: drop snapshot
         log.write_to_csv(os.path.join(outdir, f"rollout_h{h}_times"), res.times)

@@ -25,7 +25,7 @@ from rollout_bo_tpu_torch.ops import chol as chol_ops
 from rollout_bo_tpu_torch.ops import kernels as kern
 from rollout_bo_tpu_torch.ops.kernels import RBFKernel
 
-__all__ = ["FantasyState", "make_fantasy", "view", "fantasy_condition"]
+__all__ = ["FantasyState", "make_fantasy", "view", "fantasy_condition", "fantasy_reset"]
 
 
 class FantasyState(NamedTuple):
@@ -117,3 +117,11 @@ def fantasy_condition(fs: FantasyState, xnew, ynew) -> FantasyState:
     cs = torch.cat([cs[..., :fs.m + 1, :], c_new[..., None, :],
                     cs[..., fs.m + 2:, :]], dim=-2)
     return fs._replace(X=X, y=y, L=L, Li=Li, cs=cs, m=fs.m + 1)
+
+
+def fantasy_reset(fs: FantasyState) -> FantasyState:
+    """Drop every fantasy (reference reset!, rbs.jl:476-480): the rows of L
+    and Li that fantasies wrote go back to the identity (the padding
+    invariant); the stale X, y and cs rows are masked by the active count."""
+    return fs._replace(L=_identity_rows_from(fs.L, fs.n_base),
+                       Li=_identity_rows_from(fs.Li, fs.n_base), m=0)

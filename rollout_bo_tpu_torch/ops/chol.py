@@ -18,6 +18,10 @@ import torch
 __all__ = [
     "active_mask",
     "masked_cholesky",
+    "solve_lower",
+    "solve_upper",
+    "cho_solve_padded",
+    "chol_append_row",
     "tri_inv_padded",
     "psd_apply",
     "chol_append_row_with_inv",
@@ -51,6 +55,50 @@ def masked_cholesky(K, n, *, nan_if_not_pd: bool = False):
     return torch.where((info != 0)[..., None, None], torch.nan, L)
 
 
+def solve_lower(L, b):
+    """z with L z = b, for identity-padded L (..., cap, cap) and a
+    zero-padded vector b (..., cap); z is zero-padded too."""
+    return torch.linalg.solve_triangular(L, b[..., None], upper=False)[..., 0]
+
+
+def solve_upper(L, b):
+    """z with L^T z = b, for identity-padded L and a zero-padded vector b."""
+    return torch.linalg.solve_triangular(L.transpose(-1, -2), b[..., None], upper=True)[..., 0]
+
+
+def cho_solve_padded(L, b):
+    """(L L^T)^{-1} b for identity-padded L and a zero-padded vector b."""
+    return solve_upper(L, solve_lower(L, b))
+
+
+def _schur_row(l21, kdiag):
+    """l22 = sqrt(kdiag - ||l21||^2), floored at 1e-6 (1e-12 under the root)."""
+    return torch.sqrt(torch.clamp(kdiag - torch.sum(l21 * l21, dim=-1), min=1e-12))
+
+
+def _set_row(M, head, diag, n):
+    """M with row n replaced by [head[:n], diag, 0 ...] (per lane)."""
+    cols = torch.arange(M.shape[-1], device=M.device)
+    nn = n[..., None]
+    zero = torch.zeros((), dtype=M.dtype, device=M.device)
+    row = torch.where(cols < nn, head, torch.where(cols == nn, diag[..., None], zero))
+    return torch.where(cols[:, None] == nn[..., None], row[..., None, :], M)
+
+
+def chol_append_row(L, kvec, kdiag, n):
+    """Append one observation at row n of an identity-padded factor L, by a
+    triangular solve (reference radial_basis_surrogates.jl:186-204):
+
+        l21 = L^{-1} kvec_active,   l22 = sqrt(kdiag - ||l21||^2).
+
+    kvec (..., cap) is the new covariance column (entries from n on are
+    ignored), kdiag the new diagonal entry (psi(0) + noise)."""
+    n = torch.as_tensor(n, device=L.device)
+    cols = torch.arange(L.shape[-1], device=L.device)
+    l21 = solve_lower(L, kvec * (cols < n[..., None]).to(L.dtype))
+    return _set_row(L, l21, _schur_row(l21, kdiag), n)
+
+
 def tri_inv_padded(L):
     """Inverse of an identity-padded lower-triangular factor; the padding
     is preserved (blockdiag(L_a, I)^{-1} = blockdiag(L_a^{-1}, I))."""
@@ -73,24 +121,11 @@ def chol_append_row_with_inv(L, Li, kvec, kdiag, n):
 
         Li_new[n, :n] = -(l21^T Li)/l22,  Li_new[n, n] = 1/l22.
     """
-    cap = L.shape[-1]
     n = torch.as_tensor(n, device=L.device)
-    cols = torch.arange(cap, device=L.device)
-    nn = n[..., None]
-    b = kvec * (cols < nn).to(L.dtype)
+    cols = torch.arange(L.shape[-1], device=L.device)
+    b = kvec * (cols < n[..., None]).to(L.dtype)
     l21 = (Li @ b[..., None])[..., 0]
-    l22 = torch.sqrt(torch.clamp(kdiag - torch.sum(l21 * l21, dim=-1),
-                                 min=1e-12))
+    l22 = _schur_row(l21, kdiag)
     il22 = 1.0 / l22
-    zero = torch.zeros((), dtype=L.dtype, device=L.device)
-
-    at_row = (cols[:, None] == nn[..., None])          # (..., cap, 1)
-    new_row_L = torch.where(cols < nn, l21,
-                            torch.where(cols == nn, l22[..., None], zero))
-    L_new = torch.where(at_row, new_row_L[..., None, :], L)
-
     li_row = -(l21[..., None, :] @ Li)[..., 0, :] * il22[..., None]
-    new_row_Li = torch.where(cols < nn, li_row,
-                             torch.where(cols == nn, il22[..., None], zero))
-    Li_new = torch.where(at_row, new_row_Li[..., None, :], Li)
-    return L_new, Li_new
+    return _set_row(L, l21, l22, n), _set_row(Li, li_row, il22, n)

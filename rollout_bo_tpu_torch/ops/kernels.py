@@ -33,6 +33,10 @@ __all__ = [
     "eval_KXX",
     "eval_KxX",
     "eval_grad_KxX",
+    "eval_dKXX",
+    "eval_dKxX",
+    "eval_dgrad_KxX",
+    "eval_Dtheta_KXX",
 ]
 
 _EPS = 1e-14
@@ -251,3 +255,40 @@ def eval_KxX(k: RBFKernel, x, X):
 def eval_grad_KxX(k: RBFKernel, x, X):
     """d/dx k(x, X): (..., N, d) (reference eval_∇KxX, transposed)."""
     return kernel_grad(k, x[..., None, :] - X)
+
+
+# --------------------------------------------------------------------------
+# Directional derivatives under perturbations of the data and of theta
+# --------------------------------------------------------------------------
+
+
+def eval_dKXX(k: RBFKernel, X, dX):
+    """Directional derivative of K(X, X) for perturbations dX (..., N, d)
+    of the points (reference eval_δKXX, radial_basis_functions.jl:210-228):
+    grad k(X_i - X_j) . (dX_i - dX_j); 0 on the diagonal."""
+    M = torch.sum(kernel_grad(k, X[..., :, None, :] - X[..., None, :, :])
+                  * (dX[..., :, None, :] - dX[..., None, :, :]), dim=-1)
+    eye = torch.eye(X.shape[-2], dtype=torch.bool, device=X.device)
+    return torch.where(eye, 0.0, M)
+
+
+def eval_dKxX(k: RBFKernel, x, X, dX):
+    """Directional derivative of k(x, X) (..., N) when only X moves by dX
+    (reference eval_δKxX, radial_basis_functions.jl:230-245)."""
+    return torch.sum(kernel_grad(k, x[..., None, :] - X) * -dX, dim=-1)
+
+
+def eval_dgrad_KxX(k: RBFKernel, x, X, dX):
+    """Directional derivative of grad_x k(x, X) (..., N, d) when only X
+    moves by dX (reference eval_δ∇KxX, radial_basis_functions.jl:247-262)."""
+    return (kernel_hess(k, x[..., None, :] - X) @ -dX[..., None])[..., 0]
+
+
+def eval_Dtheta_KXX(k: RBFKernel, X, dtheta):
+    """Directional derivative of K(X, X) (no noise term) in the kernel
+    hyperparameters, along dtheta (reference eval_Dθ_KXX,
+    radial_basis_functions.jl:264-284): a forward-mode derivative of the
+    profile at every pairwise distance (the diagonal's is at rho = 0)."""
+    rho = _safe_norm(X[..., :, None, :] - X[..., None, :, :])
+    dtheta = torch.as_tensor(dtheta, dtype=k.theta.dtype, device=k.theta.device)
+    return torch.func.jvp(lambda th: _profile(k.kind, rho, th, 0), (k.theta,), (dtheta,))[1]

@@ -26,6 +26,8 @@ from rollout_bo_tpu_torch.rollout.mc import (
 from rollout_bo_tpu_torch.rollout.outer import (
     deterministic_solve,
     deterministic_solve_batch,
+    stochastic_solve,
+    stochastic_solve_batch,
     stochastic_solve_fused,
 )
 from rollout_bo_tpu_torch.rollout.solvers import newton_solve_batch

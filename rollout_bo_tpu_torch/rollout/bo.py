@@ -31,6 +31,7 @@ from rollout_bo_tpu_torch.models.decision_rules import EI, DecisionRule, LogEI
 from rollout_bo_tpu_torch.models.testfns import TestFunction
 from rollout_bo_tpu_torch.ops import kernels as kern
 from rollout_bo_tpu_torch.ops import qmc
+from rollout_bo_tpu_torch.parallel import mesh as mesh_mod
 from rollout_bo_tpu_torch.rollout import outer as outer_mod
 from rollout_bo_tpu_torch.rollout import solvers
 from rollout_bo_tpu_torch.rollout.trajectory import TrajectoryParams
@@ -66,11 +67,12 @@ def _synchronize(device: torch.device) -> None:
 
 class _Trial:
     """What both loops share: the initial design and surrogate, the metric
-    arrays, the snapshot and the observe step."""
+    arrays, the snapshot and the observe step. Only a `lead` trial writes
+    snapshots (rank 0 of a mesh; every rank reads them)."""
 
     def __init__(self, testfn, *, budget, n_init, num_starts, seed, kernel, noise,
                  kernel_lbs, kernel_ubs, mle_every, dtype, device, x_init,
-                 checkpoint_path, checkpoint_every):
+                 checkpoint_path, checkpoint_every, lead=True):
         self.testfn = testfn
         self.device = torch.device(device)
         self.rng = np.random.default_rng(seed)
@@ -95,6 +97,7 @@ class _Trial:
         self.X_all = [np.asarray(x) for x in x_init]
         self.y_all = list(map(float, y_init))
         self.checkpoint_path, self.checkpoint_every = checkpoint_path, checkpoint_every
+        self.lead = lead
         self.start = 0
         if checkpoint_path is not None and os.path.exists(
                 checkpoint_path if checkpoint_path.endswith(".npz")
@@ -124,7 +127,8 @@ class _Trial:
         self.X_all.append(xy[:-1])
         self.y_all.append(float(xy[-1]))
         self.min_obs[b] = min(self.y_all)
-        if self.checkpoint_path is not None and (b + 1) % self.checkpoint_every == 0:
+        if (self.lead and self.checkpoint_path is not None
+                and (b + 1) % self.checkpoint_every == 0):
             ckpt.save_bo_checkpoint(
                 self.checkpoint_path, self.state, iteration=b + 1,
                 metrics=dict(gaps=self.gaps, simple_regrets=self.regrets,
@@ -281,6 +285,7 @@ def run_nonmyopic_bo(
     ghq_nodes: int = 8,
     checkpoint_path: str | None = None,
     checkpoint_every: int = 5,
+    mesh=None,
 ) -> MyopicBOResult:
     """Non-myopic (rollout-EI) BO trial.
 
@@ -298,18 +303,28 @@ def run_nonmyopic_bo(
     (nonmyopic_bayesopt.jl:63-66, utils.jl:267-306). Otherwise the outer
     solver is `outer.stochastic_solve_fused`. `times[b]` is the wall time
     of the acquisition (fallback included), synchronized with the device.
+
+    `mesh` (`parallel.mesh.Mesh`; every rank of it runs this call): the
+    restarts are cut to `num_restarts` (the two near-boundary points are
+    dropped, so that the mesh's 'restarts' axis can divide them, as in the
+    JAX package) and split over that axis, the trajectories over its 'mc'
+    axis; the Gauss-Hermite solve splits its restarts the same way. After
+    every observation (and MLE) the surrogate is replicated from rank 0, so
+    that rounding cannot part the ranks, and a fallback's point is rank 0's.
+    Every rank returns the trial; rank 0's is the one to record.
     """
     rule = rule or EI()
     t = _Trial(testfn, budget=budget, n_init=n_init, num_starts=num_starts, seed=seed,
                kernel=kernel, noise=noise, kernel_lbs=kernel_lbs, kernel_ubs=kernel_ubs,
                mle_every=mle_every, dtype=dtype, device=device, x_init=x_init,
-               checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every)
+               checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every,
+               lead=mesh is None or mesh.rank == 0)
     theta = t.as_t(theta)
     make_rnstream = _rnstream_maker(t, mc_iters, use_low_discrepancy, log10_parity)
     acquire = _rollout_acquirer(t, rule, theta, deterministic=deterministic,
                                 ghq_nodes=ghq_nodes, sgd_iters=sgd_iters, lr=lr,
                                 solver_iterations=solver_iterations, draw_mode=draw_mode,
-                                log10_parity=log10_parity)
+                                log10_parity=log10_parity, mesh=mesh)
     fallback = _make_exploration_fallback(rule, theta, t.lbs, t.ubs, t.xstarts,
                                           solver_iterations)
     if not use_low_discrepancy:
@@ -324,14 +339,20 @@ def run_nonmyopic_bo(
     # the full reference batch: num_restarts Sobol points + the two
     # eps-interior near-boundary points (utils.jl:97-106)
     restarts = t.as_t(qmc.generate_batch(num_restarts, testfn.lbs, testfn.ubs))
+    if mesh is not None:
+        restarts = restarts[:num_restarts]
     for b in range(t.start, budget):
         rnstream = make_rnstream(horizon)
         t0 = time.perf_counter()
         xnext, sga_iterations[b], fallbacks[b] = _acquire_or_fall_back(
             acquire, fallback, t.state, rnstream, restarts, horizon)
+        if mesh is not None and fallbacks[b]:
+            xnext = mesh_mod.broadcast(xnext, mesh)
         _synchronize(t.device)
         t.times[b] = time.perf_counter() - t0
         t.observe(b, xnext, mle=True)
+        if mesh is not None:
+            t.state = mesh_mod.replicate(t.state, mesh)
     return t.result(sga_iterations=sga_iterations, fallbacks=fallbacks)
 
 
@@ -354,10 +375,11 @@ def _rnstream_maker(t: _Trial, mc_iters, use_low_discrepancy, log10_parity):
 
 
 def _rollout_acquirer(t: _Trial, rule, theta, *, deterministic, ghq_nodes, sgd_iters,
-                      lr, solver_iterations, draw_mode, log10_parity):
+                      lr, solver_iterations, draw_mode, log10_parity, mesh=None):
     """acquire(state, rnstream, restarts, h) -> (x, value, SGA iterations or
     -1) of the h-step rollout acquisition: the stochastic solver, or the
-    Gauss-Hermite one with `deterministic` (which ignores the stream)."""
+    Gauss-Hermite one with `deterministic` (which ignores the stream); on
+    the ranks of `mesh` if one is given."""
 
     def acquire(state, rnstream, restarts, h):
         if deterministic:
@@ -365,7 +387,7 @@ def _rollout_acquirer(t: _Trial, rule, theta, *, deterministic, ghq_nodes, sgd_i
                 state, theta, t.lbs, t.ubs, t.xstarts, restarts, rule,
                 horizon=h, num_nodes=ghq_nodes, max_iters=sgd_iters, lr=lr,
                 inner_iterations=solver_iterations,
-                node_scale=_ghq_node_scale(log10_parity))
+                node_scale=_ghq_node_scale(log10_parity), mesh=mesh)
             j = torch.argmax(vals)
             return xs[j], vals[j], -1
         tp = TrajectoryParams(x0=restarts, theta=theta, lbs=t.lbs, ubs=t.ubs,
@@ -373,7 +395,7 @@ def _rollout_acquirer(t: _Trial, rule, theta, *, deterministic, ghq_nodes, sgd_i
         res = outer_mod.stochastic_solve_fused(
             state, tp, rule, t.xstarts, restarts, max_iters=sgd_iters, lr=lr,
             inner_iterations=solver_iterations, draw_mode=draw_mode,
-            select_best=True)
+            select_best=True, mesh=mesh)
         return res.x, res.value, res.iterations
 
     return acquire

@@ -9,7 +9,9 @@ leaf per lane: lanes do not interact, so the sum's gradient with respect
 to a lane's leaf is that lane's own gradient.
 
 Statistics use the sample standard deviation (ddof=1), matching Julia's
-Distributions.std (rollout.jl:328-339).
+Distributions.std (rollout.jl:328-339). `simulate_trajectory_mc` also
+takes the trajectories split over the ranks of a process group (the 'mc'
+axis of `parallel.mesh`): its statistics are then taken over all of them.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 
 from rollout_bo_tpu_torch.models import fantasy as fant
 from rollout_bo_tpu_torch.models import surrogate as sg
@@ -42,6 +45,27 @@ def _stats(v, dim):
     if v.shape[dim] > 1:
         return mu, torch.std(v, dim=dim, correction=1)
     return mu, torch.zeros_like(mu)
+
+
+def _group_stats(vs, group):
+    """(mean, ddof-1 std) over the last axis of each v in vs, across the
+    ranks of `group`, each holding an equal share of the M trajectories:
+    two passes, one all-reduce each (the sums, then the squared deviations
+    from the mean over all M), every v packed into one buffer."""
+    m = vs[0].shape[-1] * dist.get_world_size(group)
+    shapes = [v.shape[:-1] for v in vs]
+    sizes = [v[..., 0].numel() for v in vs]
+
+    def summed(parts):
+        buf = torch.cat([p.reshape(-1) for p in parts])
+        dist.all_reduce(buf, group=group)
+        return [b.reshape(s) for b, s in zip(buf.split(sizes), shapes)]
+
+    means = [s / m for s in summed([v.sum(dim=-1) for v in vs])]
+    if m == 1:
+        return [(mu, torch.zeros_like(mu)) for mu in means]
+    sq = summed([((v - mu[..., None]) ** 2).sum(dim=-1) for v, mu in zip(vs, means)])
+    return [(mu, torch.sqrt(s / (m - 1))) for mu, s in zip(means, sq)]
 
 
 def _lane_rewards(state, x0, theta, lbs, ubs, xstarts, rule, draw_fn, horizon,
@@ -82,7 +106,8 @@ def simulate_trajectory_mc(state: sg.SurrogateState, tp: TrajectoryParams,
                            rule: DecisionRule, xstarts, *,
                            with_gradients: bool = True,
                            iterations: int = 12,
-                           draw_mode: str = "reparam") -> ExpectedTrajectoryOutput:
+                           draw_mode: str = "reparam",
+                           group=None) -> ExpectedTrajectoryOutput:
     """MC rollout-acquisition estimate at every tp.x0 (..., d) (reference
     rollout.jl:279-340).
 
@@ -91,11 +116,23 @@ def simulate_trajectory_mc(state: sg.SurrogateState, tp: TrajectoryParams,
     draw_mode: "reparam" (exact pathwise gradients, default) or
     "sample_path" (reference coupling); see
     `observables.stochastic_observable`.
+
+    `group`: a process group whose ranks each hold an equal share of the
+    trajectories in tp.rnstream; the statistics are then over all of them
+    (every rank gets the same), from two all-reduces.
     """
     r, gx, gth = _lane_rewards(
         state, tp.x0, tp.theta, tp.lbs, tp.ubs, xstarts, rule,
         obs.stochastic_observable(tp.rnstream, mode=draw_mode), tp.horizon,
         tp.mc_iters, with_gradients=with_gradients, iterations=iterations)
+    if group is not None:
+        if not with_gradients:
+            ((mu, smu),) = _group_stats([r], group)
+            return ExpectedTrajectoryOutput(mu=mu, std_mu=smu)
+        (mu, smu), (gxm, sgx), (gthm, sgth) = _group_stats(
+            [r, gx.transpose(-1, -2), gth.transpose(-1, -2)], group)
+        return ExpectedTrajectoryOutput(mu=mu, std_mu=smu, grad_x=gxm, std_grad_x=sgx,
+                                        grad_theta=gthm, std_grad_theta=sgth)
     mu, smu = _stats(r, -1)
     if not with_gradients:
         return ExpectedTrajectoryOutput(mu=mu, std_mu=smu)

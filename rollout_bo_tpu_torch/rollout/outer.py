@@ -7,9 +7,15 @@ restart is simulated in lock-step each iteration, a restart freezes when
 the eswavs early-stopping statistic fires, and the loop ends when all have
 stopped. The JAX package's stepped and scanned variants exist to hide
 host<->TPU dispatch cost and are not ported; here the loop is a Python
-loop with a host check of "all stopped" after each iteration. The
-deterministic (Gauss-Hermite) solver runs its restarts in lock-step the
-same way, each with its own stop mask.
+loop with a host check of "all stopped" after each iteration;
+`stochastic_solve` (one start) and `stochastic_solve_batch` (no winner
+selection) are the same loop. The deterministic (Gauss-Hermite) solver
+runs its restarts in lock-step the same way, each with its own stop mask.
+
+With a `mesh` (`parallel.mesh`), a solve splits its restarts over the
+ranks of the 'restarts' axis and, for `stochastic_solve_fused`, the
+trajectories over those of the 'mc' axis, and gathers the results: the
+placements of the JAX package's `parallel/sharded.py`.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch
 
 from rollout_bo_tpu_torch.models import surrogate as sg
 from rollout_bo_tpu_torch.models.decision_rules import DecisionRule
+from rollout_bo_tpu_torch.parallel import mesh as mesh_mod
 from rollout_bo_tpu_torch.rollout import mc as mc_mod
 from rollout_bo_tpu_torch.rollout.trajectory import TrajectoryParams
 
@@ -27,8 +34,11 @@ __all__ = [
     "AdamState",
     "adam_init",
     "adam_update",
+    "sga_update",
     "eswavs",
     "FusedSolve",
+    "stochastic_solve",
+    "stochastic_solve_batch",
     "stochastic_solve_fused",
     "deterministic_solve",
     "deterministic_solve_batch",
@@ -55,6 +65,11 @@ def adam_update(state: AdamState, x, grad, *, lr=0.01, b1=0.9, b2=0.999, eps=1e-
     return AdamState(m, v, t), x + lr * mhat / (torch.sqrt(vhat) + eps)
 
 
+def sga_update(x, grad, *, lr=0.01):
+    """Plain SGA ascent step (reference optimizers.jl:6-22)."""
+    return x + lr * grad
+
+
 def eswavs(grad, var_grad, sample_size: int):
     """Early Stopping Without A Validation Set (Mahsereci et al.; reference
     utils.jl:114-123) over the last axis. True => stop.
@@ -75,43 +90,136 @@ class FusedSolve(NamedTuple):
     iterations: int        # SGA iterations run
 
 
+def _sga(simulate, xs, lbs, ubs, sample_size, *, max_iters, lr, mesh):
+    """The SGA loop from the restarts xs (R, d): each iteration simulates
+    every restart (gradients included), freezes those whose eswavs
+    statistic fires and takes an Adam step clipped to the box for the
+    others. It stops after `max_iters`, or once every restart has stopped:
+    on every rank of `mesh`, which sums the active restarts over the world
+    (the JAX program's all-reduce(AND) of its all-stopped predicate).
+    Returns (xs, iterations run)."""
+    opt = adam_init(xs)
+    done = torch.zeros(xs.shape[:-1], dtype=torch.bool, device=xs.device)
+    it = 0
+    while it < max_iters:
+        eto = simulate(xs, True)
+        done = done | eswavs(eto.grad_x, eto.std_grad_x**2, sample_size)
+        opt, xs_new = adam_update(opt, xs, eto.grad_x, lr=lr)
+        xs_new = torch.clamp(xs_new, lbs, ubs)
+        xs = torch.where(done[..., None], xs, xs_new)
+        it += 1
+        if mesh is None:
+            if bool(done.all()):
+                break
+        elif int(mesh_mod.all_reduce_sum(torch.count_nonzero(~done).reshape(1), mesh)) == 0:
+            break
+    return xs, it
+
+
+def _gather_restarts(xs, vals, mesh):
+    """(xs, vals) of every restart on every rank of `mesh`, in the order of
+    the restarts before `shard_leading` split them (one all-reduce)."""
+    both = mesh_mod.gather_leading(torch.cat([xs, vals[:, None]], dim=-1), mesh, "restarts")
+    return both[:, :-1], both[:, -1]
+
+
+def _multi_restart(state, tp, rule, xstarts, restarts, *, max_iters, lr, inner_iterations,
+                   draw_mode, mesh, shard_stream):
+    """SGA from every restart, then a value-only evaluation at the final
+    points: (xs (R, d), values (R,), iterations). With `mesh`, this rank
+    takes its block of the restarts along 'restarts' and, with
+    `shard_stream`, its block of the trajectories along 'mc' (whose ranks
+    then reduce the statistics), and the results are gathered."""
+    sample_size = tp.mc_iters
+    group = None
+    if mesh is not None:
+        restarts = mesh_mod.shard_leading(restarts, mesh, "restarts")
+        if shard_stream:
+            tp = tp._replace(rnstream=mesh_mod.shard_leading(tp.rnstream, mesh, "mc"))
+            group = mesh.group("mc")
+
+    def simulate(xs, with_gradients):
+        return mc_mod.simulate_trajectory_mc(
+            state, tp._replace(x0=xs), rule, xstarts, with_gradients=with_gradients,
+            iterations=inner_iterations, draw_mode=draw_mode, group=group)
+
+    xs, it = _sga(simulate, restarts, tp.lbs, tp.ubs, sample_size, max_iters=max_iters,
+                  lr=lr, mesh=mesh)
+    vals = simulate(xs, False).mu
+    if mesh is not None:
+        xs, vals = _gather_restarts(xs, vals, mesh)
+    return xs, vals, it
+
+
 def stochastic_solve_fused(state: sg.SurrogateState, tp: TrajectoryParams,
                            rule: DecisionRule, xstarts, restarts, *,
                            max_iters: int = 50, lr: float = 0.01,
                            inner_iterations: int = 12,
                            draw_mode: str = "reparam",
-                           select_best: bool = False) -> FusedSolve:
+                           select_best: bool = False, mesh=None) -> FusedSolve:
     """Multi-restart SGA of the MC rollout acquisition from `restarts` (R, d).
 
     Each iteration simulates all restarts (gradients included), freezes the
     restarts whose eswavs statistic fires, and takes an Adam step clipped
     to the box for the others; it stops after `max_iters` or once every
     restart has stopped. A value-only evaluation then scores the final
-    points; with `select_best` the argmax restart is returned.
+    points; with `select_best` the argmax restart is returned (the first
+    of tied ones, as `jnp.argmax`).
+
+    `mesh` (`parallel.mesh.Mesh`): the restarts split over its 'restarts'
+    axis and the trajectories of tp.rnstream over its 'mc' axis, as the JAX
+    package's `sharded_stochastic_solve_fused` places them. Every rank
+    simulates every iteration until all restarts everywhere have stopped,
+    and returns the same result.
     """
-    xs = restarts
-    opt = adam_init(xs)
-    done = torch.zeros(xs.shape[:-1], dtype=torch.bool, device=xs.device)
-    sample_size = tp.mc_iters
-    it = 0
-    while it < max_iters:
-        eto = mc_mod.simulate_trajectory_mc(
-            state, tp._replace(x0=xs), rule, xstarts,
-            with_gradients=True, iterations=inner_iterations, draw_mode=draw_mode)
-        done = done | eswavs(eto.grad_x, eto.std_grad_x**2, sample_size)
-        opt, xs_new = adam_update(opt, xs, eto.grad_x, lr=lr)
-        xs_new = torch.clamp(xs_new, tp.lbs, tp.ubs)
-        xs = torch.where(done[..., None], xs, xs_new)
-        it += 1
-        if bool(done.all()):
-            break
-    vals = mc_mod.simulate_trajectory_mc(
-        state, tp._replace(x0=xs), rule, xstarts,
-        with_gradients=False, iterations=inner_iterations, draw_mode=draw_mode).mu
+    xs, vals, it = _multi_restart(
+        state, tp, rule, xstarts, restarts, max_iters=max_iters, lr=lr,
+        inner_iterations=inner_iterations, draw_mode=draw_mode, mesh=mesh,
+        shard_stream=True)
     if select_best:
         j = torch.argmax(vals)
         return FusedSolve(xs[j], vals[j], it)
     return FusedSolve(xs, vals, it)
+
+
+def stochastic_solve_batch(state: sg.SurrogateState, tp: TrajectoryParams,
+                           rule: DecisionRule, xstarts, starts, *,
+                           max_iters: int = 50, lr: float = 0.01,
+                           inner_iterations: int = 12, draw_mode: str = "reparam",
+                           mesh=None):
+    """`stochastic_solve` from every row of starts (R, d): the fused solve
+    without `select_best`. The restarts run in lock-step, each frozen once
+    its eswavs statistic fires, which gives the points of the JAX package's
+    per-restart `while_loop`s under `vmap`. Returns (xs (R, d), values
+    (R,)), the values at the final points.
+
+    `mesh`: the restarts split over its 'restarts' axis; every rank
+    simulates the whole stream (the JAX `sharded_stochastic_solve_batch`
+    replicates it)."""
+    xs, vals, _ = _multi_restart(
+        state, tp, rule, xstarts, starts, max_iters=max_iters, lr=lr,
+        inner_iterations=inner_iterations, draw_mode=draw_mode, mesh=mesh,
+        shard_stream=False)
+    return xs, vals
+
+
+def stochastic_solve(state: sg.SurrogateState, tp: TrajectoryParams, rule: DecisionRule,
+                     xstarts, start, *, max_iters: int = 50, lr: float = 0.01,
+                     inner_iterations: int = 12, draw_mode: str = "reparam"):
+    """SGA (Adam) ascent of the MC rollout acquisition from one start (d,)
+    (reference stochastic_solve, utils.jl:235-265): simulate -> eswavs stop
+    -> Adam step clipped to the box, until the statistic fires or after
+    `max_iters`. Returns (x_final, ExpectedTrajectoryOutput at x_final,
+    gradients included)."""
+
+    def simulate(x, with_gradients):
+        return mc_mod.simulate_trajectory_mc(
+            state, tp._replace(x0=x), rule, xstarts, with_gradients=with_gradients,
+            iterations=inner_iterations, draw_mode=draw_mode)
+
+    xs, _ = _sga(simulate, start[None], tp.lbs, tp.ubs, tp.mc_iters, max_iters=max_iters,
+                 lr=lr, mesh=None)
+    return xs[0], simulate(xs[0], True)
 
 
 def _deterministic_ascent(simulate, xs, lbs, ubs, *, max_iters, lr, grad_tol):
@@ -168,12 +276,22 @@ def deterministic_solve_batch(state: sg.SurrogateState, theta, lbs, ubs, xstarts
                               starts, rule: DecisionRule, *, horizon: int,
                               num_nodes: int = 8, max_iters: int = 50,
                               lr: float = 0.01, grad_tol: float = 1e-4,
-                              inner_iterations: int = 12, node_scale: float = 1.0):
+                              inner_iterations: int = 12, node_scale: float = 1.0,
+                              mesh=None):
     """`deterministic_solve` from every row of starts (R, d) in lock-step.
-    Returns (xs (R, d), values (R,)), the values at the final points."""
+    Returns (xs (R, d), values (R,)), the values at the final points.
+    `mesh`: the restarts split over its 'restarts' axis, the results
+    gathered (no collective inside the ascent: its restarts are
+    independent)."""
     simulate, as_t, lbs, ubs = _ghq_simulator(
         state, theta, lbs, ubs, xstarts, rule, horizon=horizon, num_nodes=num_nodes,
         inner_iterations=inner_iterations, node_scale=node_scale)
-    xs = _deterministic_ascent(simulate, as_t(starts), lbs, ubs, max_iters=max_iters,
+    starts = as_t(starts)
+    if mesh is not None:
+        starts = mesh_mod.shard_leading(starts, mesh, "restarts")
+    xs = _deterministic_ascent(simulate, starts, lbs, ubs, max_iters=max_iters,
                                lr=lr, grad_tol=grad_tol)
-    return xs, simulate(xs, False).mu
+    vals = simulate(xs, False).mu
+    if mesh is not None:
+        xs, vals = _gather_restarts(xs, vals, mesh)
+    return xs, vals

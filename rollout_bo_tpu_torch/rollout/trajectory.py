@@ -32,6 +32,8 @@ __all__ = [
     "sample_path_draw",
     "argmax_with_ift",
     "rollout_core",
+    "rollout_trajectory",
+    "trajectory_reward",
 ]
 
 
@@ -172,3 +174,33 @@ def rollout_core(fs: fant.FantasyState, x0, theta, lbs, ubs, xstarts,
     rec = TrajectoryRecord(torch.stack(xs, dim=-2), torch.stack(ys, dim=-1),
                            torch.stack(gs, dim=-2))
     return fs, rec
+
+
+def rollout_trajectory(fs: fant.FantasyState, x0, theta, lbs, ubs, xstarts, zstream,
+                       rule: DecisionRule, *, iterations: int = 12,
+                       draw_mode: str = "reparam"):
+    """Stochastic rollout: `rollout_core` with the fixed normals zstream
+    (..., d+1, h+1), broadcast against the lanes of x0 (one trajectory per
+    lane). draw_mode: see `observables.stochastic_observable`. Returns the
+    final FantasyState and the TrajectoryRecord."""
+    from rollout_bo_tpu_torch.rollout import observables  # it imports this module
+
+    return rollout_core(fs, x0, theta, lbs, ubs, xstarts, rule,
+                        observables.stochastic_observable(zstream, mode=draw_mode),
+                        zstream.shape[-1] - 1, iterations=iterations)
+
+
+def trajectory_reward(fs: fant.FantasyState, x0, theta, lbs, ubs, xstarts, zstream,
+                      rule: DecisionRule, *, iterations: int = 12,
+                      draw_mode: str = "reparam"):
+    """Reward of the rolled-out trajectory, max(fmini - min_j y_j, 0)
+    (reference resolve(T), rollout.jl:108-111). Differentiable in x0 and
+    theta by autograd: in draw_mode="sample_path" its gradient is the
+    reference's adjoint `gradient(T)` (rollout.jl:233-277), in "reparam"
+    the exact fixed-stream pathwise gradient."""
+    fmini = base_fmini(fs)
+    _, rec = rollout_trajectory(fs, x0, theta, lbs, ubs, xstarts, zstream, rule,
+                                iterations=iterations, draw_mode=draw_mode)
+    # maximum, not clamp: a tie splits its gradient as jnp.maximum does
+    return torch.maximum(fmini - torch.amin(rec.ys, dim=-1),
+                         torch.zeros((), dtype=rec.ys.dtype, device=rec.ys.device))

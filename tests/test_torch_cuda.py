@@ -1,4 +1,6 @@
-"""PyTorch port on the card: the CUDA Newton lane kernel vs its plain version.
+"""PyTorch port on the card: the CUDA Newton lane kernel vs its plain version,
+and the sharded path (ranks of torch.distributed that each launch the
+kernel on their share of the lanes) vs the same solve with no mesh.
 
 Every test here is marked `cuda` and skips without a CUDA device (the
 kernel has no CPU mode). This file imports no jax, so it also runs on a
@@ -326,3 +328,69 @@ def test_maximize_hot_never_launches_the_kernel_for_a_cost_aware_rule(dev):
                                 iterations=6)
     torch.cuda.synchronize()
     assert nl.LAUNCHES == before + 1                  # the plain rule takes the kernel
+
+
+# --------------------------------------------------------------------------
+# the sharded path on the card: ranks of torch.distributed, each launching
+# the kernel on its share of the lanes (tests/torch_parallel_ranks.py)
+# --------------------------------------------------------------------------
+
+
+def _sharded_vs_unsharded(dev, tmp_path, monkeypatch, world, backend, shapes):
+    """The fused solve of the worker's problem (float64, h 1) on `world`
+    ranks at each mesh shape, against the same solve with no mesh on the
+    card, its simulate calls split into the blocks of restarts and
+    trajectories that the ranks launch (`torch_parallel_ranks.blocked`):
+    equal to 1e-12, and per rank h x (SGA iterations + 1) launches.
+
+    The blocks are needed on the card: cuBLAS picks its batched-GEMM
+    kernel by the batch, so W = Li^T Li (solvers.py) rounds differently at
+    64 and at 128 lanes (2.4e-11 apart on this problem, measured on an
+    H100). That is enough to move the multistart Newton solve's discrete
+    choices (a backtracking step taken or not, one of two nearly tied
+    local maxima), and one trajectory's reward with them: against the
+    unblocked 128-lane solve a value moved by 6e-3 relative. On the CPU
+    the lanes round alike in any batch (test_torch_parallel.py holds the
+    sharded solves to the unblocked one)."""
+    import torch_parallel_ranks as ranks
+
+    from rollout_bo_tpu_torch.rollout import mc as mc_mod
+
+    p, kw = ranks.worker_fields(), dict(max_iters=4, inner_iterations=10)
+    problems = {f"m{r}x{m}": ("fused", (r, m), p, kw) for r, m in shapes}
+    out = ranks.Ranks(ranks.solve_case, world, str(tmp_path), backend=backend,
+                      problems=problems, device="cuda").result()
+    simulate = mc_mod.simulate_trajectory_mc
+    for name, (_, (r, m), _, _) in problems.items():
+        monkeypatch.setattr(mc_mod, "simulate_trajectory_mc", ranks.blocked(simulate, r, m))
+        before = nl.LAUNCHES
+        ref = ranks.unsharded_solve("fused", p, kw, device=dev)
+        assert nl.LAUNCHES - before == r * m * (ref.iterations + 1)
+        np.testing.assert_allclose(out[f"{name}_xs"], ref.x.cpu().numpy(), rtol=1e-12,
+                                   atol=1e-14, err_msg=name)
+        np.testing.assert_allclose(out[f"{name}_vals"], ref.value.cpu().numpy(), rtol=1e-12,
+                                   atol=1e-14, err_msg=name)
+        assert int(out[f"{name}_it"]) == ref.iterations
+        assert out[f"{name}_launches"].tolist() == [ref.iterations + 1] * world, name
+
+
+def test_sharded_fused_solve_on_an_nccl_group_of_one(dev, tmp_path, monkeypatch):
+    _sharded_vs_unsharded(dev, tmp_path, monkeypatch, 1, "nccl", [(1, 1)])
+
+
+def test_sharded_fused_solve_on_two_gloo_ranks_sharing_the_card(dev, tmp_path, monkeypatch):
+    _sharded_vs_unsharded(dev, tmp_path, monkeypatch, 2, "gloo", [(2, 1), (1, 2)])
+
+
+def test_sharded_fused_solve_on_two_nccl_ranks_on_two_cards(dev, tmp_path, monkeypatch):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: NCCL runs one rank per card")
+    _sharded_vs_unsharded(dev, tmp_path, monkeypatch, 2, "nccl", [(2, 1), (1, 2)])
+
+
+def test_nccl_refuses_two_ranks_on_one_card(dev):
+    from rollout_bo_tpu_torch.parallel import mesh as mesh_mod
+
+    mesh_mod.check_backend("nccl", torch.cuda.device_count())
+    with pytest.raises(RuntimeError, match="--backend gloo"):
+        mesh_mod.check_backend("nccl", torch.cuda.device_count() + 1)

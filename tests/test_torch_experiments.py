@@ -103,18 +103,20 @@ def test_nonmyopic_cli_deterministic_solve_and_float32(tmp_path):
 
 
 def test_flags_defaults_match_the_jax_clis():
-    """Same flags and defaults; the port adds --device only."""
+    """Same flags and defaults; the port adds --device, and the non-myopic
+    CLI the ranks' --backend and --init-method."""
     for mod, jmod, required in (
             (myopic, jmyopic, ["--function-name", "f"]),
             (nonmyopic, jnonmyopic, ["--function-name", "f", "--output-dir", "o"])):
         mine, theirs = vars(mod.parse_args(required)), vars(jmod.parse_args(required))
         assert mine.pop("device") == "cuda"
+        if mod is nonmyopic:
+            assert (mine.pop("backend"), mine.pop("init_method")) == ("nccl", None)
         assert mine == theirs
 
 
 @pytest.mark.parametrize("flag,value,item", [("--outer-solver", "scanned", "16"),
-                                             ("--outer-solver", "batch", "16"),
-                                             ("--nworkers", "4", "15")])
+                                             ("--outer-solver", "batch", "16")])
 def test_nonmyopic_cli_rejects_what_is_not_ported(tmp_path, flag, value, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP\\s+item {item}"):
         nonmyopic.main(["--function-name", "gramacylee", "--output-dir", str(tmp_path),
