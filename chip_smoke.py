@@ -107,9 +107,28 @@ Run from the repository root on a machine with one NVIDIA Hopper card
    at its widths (hartmann6d, h 2, 200 trajectories, 8 restarts, 16 + 2
    starts, MLE on, float64, budget 3: depth only): the CSVs, and per rank
    launches = 2 x sum(SGA iterations + 1) + fallbacks. With two or more
-   cards also the multi-process worker's `--bench-mc` over NCCL.
+   cards also the multi-process worker's `--bench-mc` over NCCL;
+11. the notebook-analog examples (`rollout_bo_tpu_torch/examples/`) at
+   their default widths, each timed with its kernel launches and its own
+   gates: derivs_ei (the EI derivative chain within 1e-5 of centered FD;
+   no launch), fantasy_conditioning (rank-1 condition against a refit,
+   CUDA events; the reset to 1e-12), laplace_approximation (100 x 100
+   episodes, float32, peak device memory), overview (15 launches: 1 per
+   myopic BO iteration), explanatory (21 points, 64 trajectories, h 2: 3
+   simulate calls of h launches each; the same sweep on the CPU route in
+   the same phase, the card's count of rows that agree with FD within 2 of
+   the CPU route's) and rollout_bo (the explicit dual back-substitution
+   within 1e-7 of autograd on an improving sample path with interior inner
+   solves). Then each FD problem of tests/test_torch_fd.py (MC h 1 and 2,
+   MC 2-D, the theta gradient, Gauss-Hermite, the ground-truth observable
+   and the explicit adjoint on it) through the kernel in float64, at the
+   JAX tests' eps and tolerances: the gradient, the JAX test's one centered
+   difference and the mean of 11 of them at points 1e-7 apart, each with
+   its ratio and verdict, and the function's rounding floor; the mean is
+   the gate (one difference's noise at MC h 2 is as large as the
+   tolerance).
 
-`--phases 3 5` runs only the phases named (1 and 2 always run); a partial
+`--phases 3 11` runs only the phases named (1 and 2 always run); a partial
 run prints neither of the two closing lines.
 
 It prints one JSON line describing the kernel (launches on the main path;
@@ -126,6 +145,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import csv
+import io
 import json
 import math
 import os
@@ -1220,7 +1240,160 @@ def _bench_mc_workers(tmp, card):
         + f"; on {card}")
 
 
-_PHASES = (3, 4, 5, 6, 7, 8, 9, 10)
+# --------------------------------------------------------------------------
+# phase 11: the notebook-analog examples and the FD problems on the card
+# --------------------------------------------------------------------------
+
+
+def _fd_problems():
+    """tests/test_torch_fd.py, whose `PROBLEMS` the card runs here (that file
+    imports no jax)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "test_torch_fd.py")
+    spec = importlib.util.spec_from_file_location("torch_fd_problems", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _run_example(mod, argv):
+    """mod.main(argv) with its printed lines held back: (its result, wall
+    seconds to a synchronized end, kernel launches, simulate calls), the
+    two counts set to 0 just before the run and read just after."""
+    from rollout_bo_tpu_torch.ops import newton_lanes as nl
+    from rollout_bo_tpu_torch.rollout import mc
+
+    simulate, calls = mc.simulate_trajectory_mc, []
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return simulate(*args, **kw)
+
+    torch.cuda.synchronize()
+    mc.simulate_trajectory_mc = counted
+    nl.LAUNCHES = 0
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = mod.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        mc.simulate_trajectory_mc = simulate
+    return out, time.perf_counter() - t0, nl.LAUNCHES, len(calls)
+
+
+def phase_examples(dev, card):
+    """The six examples at their default widths, each with its own gates and
+    launch identity; then the FD problems of tests/test_torch_fd.py through
+    the kernel in float64."""
+    from rollout_bo_tpu_torch.examples import (derivs_ei, explanatory, fantasy_conditioning,
+                                               laplace_approximation, overview, rollout_bo)
+    from rollout_bo_tpu_torch.ops import newton_lanes as nl
+
+    t_phase = time.perf_counter()
+    on_card = ["--device", str(dev)]
+
+    out, s, n, _ = _run_example(derivs_ei, on_card)
+    if n != 0 or not out["worst"] <= 1e-5:
+        raise AssertionError(f"derivs_ei: {n} launches, worst relative error {out['worst']}")
+    print(f"example derivs_ei: {s:.3f} s, {n} kernel launches, 17 checks, worst relative "
+          f"error against centered FD {out['worst']:.3e} (gate 1e-5)")
+
+    out, s, n, _ = _run_example(fantasy_conditioning, on_card)
+    s0, s1 = out["reset_sigmas"]
+    if n != 0 or not abs(s0 - s1) < 1e-12:
+        raise AssertionError(f"fantasy_conditioning: {n} launches, reset {s0} vs {s1}")
+    print(f"example fantasy_conditioning: {s:.3f} s, {n} kernel launches, rank-1 condition "
+          f"{out['condition_s'] * 1e3:.4f} ms against a refit {out['refit_s'] * 1e3:.4f} ms "
+          f"(CUDA events, capacity 64, n 24, d 4, h 8), reset restores sigma {s1:.6f} "
+          f"(|diff| {abs(s0 - s1):.1e}); on {card}")
+
+    out, s, n, _ = _run_example(laplace_approximation, on_card)
+    if n != 0 or not math.isfinite(out["peak_mb"]):
+        raise AssertionError(f"laplace_approximation: {n} launches, peak {out['peak_mb']}")
+    print(f"example laplace_approximation: {s:.3f} s, {n} kernel launches, "
+          f"{out['episodes']} episodes in {out['wall_s']:.4f} s "
+          f"({out['us_per_episode']:.2f} us per episode, float32), peak device memory "
+          f"{out['peak_mb']:.3f} MB of which {out['allocated_before_mb']:.3f} MB allocated "
+          f"before the sweeps, one fantasy state {out['fantasy_state_bytes']} B; on {card}")
+
+    out, s, n, _ = _run_example(overview, on_card)
+    if n != 15 or out["gaps"].shape != (15,) or not np.all(np.diff(out["gaps"]) >= 0.0):
+        raise AssertionError(f"overview: {n} kernel launches (not 1 per BO iteration of "
+                             f"15), gaps {out['gaps']}")
+    print(f"example overview: {s:.3f} s, {n} kernel launches (1 per BO iteration), "
+          f"myopic EI on gramacylee budget 15, final gap {out['final_gap']:.4f}; on {card}")
+
+    out, s, n, calls = _run_example(explanatory, on_card)
+    horizon = 2
+    if calls != 3 or n != horizon * calls:
+        raise AssertionError(f"explanatory: {n} kernel launches for {calls} simulate calls "
+                             f"(not {horizon} per call, 3 calls)")
+    cpu, s_cpu, _, _ = _run_example(explanatory, ["--device", "cpu"])
+    rows, cpu_rows = out["rows"], cpu["rows"]
+    d_alpha = float(np.abs(rows[:, 1] - cpu_rows[:, 1]).max())
+    d_grad = float(np.abs(rows[:, 2] - cpu_rows[:, 2]).max())
+    if abs(out["fd_agree"] - cpu["fd_agree"]) > 2:
+        raise AssertionError(f"explanatory: {out['fd_agree']} rows agree with FD on the "
+                             f"card, {cpu['fd_agree']} on the CPU route")
+    print(f"example explanatory: {s:.3f} s, {n} kernel launches ({calls} simulate calls x "
+          f"h {horizon}), rows agreeing with FD (|g - fd| <= 5e-3 |fd| + 5e-6): card "
+          f"{out['fd_agree']} of {len(rows)}, CPU route {cpu['fd_agree']} of "
+          f"{len(cpu_rows)} ({s_cpu:.3f} s); card vs CPU route max |d alpha| "
+          f"{d_alpha:.3e}, max |d grad| {d_grad:.3e}; max relative |adjoint - FD| over "
+          f"active rows {out['max_rel_active']:.3e}; on {card}")
+
+    out, s, n, calls = _run_example(rollout_bo, on_card)
+    (i, k), err = out["adjoint_path"], out["adjoint_rel_err"]
+    if not (out["adjoint_case3_interior"] and err <= 1e-7):
+        raise AssertionError(f"rollout_bo: dual back-substitution vs autograd, path "
+                             f"{(i, k)}, improving interior {out['adjoint_case3_interior']}, "
+                             f"relative error {err:.3e} (gate 1e-7)")
+    print(f"example rollout_bo: {s:.3f} s, {n} kernel launches over {calls} simulate calls "
+          f"and the BO loops, dual back-substitution vs autograd {err:.3e} relative "
+          f"(probe {out['probe'][i]}, z[{k}]), SGA {out['sga_iterations']} iterations, "
+          f"final gaps rollout {out['gaps_rollout'][-1]:.4f} / myopic "
+          f"{out['gaps_myopic'][-1]:.4f}, BO SGA iterations "
+          f"{out['sga_iterations_bo'].tolist()}; on {card}")
+
+    # Each problem on the card: the gradient against the JAX test's centered
+    # difference at u0 and against the mean of 11 such differences at
+    # points 1e-7 apart (`averaged_fd`), at the JAX test's eps and
+    # tolerance; beside them the function's rounding floor (`jitter`),
+    # which one difference carries as ~sqrt(2) jitter / (2 eps) of slope.
+    # The mean is the gate: at MC h 2 that noise is ~0.6% of the gradient,
+    # as large as the tolerance, and one difference passes or fails it by
+    # the floor's draw (PERF.md "PR 6").
+    fd_mod, missed = _fd_problems(), []
+    for label, problem in fd_mod.PROBLEMS.items():
+        torch.cuda.synchronize()
+        nl.LAUNCHES = 0
+        res = problem(dev)
+        torch.cuda.synchronize()
+        n = nl.LAUNCHES
+        mean_fd, floor = fd_mod.averaged_fd(res), fd_mod.jitter(res)
+        close = lambda fd: bool(np.allclose(res.grad, fd, rtol=res.rtol,  # noqa: E731
+                                            atol=res.atol))
+        ratio = lambda fd: np.divide(res.grad, fd, out=np.full_like(res.grad, np.nan),  # noqa: E731
+                                     where=fd != 0.0)
+        print(f"FD on the card, {label}: gradient {res.grad}; one centered difference "
+              f"{res.fd}, ratio {ratio(res.fd)}, {'within' if close(res.fd) else 'OUTSIDE'} "
+              f"rtol {res.rtol:g} / atol {res.atol:g}; mean of 11 {mean_fd}, ratio "
+              f"{ratio(mean_fd)}, {'within' if close(mean_fd) else 'OUTSIDE'}; "
+              f"{n} kernel launches; the function's jitter {floor:.2e}, one difference's "
+              f"noise ~{math.sqrt(2.0) * floor / (2 * res.eps):.2e} of slope")
+        if n == 0 or not res.branch or not close(mean_fd):
+            missed.append(label)
+    if missed:
+        raise AssertionError(f"FD problems outside the JAX tests' tolerances (or not "
+                             f"through the kernel, or off their branch) on the card: {missed}")
+    torch.cuda.synchronize()
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
+
+
+_PHASES = (3, 4, 5, 6, 7, 8, 9, 10, 11)
 
 
 def main(argv=None):
@@ -1249,6 +1422,8 @@ def main(argv=None):
         phase_cost_aware_cli(dev, smi)
     if 10 in phases:
         phase_sharded(smi)
+    if 11 in phases:
+        phase_examples(dev, smi)
     torch.cuda.synchronize()
     if phases != set(_PHASES):
         print(f"partial run (phases {sorted(phases)}): no closing lines")

@@ -6,9 +6,9 @@ Port of `rollout_bo_tpu/experiments/nonmyopic.py` (reference
 rollout_h{H}_{times,gaps,observations}.csv in the reference's archived
 schema. Same flags, defaults, file names and initial-sample stream as the
 JAX package's CLI. Differences: `--device` (default `cuda`; without a card
-it raises); `--outer-solver` accepts only `fused` (the one outer solver of
-this package): other values raise; `--steps-per-call` is parsed and has no
-effect.
+it raises). `--outer-solver` and `--steps-per-call` keep the JAX CLI's
+semantics (`run_nonmyopic_bo(outer_solver=...)`), over the one SGA loop of
+`rollout/outer.py`.
 
 Several ranks: `--nworkers N` (0: every card, or 1 on `--device cpu`).
 When N > 1 divides `--batch-size`, the CLI spawns N processes, one rank
@@ -89,13 +89,14 @@ def parse_args(argv=None):
                    help="torch dtype of the surrogate and the solves")
     p.add_argument("--outer-solver", default="fused",
                    choices=["fused", "batch", "scanned"],
-                   help="only fused is implemented: every restart simulated in "
-                        "lock-step with an exact all-stopped early exit. batch "
-                        "and scanned are dispatch variants of the JAX package "
-                        "(ROADMAP item 16) and raise here")
+                   help="fused: every restart simulated in lock-step, the loop "
+                        "ends once all have stopped (tested every SGA "
+                        "iteration); scanned: the same, tested after each "
+                        "window of --steps-per-call iterations, whole windows "
+                        "only; batch: fused's points, SGA iterations not "
+                        "recorded")
     p.add_argument("--steps-per-call", type=int, default=10,
-                   help="accepted for compatibility with the JAX CLI and "
-                        "ignored (it sizes the scanned solver's windows)")
+                   help="SGA iterations per window of --outer-solver scanned")
     p.add_argument("--checkpoint-every", type=int, default=0,
                    help="snapshot the trial every N iterations (0 = off); a "
                         "crashed run resumes from the last snapshot")
@@ -113,11 +114,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.outer_solver != "fused":
-        raise NotImplementedError(
-            f"--outer-solver {args.outer_solver}: only 'fused' exists in this "
-            "package; the batch and scanned programs are not ported (ROADMAP "
-            "item 16)")
     device = resolve_device(args.device)
     n = args.nworkers or (torch.cuda.device_count() if device.type == "cuda" else 1)
     if n > 1 and args.batch_size % n == 0:
@@ -211,7 +207,8 @@ def _run(args, device: torch.device, mesh) -> None:
             deterministic=args.deterministic_solve, ghq_nodes=args.ghq_nodes,
             checkpoint_path=ckpt_path,
             checkpoint_every=args.checkpoint_every or 5,
-            mesh=mesh,
+            mesh=mesh, outer_solver=args.outer_solver,
+            steps_per_call=args.steps_per_call,
         )
         if not lead:
             continue

@@ -36,6 +36,7 @@ __all__ = ["DecisionRule", "EI", "LogEI", "POI", "LogPOI", "LCB",
 # |z| beyond this is saturated (tails < 1e-190); keeps the autodiff chains
 # finite in float32 on huge-range surfaces such as trid10d (|f| ~ 1e5)
 _Z_CLAMP = 30.0
+_INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
@@ -56,7 +57,11 @@ _Q_COEF = (
 
 
 def _cdf(z):
-    return torch.special.ndtr(z)
+    # erfc keeps the lower tail's relative digits; torch.special.ndtr on the
+    # CPU is accurate only to ~1e-16 absolute there (2e-6 relative at
+    # z = -7) and returns 0 below z ~ -8.3, where the JAX package's norm.cdf
+    # and the kernel's normcdf still resolve Phi(z) ~ 1e-17
+    return 0.5 * torch.special.erfc(-z * _INV_SQRT2)
 
 
 def _pdf(z):

@@ -286,6 +286,8 @@ def run_nonmyopic_bo(
     checkpoint_path: str | None = None,
     checkpoint_every: int = 5,
     mesh=None,
+    outer_solver: str = "fused",
+    steps_per_call: int = 10,
 ) -> MyopicBOResult:
     """Non-myopic (rollout-EI) BO trial.
 
@@ -300,9 +302,16 @@ def run_nonmyopic_bo(
 
     `deterministic=True` selects the SAA / Gauss-Hermite (variance-free)
     solver, the reference's `--deterministic-solve` flag
-    (nonmyopic_bayesopt.jl:63-66, utils.jl:267-306). Otherwise the outer
-    solver is `outer.stochastic_solve_fused`. `times[b]` is the wall time
-    of the acquisition (fallback included), synchronized with the device.
+    (nonmyopic_bayesopt.jl:63-66, utils.jl:267-306). Otherwise
+    `outer_solver` names the stochastic one, with the JAX package's
+    semantics: "fused" (`outer.stochastic_solve_fused`, the all-stopped
+    test after every SGA iteration), "scanned" (the same loop with that
+    test after each window of `steps_per_call` iterations, and
+    ceil(sgd_iters / steps_per_call) x steps_per_call iterations unless it
+    ends the loop) or "batch" (`outer.stochastic_solve_batch` and the
+    argmax: fused's points; `sga_iterations` records -1). `times[b]` is the
+    wall time of the acquisition (fallback included), synchronized with
+    the device.
 
     `mesh` (`parallel.mesh.Mesh`; every rank of it runs this call): the
     restarts are cut to `num_restarts` (the two near-boundary points are
@@ -313,6 +322,8 @@ def run_nonmyopic_bo(
     that rounding cannot part the ranks, and a fallback's point is rank 0's.
     Every rank returns the trial; rank 0's is the one to record.
     """
+    if outer_solver not in ("fused", "scanned", "batch"):
+        raise ValueError(f"unknown outer solver {outer_solver!r}")
     rule = rule or EI()
     t = _Trial(testfn, budget=budget, n_init=n_init, num_starts=num_starts, seed=seed,
                kernel=kernel, noise=noise, kernel_lbs=kernel_lbs, kernel_ubs=kernel_ubs,
@@ -324,7 +335,8 @@ def run_nonmyopic_bo(
     acquire = _rollout_acquirer(t, rule, theta, deterministic=deterministic,
                                 ghq_nodes=ghq_nodes, sgd_iters=sgd_iters, lr=lr,
                                 solver_iterations=solver_iterations, draw_mode=draw_mode,
-                                log10_parity=log10_parity, mesh=mesh)
+                                log10_parity=log10_parity, mesh=mesh,
+                                outer_solver=outer_solver, steps_per_call=steps_per_call)
     fallback = _make_exploration_fallback(rule, theta, t.lbs, t.ubs, t.xstarts,
                                           solver_iterations)
     if not use_low_discrepancy:
@@ -375,11 +387,13 @@ def _rnstream_maker(t: _Trial, mc_iters, use_low_discrepancy, log10_parity):
 
 
 def _rollout_acquirer(t: _Trial, rule, theta, *, deterministic, ghq_nodes, sgd_iters,
-                      lr, solver_iterations, draw_mode, log10_parity, mesh=None):
+                      lr, solver_iterations, draw_mode, log10_parity, mesh=None,
+                      outer_solver="fused", steps_per_call=1):
     """acquire(state, rnstream, restarts, h) -> (x, value, SGA iterations or
-    -1) of the h-step rollout acquisition: the stochastic solver, or the
-    Gauss-Hermite one with `deterministic` (which ignores the stream); on
-    the ranks of `mesh` if one is given."""
+    -1) of the h-step rollout acquisition: the stochastic solver named by
+    `outer_solver` (see `run_nonmyopic_bo`), or the Gauss-Hermite one with
+    `deterministic` (which ignores the stream); on the ranks of `mesh` if
+    one is given."""
 
     def acquire(state, rnstream, restarts, h):
         if deterministic:
@@ -392,10 +406,16 @@ def _rollout_acquirer(t: _Trial, rule, theta, *, deterministic, ghq_nodes, sgd_i
             return xs[j], vals[j], -1
         tp = TrajectoryParams(x0=restarts, theta=theta, lbs=t.lbs, ubs=t.ubs,
                               rnstream=rnstream)
+        kw = dict(max_iters=sgd_iters, lr=lr, inner_iterations=solver_iterations,
+                  draw_mode=draw_mode, mesh=mesh)
+        if outer_solver == "batch":
+            xs, vals = outer_mod.stochastic_solve_batch(state, tp, rule, t.xstarts,
+                                                        restarts, **kw)
+            j = torch.argmax(vals)
+            return xs[j], vals[j], -1
         res = outer_mod.stochastic_solve_fused(
-            state, tp, rule, t.xstarts, restarts, max_iters=sgd_iters, lr=lr,
-            inner_iterations=solver_iterations, draw_mode=draw_mode,
-            select_best=True, mesh=mesh)
+            state, tp, rule, t.xstarts, restarts, select_best=True,
+            steps_per_call=steps_per_call if outer_solver == "scanned" else 1, **kw)
         return res.x, res.value, res.iterations
 
     return acquire

@@ -5,12 +5,14 @@ Port of `rollout_bo_tpu/rollout/outer.py` (reference `optimizers.jl`,
 with the semantics of the JAX package's `make_fused_sga_program`: every
 restart is simulated in lock-step each iteration, a restart freezes when
 the eswavs early-stopping statistic fires, and the loop ends when all have
-stopped. The JAX package's stepped and scanned variants exist to hide
+stopped. The JAX package's stepped and scanned programs exist to hide
 host<->TPU dispatch cost and are not ported; here the loop is a Python
-loop with a host check of "all stopped" after each iteration;
-`stochastic_solve` (one start) and `stochastic_solve_batch` (no winner
-selection) are the same loop. The deterministic (Gauss-Hermite) solver
-runs its restarts in lock-step the same way, each with its own stop mask.
+loop with a host check of "all stopped" after each iteration, or after
+each window of `steps_per_call` iterations, which gives the scanned
+solver's results; `stochastic_solve` (one start) and
+`stochastic_solve_batch` (no winner selection) are the same loop. The
+deterministic (Gauss-Hermite) solver runs its restarts in lock-step the
+same way, each with its own stop mask.
 
 With a `mesh` (`parallel.mesh`), a solve splits its restarts over the
 ranks of the 'restarts' axis and, for `stochastic_solve_fused`, the
@@ -90,24 +92,28 @@ class FusedSolve(NamedTuple):
     iterations: int        # SGA iterations run
 
 
-def _sga(simulate, xs, lbs, ubs, sample_size, *, max_iters, lr, mesh):
+def _sga(simulate, xs, lbs, ubs, sample_size, *, max_iters, lr, mesh, check_every=1):
     """The SGA loop from the restarts xs (R, d): each iteration simulates
     every restart (gradients included), freezes those whose eswavs
     statistic fires and takes an Adam step clipped to the box for the
-    others. It stops after `max_iters`, or once every restart has stopped:
-    on every rank of `mesh`, which sums the active restarts over the world
-    (the JAX program's all-reduce(AND) of its all-stopped predicate).
-    Returns (xs, iterations run)."""
+    others. The test "every restart has stopped" is made after each window
+    of `check_every` iterations, and the loop runs `max_iters` rounded up
+    to whole windows unless that test ends it: on every rank of `mesh`,
+    which sums the active restarts over the world (the JAX program's
+    all-reduce(AND) of its all-stopped predicate). Returns (xs, iterations
+    run)."""
     opt = adam_init(xs)
     done = torch.zeros(xs.shape[:-1], dtype=torch.bool, device=xs.device)
     it = 0
-    while it < max_iters:
+    while it < -(-max_iters // check_every) * check_every:
         eto = simulate(xs, True)
         done = done | eswavs(eto.grad_x, eto.std_grad_x**2, sample_size)
         opt, xs_new = adam_update(opt, xs, eto.grad_x, lr=lr)
         xs_new = torch.clamp(xs_new, lbs, ubs)
         xs = torch.where(done[..., None], xs, xs_new)
         it += 1
+        if it % check_every:
+            continue
         if mesh is None:
             if bool(done.all()):
                 break
@@ -124,7 +130,7 @@ def _gather_restarts(xs, vals, mesh):
 
 
 def _multi_restart(state, tp, rule, xstarts, restarts, *, max_iters, lr, inner_iterations,
-                   draw_mode, mesh, shard_stream):
+                   draw_mode, mesh, shard_stream, check_every=1):
     """SGA from every restart, then a value-only evaluation at the final
     points: (xs (R, d), values (R,), iterations). With `mesh`, this rank
     takes its block of the restarts along 'restarts' and, with
@@ -144,7 +150,7 @@ def _multi_restart(state, tp, rule, xstarts, restarts, *, max_iters, lr, inner_i
             iterations=inner_iterations, draw_mode=draw_mode, group=group)
 
     xs, it = _sga(simulate, restarts, tp.lbs, tp.ubs, sample_size, max_iters=max_iters,
-                  lr=lr, mesh=mesh)
+                  lr=lr, mesh=mesh, check_every=check_every)
     vals = simulate(xs, False).mu
     if mesh is not None:
         xs, vals = _gather_restarts(xs, vals, mesh)
@@ -156,7 +162,8 @@ def stochastic_solve_fused(state: sg.SurrogateState, tp: TrajectoryParams,
                            max_iters: int = 50, lr: float = 0.01,
                            inner_iterations: int = 12,
                            draw_mode: str = "reparam",
-                           select_best: bool = False, mesh=None) -> FusedSolve:
+                           select_best: bool = False, mesh=None,
+                           steps_per_call: int = 1) -> FusedSolve:
     """Multi-restart SGA of the MC rollout acquisition from `restarts` (R, d).
 
     Each iteration simulates all restarts (gradients included), freezes the
@@ -165,6 +172,11 @@ def stochastic_solve_fused(state: sg.SurrogateState, tp: TrajectoryParams,
     restart has stopped. A value-only evaluation then scores the final
     points; with `select_best` the argmax restart is returned (the first
     of tied ones, as `jnp.argmax`).
+
+    `steps_per_call` k > 1 gives the JAX package's scanned solver
+    (`stochastic_solve_scanned`): "every restart has stopped" is tested
+    only after each window of k iterations, and ceil(max_iters / k) k
+    iterations run unless that test ends the loop.
 
     `mesh` (`parallel.mesh.Mesh`): the restarts split over its 'restarts'
     axis and the trajectories of tp.rnstream over its 'mc' axis, as the JAX
@@ -175,7 +187,7 @@ def stochastic_solve_fused(state: sg.SurrogateState, tp: TrajectoryParams,
     xs, vals, it = _multi_restart(
         state, tp, rule, xstarts, restarts, max_iters=max_iters, lr=lr,
         inner_iterations=inner_iterations, draw_mode=draw_mode, mesh=mesh,
-        shard_stream=True)
+        shard_stream=True, check_every=steps_per_call)
     if select_best:
         j = torch.argmax(vals)
         return FusedSolve(xs[j], vals[j], it)

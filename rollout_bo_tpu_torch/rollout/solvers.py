@@ -10,9 +10,8 @@ once per call with one batched matmul, as the JAX package's
 
 `multistart_maximize`, the BO loops' solver on one surrogate, is the same
 lane solver called with ONE lane and S starts. The lane solver returns
-each lane's best start only, so `SolveResult` holds `x` and `value` and
-not the JAX package's per-start `xs` / `values`, which nothing in the
-package reads.
+each lane's best start only; the per-start `xs` / `values` of the JAX
+package's `SolveResult` are solved when first read, one start per call.
 
 A cost-aware rule (`rule.cost` is not None) never reaches the lane solver,
 which has no cost channel: it goes to `newton_solve_batch`, the JAX
@@ -24,7 +23,8 @@ before the rule's name: a `CostAwareRule` keeps its base rule's name.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import functools
+from typing import Callable
 
 import torch
 
@@ -38,9 +38,30 @@ __all__ = ["supported", "newton_solve_batch", "maximize_hot", "multistart_maximi
 _BACKTRACK_STEPS = 9  # trial step sizes 1, 1/2, ..., 1/2^8 along each direction
 
 
-class SolveResult(NamedTuple):
-    x: torch.Tensor        # (d,) argmax over the starts
-    value: torch.Tensor    # () acquisition value there
+class SolveResult:
+    """`multistart_maximize`'s result, with the fields of the JAX package's:
+    x (d,) the argmax over the starts, value () the acquisition there, xs
+    (S, d) each start's solution and values (S,) its value (non-finite ->
+    -inf). Where the lane solver took the solve, xs and values are solved
+    on first read by `per_start()` (S more solver calls, one start each),
+    so that a caller that reads only x and value, as the BO loops do, makes
+    one solver call."""
+
+    def __init__(self, x, value, per_start: Callable[[], tuple]):
+        self.x, self.value = x, value
+        self._per_start = per_start
+
+    @functools.cached_property
+    def _xs_values(self):
+        return self._per_start()
+
+    @property
+    def xs(self) -> torch.Tensor:
+        return self._xs_values[0]
+
+    @property
+    def values(self) -> torch.Tensor:
+        return self._xs_values[1]
 
 
 def supported(kind: str, rule: DecisionRule) -> bool:
@@ -213,7 +234,12 @@ def multistart_maximize(state: sg.SurrogateState, rule: DecisionRule, theta, lbs
     For the "Random" rule it returns a uniform sample from the box
     (reference rbf_optim.jl:76-79, 110-113), drawn on the host from
     `generator` (a CPU `torch.Generator`) so that one seed gives one stream
-    whichever device the surrogate lives on.
+    whichever device the surrogate lives on; its xs is that sample as one
+    start (S = 1) with value 0.
+
+    The per-start `xs` / `values` of a lane-solver solve come from one
+    lane-solver call per start when first read; a start whose value is
+    -inf there reports x = 0, as the lane solver does for such a lane.
     """
     dt, dev = state.X.dtype, state.X.device
     as_t = lambda a: torch.as_tensor(a, dtype=dt, device=dev).contiguous()
@@ -222,10 +248,23 @@ def multistart_maximize(state: sg.SurrogateState, rule: DecisionRule, theta, lbs
         if generator is None:
             raise ValueError("Random acquisition requires a torch.Generator")
         u = torch.rand(state.dim, generator=generator, dtype=dt).to(dev)
-        return SolveResult(lbs + (ubs - lbs) * u, torch.zeros((), dtype=dt, device=dev))
+        x, v = lbs + (ubs - lbs) * u, torch.zeros((), dtype=dt, device=dev)
+        return SolveResult(x, v, lambda: (x[None], v[None]))
     if state.X.dim() != 2:
         raise ValueError("multistart_maximize takes one surrogate; maximize_hot "
                          "solves a batch of lanes")
-    x, v = maximize_hot(state, rule, as_t(theta), lbs, ubs, as_t(xstarts),
-                        iterations=iterations)
-    return SolveResult(x, v)
+    theta, xstarts = as_t(theta), as_t(xstarts)
+    if getattr(rule, "cost", None) is not None:
+        with torch.no_grad():
+            xs, vs = newton_solve_batch(state, rule, theta, lbs, ubs, xstarts,
+                                        iterations=iterations)
+        j = torch.argmax(vs)                                   # first start wins a tie
+        return SolveResult(xs[j], vs[j], lambda: (xs, vs))
+    x, v = maximize_hot(state, rule, theta, lbs, ubs, xstarts, iterations=iterations)
+
+    def per_start():
+        solved = [maximize_hot(state, rule, theta, lbs, ubs, xstarts[s:s + 1],
+                               iterations=iterations) for s in range(xstarts.shape[0])]
+        return torch.stack([xs for xs, _ in solved]), torch.stack([vs for _, vs in solved])
+
+    return SolveResult(x, v, per_start)

@@ -197,6 +197,45 @@ def test_multistart_maximize_matches_jax(rule_name, theta):
                                    atol=1e-6 * float((UBS - LBS).max()))
 
 
+@pytest.mark.parametrize("rule_name,theta", [("EI", 0.0), ("LCB", 2.0)])
+def test_solve_result_per_start_matches_jax(rule_name, theta):
+    """`SolveResult.xs` / `values` against the JAX package's per-start
+    arrays, start by start: x within 1e-6 of the box width, values rtol
+    1e-9 (in float64 the lane solver and the Li-form XLA solver agree to
+    rounding where a start's ascent meets no near-tie); the best start is
+    the solve's own answer."""
+    js, st = _states("matern52")
+    xstarts = qmc.generate_initial_guesses(14, LBS, UBS)
+    res = solvers.multistart_maximize(st, dr.RULES[rule_name](), (theta,), LBS, UBS,
+                                      xstarts, iterations=12)
+    jres = jsolvers.multistart_maximize(js, jdr.RULES[rule_name](), jnp.asarray([theta]),
+                                        LBS, UBS, jnp.asarray(xstarts), iterations=12)
+    S = xstarts.shape[0]
+    assert res.xs.shape == (S, D) and res.values.shape == (S,)
+    _close(res.xs, jres.xs, 0.0, atol=1e-6 * float((UBS - LBS).max()))
+    _close(res.values, jres.values, 1e-9, atol=1e-12)
+    j = int(torch.argmax(res.values))
+    assert torch.equal(res.xs[j], res.x) and torch.equal(res.values[j], res.value)
+
+
+def test_solve_result_random_and_cost_aware():
+    """Random: its one sample as one start (S = 1) with value 0, as the JAX
+    package's tiled arrays hold it. A cost-aware rule: `newton_solve_batch`'s
+    per-start arrays and their argmax."""
+    from rollout_bo_tpu_torch.models import cost_functions as cf
+
+    _, st = _states("matern52")
+    xstarts = qmc.generate_initial_guesses(4, LBS, UBS)
+    res = solvers.multistart_maximize(st, dr.RandomAcquisition(), (0.0,), LBS, UBS, xstarts,
+                                      generator=torch.Generator().manual_seed(0))
+    assert torch.equal(res.xs, res.x[None]) and torch.equal(res.values, torch.zeros(1, dtype=f64))
+    rule = cf.cost_aware(dr.EI(), cf.NonUniformCost(lambda x: 1.0 + torch.sum(x * x, dim=-1)))
+    res = solvers.multistart_maximize(st, rule, (0.0,), LBS, UBS, xstarts, iterations=6)
+    xs, vs = solvers.newton_solve_batch(st, rule, (0.0,), LBS, UBS, xstarts, iterations=6)
+    assert torch.equal(res.xs, xs) and torch.equal(res.values, vs)
+    assert torch.equal(res.x, xs[torch.argmax(vs)]) and torch.equal(res.value, vs.max())
+
+
 def test_random_rule_uniform():
     """The Random rule: inside the box, deterministic under a seed, uniform
     moments (as tests/test_solvers_and_bo.py::test_random_rule_uniform);
