@@ -103,7 +103,11 @@ Run from the repository root on a machine with one NVIDIA Hopper card
    medians of 3 in turns). Two
    ranks sharing one card give no scaling figure. Then a small float64
    non-myopic trial on a 2-rank mesh, card == CPU route to 1e-6 of the
-   box; and one trial through the CLI with `--nworkers 2 --backend gloo`
+   box; the float64 worker problem's fused solve on the two gloo ranks at
+   (2, 1) and (1, 2) against one rank with no mesh, to 1e-12 when its
+   simulate calls are split into the ranks' blocks, and unblocked (the
+   difference printed: the dense products may round by batch size); and
+   one trial through the CLI with `--nworkers 2 --backend gloo`
    at its widths (hartmann6d, h 2, 200 trajectories, 8 restarts, 16 + 2
    starts, MLE on, float64, budget 3: depth only): the CSVs, and per rank
    launches = 2 x sum(SGA iterations + 1) + fallbacks. With two or more
@@ -122,11 +126,11 @@ Run from the repository root on a machine with one NVIDIA Hopper card
    solves). Then each FD problem of tests/test_torch_fd.py (MC h 1 and 2,
    MC 2-D, the theta gradient, Gauss-Hermite, the ground-truth observable
    and the explicit adjoint on it) through the kernel in float64, at the
-   JAX tests' eps and tolerances: the gradient, the JAX test's one centered
-   difference and the mean of 11 of them at points 1e-7 apart, each with
-   its ratio and verdict, and the function's rounding floor; the mean is
-   the gate (one difference's noise at MC h 2 is as large as the
-   tolerance).
+   JAX tests' eps and tolerances: the gradient and the JAX test's one
+   centered difference, the gate, with its ratio; beside it the mean of 11
+   differences at points 1e-7 apart and the function's rounding floor
+   (jitter), which on the MC 1-D problems (h 1 and 2) must be within 3x
+   the CPU route's, computed in the same phase.
 
 `--phases 3 11` runs only the phases named (1 and 2 always run); a partial
 run prints neither of the two closing lines.
@@ -193,13 +197,15 @@ def phase_build():
     inst = ()
     for line in _build.build_log("newton_lanes").splitlines():
         if "Compiling entry" in line:
-            inst = ("float64" if "kernelId" in line else "float32",
-                    "W staged" if "Lb1E" in line else "W in device memory")
+            f64 = "kernelId" in line
+            inst = ("float64, Li form" if f64 else "float32, W form",
+                    ("Li" if f64 else "W") + (" staged" if "Lb1E" in line
+                                              else " in device memory"))
         if "registers" in line or "spill" in line:
             print(f"  ptxas ({', '.join(inst)}):", line.strip())
-    lanes, groups, stage_w, smem = nl._block_shape(24, 10, 10, 4)
+    lanes, groups, stage_m, smem = nl._block_shape(24, 10, 10, 4)
     threads = lanes * groups * nl._GROUP
-    blocks = nl._library().newton_lanes_blocks_per_sm(4, int(stage_w), threads, smem)
+    blocks = nl._library().newton_lanes_blocks_per_sm(4, int(stage_m), threads, smem)
     print(f"  bench shape (cap 24, d 10, S 10, float32): blocks of {lanes} lane x {groups} "
           f"warps = {threads} threads, {smem} B of shared memory, {blocks} blocks "
           f"({blocks * threads // 32} warps) resident per SM")
@@ -241,14 +247,25 @@ def _events_ms(fn, reps):
     return start.elapsed_time(stop) / reps, out
 
 
-def _as_f64(st, args):
-    """The same lanes in float64: the state and the solver's arguments, cast."""
+def _as_f64(st):
+    """The same lanes' state in float64, cast."""
     from rollout_bo_tpu_torch.ops import kernels as K
 
     cast = lambda a: a.double() if torch.is_tensor(a) and a.is_floating_point() else a
-    st64 = st._replace(kernel=K.RBFKernel(st.kernel.theta.double(), st.kernel.kind),
+    return st._replace(kernel=K.RBFKernel(st.kernel.theta.double(), st.kernel.kind),
                        **{f: cast(getattr(st, f)) for f in ("X", "y", "L", "c", "noise", "Li")})
-    return st64, tuple(cast(a) for a in args)
+
+
+def _plain64(args, kw):
+    """The plain version in float64 on the lanes' own problem: the matrix the
+    lanes' dtype reads (`newton_lanes._lane_matrix`: float32 lanes' W =
+    Li^T Li as formed in float32), cast to float64, not formed anew from
+    Li in float64, whose rounding would pose another problem."""
+    from rollout_bo_tpu_torch.ops import newton_lanes as nl
+
+    cast = lambda a: a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+    M, li = nl._lane_matrix(args[1])
+    return nl._solve_plain(cast(args[0]), cast(M), li, *map(cast, args[2:]), **kw)
 
 
 def _compare(st, rule, th, lbs, ubs, xstarts, iterations, label, timing=False):
@@ -260,10 +277,9 @@ def _compare(st, rule, th, lbs, ubs, xstarts, iterations, label, timing=False):
     dt = st.X.dtype
     kth = st.kernel.theta
     period = kth[1] if st.kernel.kind == "periodic" else torch.ones_like(kth[0])
-    W = st.Li.transpose(-1, -2) @ st.Li
     fmini = sg.get_active_minimum(st)
     th0 = th[..., 0].contiguous()
-    args = (st.X, W, st.c, st.n, fmini, th0, kth[0], lbs, ubs, xstarts, period)
+    args = (st.X, st.Li, st.c, st.n, fmini, th0, kth[0], lbs, ubs, xstarts, period)
     kw = dict(kind=st.kernel.kind, rule=rule.name, iterations=iterations,
               f_tol=rule.solve_f_tol, x_tol=rule.solve_x_tol)
     kernel = lambda: nl.newton_solve_lanes(*args, **kw)
@@ -300,8 +316,8 @@ def _compare(st, rule, th, lbs, ubs, xstarts, iterations, label, timing=False):
     void = sided = 0
     if dt == torch.float32 and bool(torch.any(miss | far)):
         # the plain version in float64 on the same inputs arbitrates
-        st64, args64 = _as_f64(st, args)
-        x64, _ = nl.newton_solve_lanes_ref(*args64, **kw)
+        st64 = _as_f64(st)
+        x64, _ = _plain64(args, kw)
         value = lambda x: sg.acquisition(st64, rule, x.double(), th.double())
         undetermined = (value(xr) - value(x64)).abs() > slack
         with64 = (xk.double() - x64).abs().amax(dim=-1) <= 1e-3 * width
@@ -434,10 +450,10 @@ def phase_kernel_checks(dev, card):
                          torch.float64, dev, 17, f=f)
         th = torch.zeros((st.X.shape[0], 1), dtype=torch.float64, device=dev)
         xs = t64(qmc.generate_initial_guesses(starts, f.lbs, f.ubs))
-        lanes, groups, stage_w, smem = nl._block_shape(cap, f.dim, xs.shape[0], 8)
+        lanes, groups, stage_m, smem = nl._block_shape(cap, f.dim, xs.shape[0], 8)
         r = _compare(st, dr.EI(), th, t64(f.lbs), t64(f.ubs), xs, 12, label, timing=True)
         print(f"kernel vs plain, {label}, d 6, matern52/EI, float64: blocks of {lanes} "
-              f"lane x {groups} warps, W {'staged' if stage_w else 'in device memory'}, "
+              f"lane x {groups} warps, Li {'staged' if stage_m else 'in device memory'}, "
               f"{smem} B of shared memory; argmax agreement {r['agree']:.4f}, "
               f"max |v_kernel - v_plain| {r['max_abs_err']:.3e}, max |v - acq(x)| "
               f"{r['max_err_reeval']:.3e}, lanes that left their start {r['moved']:.4f}")
@@ -1006,6 +1022,28 @@ def phase_card_equals_cpu(dev):
 # --------------------------------------------------------------------------
 
 
+def _tests_module(filename, name):
+    """A module of tests/ that imports no jax, loaded from its file."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", filename)
+    if name in sys.modules:
+        return sys.modules[name]
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = sys.modules[name] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _worker_problems():
+    """tests/torch_parallel_ranks.py and the fused solves of its worker
+    problem (float64, h 1, 8 restarts x 16 trajectories) at meshes (2, 1)
+    and (1, 2), in the form of its `solve_case`."""
+    ranks = _tests_module("torch_parallel_ranks.py", "torch_parallel_ranks")
+    p, kw = ranks.worker_fields(), dict(max_iters=4, inner_iterations=10)
+    return ranks, {f"m{r}x{m}": ("fused", (r, m), p, kw) for r, m in ((2, 1), (1, 2))}
+
+
 def _start_ranks(fn, world, backend, tmp, **kw):
     """Run fn(rank, world, init_method, backend, tmp, kw) in `world` new
     processes (spawn; a rank that fails ends the others and raises here);
@@ -1029,7 +1067,8 @@ def _rank_sharded(rank, world, init_method, backend, prefix, kw):
     kw["plain"] also the same solve with no mesh in this process, timed in
     turns with the sharded one (3 each: the medians); with kw["small"] a
     small float64 trial of the non-myopic loop on the mesh, on the card and
-    on the CPU route."""
+    on the CPU route, and the float64 worker problem's sharded solves
+    (`_worker_problems`)."""
     import torch.distributed as dist
 
     from rollout_bo_tpu_torch.models import decision_rules as dr
@@ -1089,6 +1128,9 @@ def _rank_sharded(rank, world, init_method, backend, prefix, kw):
                     sgd_iters=3, lr=0.05, solver_iterations=8, x_init=x_init, device=device,
                     mesh=mesh)
                 report[f"X_{device.type}"] = res.X.tolist()
+            ranks, problems = _worker_problems()
+            report["worker"] = {k: np.asarray(v).tolist() for k, v in
+                                ranks.solve_case(problems, device="cuda").items()}
         with open(f"{prefix}-rank{rank}.json", "w") as fh:
             json.dump(report, fh)
     finally:
@@ -1152,6 +1194,47 @@ def _check_sharded_solves(reports, label, card):
                           for rep_i, rep in enumerate(solves)) + f"; on {card}")
 
 
+def _check_worker_solves(out, card, dev):
+    """The worker problem's sharded solves on two gloo ranks against the same
+    solve with no mesh on the card: with its simulate calls split into the
+    ranks' blocks of restarts and trajectories (`blocked`), equal to 1e-12,
+    the gate of tests/test_torch_cuda.py; unblocked, one launch over all
+    the lanes, whose dense products may round otherwise by batch size:
+    the difference printed."""
+    from rollout_bo_tpu_torch.rollout import mc as mc_mod
+
+    ranks, problems = _worker_problems()
+    simulate = mc_mod.simulate_trajectory_mc
+    _, _, p, kw = next(iter(problems.values()))
+    whole = ranks.unsharded_solve("fused", p, kw, device=dev)
+    for name, (_, (r, m), p, kw) in problems.items():
+        xs, vals = np.asarray(out[f"{name}_xs"]), np.asarray(out[f"{name}_vals"])
+        mc_mod.simulate_trajectory_mc = ranks.blocked(simulate, r, m)
+        try:
+            ref = ranks.unsharded_solve("fused", p, kw, device=dev)
+        finally:
+            mc_mod.simulate_trajectory_mc = simulate
+        np.testing.assert_allclose(xs, ref.x.cpu().numpy(), rtol=1e-12, atol=1e-14,
+                                   err_msg=f"worker problem, mesh {name}, blocked")
+        np.testing.assert_allclose(vals, ref.value.cpu().numpy(), rtol=1e-12, atol=1e-14,
+                                   err_msg=f"worker problem, mesh {name}, blocked")
+        if int(out[f"{name}_it"]) != ref.iterations:
+            raise AssertionError(f"worker problem, mesh {name}: {out[f'{name}_it']} SGA "
+                                 f"iterations, {ref.iterations} unsharded")
+        def apart(a, b):
+            return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+
+        blocked = (apart(xs, ref.x.cpu().numpy()), apart(vals, ref.value.cpu().numpy()))
+        wx, wv = whole.x.cpu().numpy(), whole.value.cpu().numpy()
+        print(f"sharded fused solve, worker problem (float64, h 1, 8 restarts x 16 "
+              f"trajectories), 2 gloo ranks at mesh (restarts {r}, mc {m}) against one rank "
+              f"with no mesh: blocked as the ranks launch, points {blocked[0]:.2e} / values "
+              f"{blocked[1]:.2e} relative apart (gate 1e-12); unblocked (one launch of "
+              f"{whole.x.shape[0] * 16} lanes), points {float(np.max(np.abs(xs - wx))):.2e} "
+              f"absolute / values {apart(vals, wv):.2e} relative apart, SGA iterations "
+              f"{int(out[f'{name}_it'])} vs {whole.iterations}; on {card}")
+
+
 def phase_sharded(card, budget=3, horizon=2):
     from rollout_bo_tpu_torch.experiments import nonmyopic
 
@@ -1168,6 +1251,7 @@ def phase_sharded(card, budget=3, horizon=2):
             raise AssertionError(f"2-rank trial: card {gpu} vs CPU route {cpu}")
         print(f"sharded BO loop, small float64 (hartmann3d, h 1, 8 samples, 2 restarts on 2 "
               f"gloo ranks): card == CPU route (points within {apart:.2e})")
+        _check_worker_solves(reports[0]["worker"], card, torch.device("cuda", 0))
 
         # NCCL: one rank per card, the restarts split over them
         world = max(w for w in (1, 2, 4, 8) if w <= n_cards)
@@ -1248,14 +1332,7 @@ def _bench_mc_workers(tmp, card):
 def _fd_problems():
     """tests/test_torch_fd.py, whose `PROBLEMS` the card runs here (that file
     imports no jax)."""
-    import importlib.util
-
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                        "test_torch_fd.py")
-    spec = importlib.util.spec_from_file_location("torch_fd_problems", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return _tests_module("test_torch_fd.py", "torch_fd_problems")
 
 
 def _run_example(mod, argv):
@@ -1290,7 +1367,6 @@ def phase_examples(dev, card):
     the kernel in float64."""
     from rollout_bo_tpu_torch.examples import (derivs_ei, explanatory, fantasy_conditioning,
                                                laplace_approximation, overview, rollout_bo)
-    from rollout_bo_tpu_torch.ops import newton_lanes as nl
 
     t_phase = time.perf_counter()
     on_card = ["--device", str(dev)]
@@ -1358,15 +1434,26 @@ def phase_examples(dev, card):
           f"{out['gaps_myopic'][-1]:.4f}, BO SGA iterations "
           f"{out['sga_iterations_bo'].tolist()}; on {card}")
 
+    _fd_checks(dev)
+    torch.cuda.synchronize()
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
+
+
+def _fd_checks(dev):
+    """The FD problems of tests/test_torch_fd.py through the kernel on `dev`."""
+    from rollout_bo_tpu_torch.ops import newton_lanes as nl
+
     # Each problem on the card: the gradient against the JAX test's centered
-    # difference at u0 and against the mean of 11 such differences at
-    # points 1e-7 apart (`averaged_fd`), at the JAX test's eps and
-    # tolerance; beside them the function's rounding floor (`jitter`),
+    # difference at u0, at the JAX test's eps and tolerance: the gate. Beside
+    # it, as diagnostics, the mean of 11 such differences at points 1e-7
+    # apart (`averaged_fd`) and the function's rounding floor (`jitter`),
     # which one difference carries as ~sqrt(2) jitter / (2 eps) of slope.
-    # The mean is the gate: at MC h 2 that noise is ~0.6% of the gradient,
-    # as large as the tolerance, and one difference passes or fails it by
-    # the floor's draw (PERF.md "PR 6").
+    # On the MC 1-D problems the card's floor is also held to 3x the CPU
+    # route's on the same problem: the lane solver's Li form, whose floor
+    # is the JAX package's (tests/test_torch_value_floor.py holds the CPU
+    # route to that).
     fd_mod, missed = _fd_problems(), []
+    floor_problems = ("MC 1-D, h 1", "MC 1-D, h 2")
     for label, problem in fd_mod.PROBLEMS.items():
         torch.cuda.synchronize()
         nl.LAUNCHES = 0
@@ -1378,19 +1465,24 @@ def phase_examples(dev, card):
                                             atol=res.atol))
         ratio = lambda fd: np.divide(res.grad, fd, out=np.full_like(res.grad, np.nan),  # noqa: E731
                                      where=fd != 0.0)
+        floor_note, floor_ok = "", True
+        if label in floor_problems:
+            cpu_floor = fd_mod.jitter(problem(torch.device("cpu")))
+            floor_ok = floor <= 3.0 * cpu_floor
+            floor_note = (f" (CPU route {cpu_floor:.2e}: {floor / cpu_floor:.2f}x, "
+                          f"{'within' if floor_ok else 'OUTSIDE'} 3x)")
         print(f"FD on the card, {label}: gradient {res.grad}; one centered difference "
               f"{res.fd}, ratio {ratio(res.fd)}, {'within' if close(res.fd) else 'OUTSIDE'} "
               f"rtol {res.rtol:g} / atol {res.atol:g}; mean of 11 {mean_fd}, ratio "
               f"{ratio(mean_fd)}, {'within' if close(mean_fd) else 'OUTSIDE'}; "
-              f"{n} kernel launches; the function's jitter {floor:.2e}, one difference's "
-              f"noise ~{math.sqrt(2.0) * floor / (2 * res.eps):.2e} of slope")
-        if n == 0 or not res.branch or not close(mean_fd):
+              f"{n} kernel launches; the function's jitter {floor:.2e}{floor_note}, one "
+              f"difference's noise ~{math.sqrt(2.0) * floor / (2 * res.eps):.2e} of slope")
+        if n == 0 or not res.branch or not close(res.fd) or not floor_ok:
             missed.append(label)
     if missed:
         raise AssertionError(f"FD problems outside the JAX tests' tolerances (or not "
-                             f"through the kernel, or off their branch) on the card: {missed}")
-    torch.cuda.synchronize()
-    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
+                             f"through the kernel, off their branch, or above 3x the CPU "
+                             f"route's rounding floor) on the card: {missed}")
 
 
 _PHASES = (3, 4, 5, 6, 7, 8, 9, 10, 11)

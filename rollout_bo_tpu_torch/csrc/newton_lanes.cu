@@ -3,11 +3,31 @@
 // Replaces the TPU kernel rollout_bo_tpu/ops/pallas_newton.py::
 // newton_solve_lanes (body _make_kernel). Per lane (one restart x MC
 // trajectory of the rollout) and per start, it runs `iterations` steps of:
-// posterior mu / sigma with gradients and Hessians from W = K^{-1}; the
-// decision rule's value and five partials; the active-set reduction at the
-// box faces; a Gershgorin-damped Newton direction from two Cholesky
-// solves; backtracking over 2 directions x 9 steps. Then the best start
-// per lane wins (first start on a tie, non-finite values count as -inf).
+// posterior mu / sigma with gradients and Hessians from the lane's matrix
+// M (below); the decision rule's value and five partials; the active-set
+// reduction at the box faces; a Gershgorin-damped Newton direction from two
+// Cholesky solves; backtracking over 2 directions x 9 steps. Then the best
+// start per lane wins (first start on a tie, non-finite values count as
+// -inf).
+//
+// The form of the variance is fixed per instantiation (kLiForm), as the
+// JAX package routes the two dtypes (rollout_bo_tpu/rollout/solvers.py:
+// 40-64): float32 lanes to the TPU kernel, float64 lanes to its XLA solver.
+// - float reads M = W = K^{-1} = Li^T Li, formed by the wrapper, and
+//   computes the TPU kernel's k0 - k^T W k;
+// - double reads M = Li = L^{-1}, the lower-triangular inverse of the
+//   Cholesky factor that the surrogate state maintains (identity-padded,
+//   zero above the diagonal), and computes k0 - |Li k|^2: v = Li k and
+//   w = Li^T v = K^{-1} k as triangular products, the Hessian's data term
+//   G^T K^{-1} G as the Gram P^T P of P = Li G, a candidate's variance as
+//   k0 - |Li k_c|^2. It never forms or reads W, nor Li above its diagonal.
+// The W form's rounding grows with cond(K), the Li form's with its square
+// root. A step is accepted only when the value rises in floating point, so
+// that rounding is the floor at which every argmax stops, and the rollout's
+// fantasy draws carry it into its value: in float64 the Li form keeps that
+// floor at the JAX package's, which the rollout's gradient checks need. In
+// float32 the W form is the TPU kernel's own and the faster one at the
+// bench shape.
 //
 // What bounds it on an H100: operations, not bytes. At the bench shape
 // (1600 lanes, capacity 24, d 10, 10 starts, 10 iterations) one launch needs
@@ -25,20 +45,27 @@
 // (lane, start), so the card sees lanes x starts warps instead of as many
 // threads, and no thread holds a d x d array in local memory.
 // - A block holds `lanes_per_block` lanes x `groups_per_lane` groups. Each
-//   lane's X, W and c are staged once in shared memory, rows padded to an
+//   lane's X, M and c are staged once in shared memory, rows padded to an
 //   odd stride so that threads on different rows hit different banks; a
-//   group loops over the starts ws, ws + groups_per_lane, ... When one
-//   lane's W does not fit, it stays in device memory (template kStageW).
-// - Passes over the data (k(x, X), psi'/rho, b; w = W k): thread t takes the
-//   rows t, t + G, ...; mu, the variance and the isotropic terms are
+//   group loops over the starts ws, ws + groups_per_lane, ... Li keeps W's
+//   square layout and only its lower triangle is copied (the packed
+//   triangle would halve its words and change the occupancy: left to its
+//   own measurement). When one lane's M does not fit, it stays in device
+//   memory (template kStageM).
+// - Passes over the data (k(x, X), psi'/rho, b; w = W k, or v = Li k by rows
+//   l <= j): thread t takes the rows t, t + G, ...; in the Li form w = Li^T
+//   v follows by columns, thread t on column l0 + t of each 32-wide slice
+//   over the rows j >= l. mu, the variance and the isotropic terms are
 //   butterfly reductions by __shfl_xor_sync, a fixed tree, so a run repeats
 //   bit for bit and every thread of the group holds the same sum.
 // - Gradients: thread k < d owns component k of every d-vector (x, grad mu,
 //   grad sigma, the free mask, the directions).
-// - Hessian: the rows G_j = a_j r_j are stored once; Q = coef r + ga W G
-//   (n x d) is built with one (rows, column) strip per thread; then each
-//   thread owns a few of the d (d + 1) / 2 symmetric entries and sums
-//   r_j[i] Q_j[k] over the data. No reduction, no read-modify-write.
+// - Hessian: the rows G_j = a_j r_j are stored once. W form: Q = coef r +
+//   ga W G (n x d) is built with one (rows, column) strip per thread; then
+//   each thread owns a few of the d (d + 1) / 2 symmetric entries and sums
+//   r_j[i] Q_j[k] over the data. Li form: P = Li G by the same strips (row
+//   j over l <= j), G's rows then take C_j = coef_j r_j, and each entry sums
+//   r_j[i] C_j[k] and P_j[i] P_j[k]. No reduction, no read-modify-write.
 // - Cholesky: thread i keeps row i of the factor in registers (loops
 //   unrolled to MAX_D, every index a constant), right-looking, the column
 //   of each step broadcast by shuffles; the forward solve broadcasts one
@@ -46,15 +73,17 @@
 //   shared memory. Which solve is taken (ridge, Gershgorin shift, scaled
 //   gradient) is uniform across the group.
 // - Backtracking: the 18 candidates x n data rows are dealt to the threads
-//   in tiles of 2 points x 2 rows, for k(x_c, X_j) and then for W k; thread
-//   c sums candidate c's mu and variance in data order. The winner is the
+//   in tiles of 2 points x 2 rows, for k(x_c, X_j) and then for W k (or Li
+//   k on the lower triangle); thread c sums candidate c's mu and variance
+//   in data order. The winner is the
 //   largest value strictly above the current one, the lowest candidate
 //   index on a tie: what the sequential strict `>` loop selects.
 // - Best start: each group keeps its best (value, start, x) in start order;
 //   after a barrier the lane's first group picks the largest value, lowest
 //   start on a tie.
 // Shared memory per group (words of T, dp = d | 1): 5 cap rows + 2 cap x
-// max(dp, 18) (G and Q, reused for the candidates' k and W k columns) +
+// max(dp, 18) (G and Q, or G, C and P; reused for the candidates' k and
+// W k or Li k columns) +
 // 2 d dp (A and its factor) + 18 dp (candidates) + 7 dp (vectors) + dp + 2
 // (result). At the bench shape that is 1,492 words: 5,968 B in float32, so a
 // block of one lane x 10 groups (320 threads) takes 63,320 B with the lane's
@@ -103,6 +132,10 @@ constexpr int kMaxThreads = 512;         // per block; the wrapper sizes blocks 
 // measured faster than 80, 96 or 128 registers with fewer warps, spills and
 // all. float64 keeps 128 registers; its shared memory allows one or two blocks.
 template <typename T> constexpr int min_blocks() { return sizeof(T) == 4 ? 2 : 1; }
+// The form of the variance per instantiation (see the top of this file):
+// double reads Li, float reads W. ops/newton_lanes.py::_lane_matrix passes
+// the matching matrix.
+template <typename T> constexpr bool kLiForm = sizeof(T) == 8;
 static_assert(MAX_D <= kG, "thread k of a group owns component k of a d-vector");
 
 __constant__ double kCCoef[13] = {
@@ -396,11 +429,11 @@ __device__ __forceinline__ int group_min(unsigned m, int v) {
 // ---- one lane and one group's scratch ----------------------------------------------
 template <typename T> struct Lane {
   const T* X;  // (cap, dp) in shared memory
-  const T* W;  // rows at stride wst: shared memory (kStageW) or device memory
+  const T* M;  // W or Li, rows at stride mst: shared memory (kStageM) or device memory
   const T* c;  // (cap,) in shared memory
   const T* lb;  // (d,) in shared memory
   const T* ub;
-  int n, d, dp, wst, kind, rule;
+  int n, d, dp, mst, kind, rule;
   T ell, period, k0, fm, th, stol, sfloor;
 };
 
@@ -410,13 +443,15 @@ template <typename T> struct GroupScratch {
   T* base;
   int cap, d, dp;
   __device__ __forceinline__ T* kx() const { return base; }  // k(x, X)
-  __device__ __forceinline__ T* av() const { return base + cap; }  // psi'/rho
+  __device__ __forceinline__ T* av() const { return base + cap; }  // psi'/rho (W form)
+  __device__ __forceinline__ T* vv() const { return base + cap; }  // Li k (Li form)
   __device__ __forceinline__ T* bv() const { return base + 2 * cap; }
-  __device__ __forceinline__ T* wv() const { return base + 3 * cap; }  // W k
+  __device__ __forceinline__ T* wv() const { return base + 3 * cap; }  // K^{-1} k
   __device__ __forceinline__ T* ia() const { return base + 4 * cap; }  // a, or iso at rho = 0
   __device__ __forceinline__ T* Gm() const { return base + 5 * cap; }  // (cap, dp) a_j r_j
   __device__ __forceinline__ T* Q() const { return Gm() + cap * dp; }  // (cap, dp)
-  // after Q is spent, the candidates' k(x, X) and W k, (cap, kCand) each
+  __device__ __forceinline__ T* P() const { return Q(); }  // (cap, dp) Li G (Li form)
+  // after Q or P is spent, the candidates' k(x, X) and W k or Li k, (cap, kCand) each
   __device__ __forceinline__ T* kxc() const { return Gm(); }
   __device__ __forceinline__ T* wc() const { return Gm() + cap * kCand; }
   __device__ static int gq_words(int cap, int dp) {
@@ -441,16 +476,18 @@ template <typename T> struct GroupScratch {
 
 // The rule's value at kNc points x_c (rows of xc at stride dp), by the whole
 // group; thread c gets the value of x_c, c + kG, ... in turn through `take`.
-// k(x_c, X_j) and (W k)_j are computed in tiles of 2 points x 2 data rows
-// per thread: four independent chains from four loads per step, and half
-// the loads of one (point, row) pair per thread. A tile at the ragged edge
+// k(x_c, X_j) and (W k)_j, or (Li k)_j, are computed in tiles of 2 points x
+// 2 data rows per thread: four independent chains from four loads per step,
+// and half the loads of one (point, row) pair per thread. In the Li form
+// the rows of a tile are neighbours j0, j0 + 1, so that their sums over
+// l <= j share one loop but for the last term. A tile at the ragged edge
 // repeats its last valid row or point. Every sum runs over the data in
 // order, as a single thread would.
 template <int kNc, typename T, typename F>
 __device__ __forceinline__ void candidate_values(const Lane<T>& L, const GroupScratch<T>& S,
                                                  const T* xc, int t, unsigned m, F take) {
   constexpr int kCp = (kNc + 1) / 2;  // point pairs
-  const int d = L.d, n = L.n, dp = L.dp, wst = L.wst;
+  const int d = L.d, n = L.n, dp = L.dp, mst = L.mst;
   const int ntiles = ((n + 1) / 2) * kCp;
   T* kxc = S.kxc();
   T* wc = S.wc();
@@ -481,17 +518,32 @@ __device__ __forceinline__ void candidate_values(const Lane<T>& L, const GroupSc
     const int jp = q / kCp;
     const int c0 = 2 * (q - jp * kCp), c1 = min(c0 + 1, kNc - 1);
     const int j0 = 2 * jp, j1 = min(j0 + 1, n - 1);
-    const T* Wa = L.W + j0 * wst;
-    const T* Wb = L.W + j1 * wst;
+    const T* Wa = L.M + j0 * mst;
+    const T* Wb = L.M + j1 * mst;
     const T* ka = kxc + c0;
     const T* kb = kxc + c1;
     T waa = T(0), wab = T(0), wba = T(0), wbb = T(0);  // w<point><row>
-    for (int l = 0; l < n; ++l) {
-      const T kal = ka[l * kNc], kbl = kb[l * kNc], Wal = Wa[l], Wbl = Wb[l];
-      waa += Wal * kal;
-      wab += Wbl * kal;
-      wba += Wal * kbl;
-      wbb += Wbl * kbl;
+    if constexpr (kLiForm<T>) {  // rows j0 and j1 of Li over l <= j
+      for (int l = 0; l <= j0; ++l) {
+        const T kal = ka[l * kNc], kbl = kb[l * kNc], Wal = Wa[l], Wbl = Wb[l];
+        waa += Wal * kal;
+        wab += Wbl * kal;
+        wba += Wal * kbl;
+        wbb += Wbl * kbl;
+      }
+      if (j1 > j0) {  // row j0 + 1's diagonal term
+        const T Wbb = Wb[j1];
+        wab += Wbb * ka[j1 * kNc];
+        wbb += Wbb * kb[j1 * kNc];
+      }
+    } else {
+      for (int l = 0; l < n; ++l) {
+        const T kal = ka[l * kNc], kbl = kb[l * kNc], Wal = Wa[l], Wbl = Wb[l];
+        waa += Wal * kal;
+        wab += Wbl * kal;
+        wba += Wal * kbl;
+        wbb += Wbl * kbl;
+      }
     }
     wc[j0 * kNc + c0] = waa;
     wc[j1 * kNc + c0] = wab;
@@ -504,7 +556,12 @@ __device__ __forceinline__ void candidate_values(const Lane<T>& L, const GroupSc
     for (int j = 0; j < n; ++j) {
       const T kj = kxc[j * kNc + c];
       mu += kj * L.c[j];
-      quad += kj * wc[j * kNc + c];
+      if constexpr (kLiForm<T>) {
+        const T vj = wc[j * kNc + c];
+        quad += vj * vj;  // |Li k|^2
+      } else {
+        quad += kj * wc[j * kNc + c];  // k^T W k
+      }
     }
     const T var = jmax(L.k0 - quad, L.sfloor * L.sfloor);
     take(c, finite_or_neg_inf(rule_value(L.rule, mu, m_sqrt(var), L.th, L.fm, L.stol)));
@@ -602,7 +659,7 @@ __device__ void group_iteration(const Lane<T>& L, const GroupScratch<T>& S, int 
     profile_terms(L.kind, rho, sq, L.ell, L.period, psi, a, b, iso);
     const T ia = rho > T(kEps) ? a : iso;
     S.kx()[j] = psi;
-    S.av()[j] = a;
+    if constexpr (!kLiForm<T>) S.av()[j] = a;
     S.bv()[j] = b;
     S.ia()[j] = ia;
     const T cj = L.c[j];
@@ -616,16 +673,43 @@ __device__ void group_iteration(const Lane<T>& L, const GroupScratch<T>& S, int 
   __syncwarp(m);
   // pass 2: w = K^{-1} k(x, X); variance; iso . w
   T quad = T(0), iso_w = T(0);
-  for (int j = t; j < n; j += kG) {
-    const T* Wj = L.W + j * L.wst;
-    T wj = T(0);
-    for (int l = 0; l < n; ++l) wj += Wj[l] * S.kx()[l];
-    S.wv()[j] = wj;
-    quad += S.kx()[j] * wj;
-    iso_w += wj * S.ia()[j];
+  if constexpr (kLiForm<T>) {
+    // v = Li k, row j over l <= j; the variance k0 - |v|^2
+    for (int j = t; j < n; j += kG) {
+      const T* Lj = L.M + j * L.mst;
+      T vj = T(0);
+      for (int l = 0; l <= j; ++l) vj += Lj[l] * S.kx()[l];
+      S.vv()[j] = vj;
+      quad += vj * vj;
+    }
+    quad = group_sum(m, quad);
+    __syncwarp(m);
+    // w = Li^T v, column l over the rows j >= l: thread t takes column
+    // l0 + t and every thread walks the same rows (consecutive words of one
+    // row, no bank conflict)
+    for (int l0 = 0; l0 < n; l0 += kG) {
+      const int l = l0 + t;
+      T wl = T(0);
+      for (int j = l0; j < n; ++j)
+        if (j >= l) wl += L.M[j * L.mst + l] * S.vv()[j];
+      if (l < n) {
+        S.wv()[l] = wl;
+        iso_w += wl * S.ia()[l];
+      }
+    }
+    iso_w = group_sum(m, iso_w);
+  } else {
+    for (int j = t; j < n; j += kG) {
+      const T* Wj = L.M + j * L.mst;
+      T wj = T(0);
+      for (int l = 0; l < n; ++l) wj += Wj[l] * S.kx()[l];
+      S.wv()[j] = wj;
+      quad += S.kx()[j] * wj;
+      iso_w += wj * S.ia()[j];
+    }
+    quad = group_sum(m, quad);
+    iso_w = group_sum(m, iso_w);
   }
-  quad = group_sum(m, quad);
-  iso_w = group_sum(m, iso_w);
   const T var = jmax(L.k0 - quad, L.sfloor * L.sfloor);
   const T sigma = m_sqrt(var);
   const T ssafe = jmax(sigma, L.sfloor);
@@ -665,43 +749,81 @@ __device__ void group_iteration(const Lane<T>& L, const GroupScratch<T>& S, int 
   PHASE_MARK(0);  // the three passes, the rule, the active set
   // H = gmumu gm gm' + gmu Hmu + gsigsig gs gs' + gsig Hsig + gmusig (gm gs' + gs gm')
   // with Hmu = iso_c I + sum_j c_j b_j r_j r_j' and
-  // ssafe Hsig = -gs gs' - G' W G - sum_j w_j b_j r_j r_j' - iso_w I, G_j = a_j r_j.
-  // The sums over the data are sum_j r_j Q_j' with
-  // Q_j = (gmu c_j - hs w_j) b_j r_j - hs a_j (W G)_j:
-  // strip (rows tj, tj + jstep, ...; column tk) of Q per thread
+  // ssafe Hsig = -gs gs' - G' K^{-1} G - sum_j w_j b_j r_j r_j' - iso_w I, G_j = a_j r_j.
   const int jstep = kG / d;
   const int tj = t / d, tk = t - tj * d;
-  if (tj < jstep) {
-    const T xk = xs[tk];
-    const T* Gk = S.Gm() + tk;
-    auto store = [&](int j, T u) {
+  if constexpr (kLiForm<T>) {
+    // G' K^{-1} G = P' P, P = Li G; the sums over the data are
+    // sum_j r_j C_j' - hs P_j P_j' with C_j = (gmu c_j - hs w_j) b_j r_j.
+    // P by strips (rows tj, tj + jstep, ...; column tk), one per thread
+    if (tj < jstep) {
+      const T* Gk = S.Gm() + tk;
+      int j = tj;
+      for (; j + jstep < n; j += 2 * jstep) {  // two rows at a time
+        const T* La = L.M + j * L.mst;
+        const T* Lb = La + jstep * L.mst;
+        T ua = T(0), ub = T(0);
+        int l = 0;
+        for (; l <= j; ++l) {
+          const T gl = Gk[l * dp];
+          ua += La[l] * gl;
+          ub += Lb[l] * gl;
+        }
+        for (; l <= j + jstep; ++l) ub += Lb[l] * Gk[l * dp];
+        S.P()[j * dp + tk] = ua;
+        S.P()[(j + jstep) * dp + tk] = ub;
+      }
+      if (j < n) {
+        const T* La = L.M + j * L.mst;
+        T ua = T(0);
+        for (int l = 0; l <= j; ++l) ua += La[l] * Gk[l * dp];
+        S.P()[j * dp + tk] = ua;
+      }
+    }
+    __syncwarp(m);
+    // G is spent: its rows take C_j, one entry per thread in turn
+    for (int e = t; e < n * d; e += kG) {
+      const int j = e / d, k = e - j * d;
       const T bj = S.bv()[j];
       const T coef = gmu * L.c[j] * bj - hs * S.wv()[j] * bj;
-      const T ga = -hs * S.av()[j];
-      S.Q()[j * dp + tk] = coef * (xk - L.X[j * dp + tk]) + ga * u;
-    };
-    int j = tj;
-    for (; j + jstep < n; j += 2 * jstep) {  // two rows at a time
-      const T* Wa = L.W + j * L.wst;
-      const T* Wb = Wa + jstep * L.wst;
-      T ua = T(0), ub = T(0);
-      for (int l = 0; l < n; ++l) {
-        const T gl = Gk[l * dp];
-        ua += Wa[l] * gl;
-        ub += Wb[l] * gl;
-      }
-      store(j, ua);
-      store(j + jstep, ub);
+      S.Gm()[j * dp + k] = coef * (xs[k] - L.X[j * dp + k]);
     }
-    if (j < n) {
-      const T* Wa = L.W + j * L.wst;
-      T ua = T(0);
-      for (int l = 0; l < n; ++l) ua += Wa[l] * Gk[l * dp];
-      store(j, ua);
+  } else {
+    // The sums over the data are sum_j r_j Q_j' with
+    // Q_j = (gmu c_j - hs w_j) b_j r_j - hs a_j (W G)_j:
+    // strip (rows tj, tj + jstep, ...; column tk) of Q per thread
+    if (tj < jstep) {
+      const T xk = xs[tk];
+      const T* Gk = S.Gm() + tk;
+      auto store = [&](int j, T u) {
+        const T bj = S.bv()[j];
+        const T coef = gmu * L.c[j] * bj - hs * S.wv()[j] * bj;
+        const T ga = -hs * S.av()[j];
+        S.Q()[j * dp + tk] = coef * (xk - L.X[j * dp + tk]) + ga * u;
+      };
+      int j = tj;
+      for (; j + jstep < n; j += 2 * jstep) {  // two rows at a time
+        const T* Wa = L.M + j * L.mst;
+        const T* Wb = Wa + jstep * L.mst;
+        T ua = T(0), ub = T(0);
+        for (int l = 0; l < n; ++l) {
+          const T gl = Gk[l * dp];
+          ua += Wa[l] * gl;
+          ub += Wb[l] * gl;
+        }
+        store(j, ua);
+        store(j + jstep, ub);
+      }
+      if (j < n) {
+        const T* Wa = L.M + j * L.mst;
+        T ua = T(0);
+        for (int l = 0; l < n; ++l) ua += Wa[l] * Gk[l * dp];
+        store(j, ua);
+      }
     }
   }
   __syncwarp(m);
-  PHASE_MARK(1);  // the Q strips
+  PHASE_MARK(1);  // the Q strips (W form); P = Li G and the rows C_j (Li form)
   // symmetric entries (i >= k) of H, a few per thread; A = -Hf on the free
   // set, the identity on the active one
   const int npairs = d * (d + 1) / 2;
@@ -715,7 +837,16 @@ __device__ void group_iteration(const Lane<T>& L, const GroupScratch<T>& S, int 
           hs * gsi * gsk;
     if (i == k) h += gmu * iso_c - hs * iso_w;
     const T xi = xs[i];
-    for (int j = 0; j < n; ++j) h += (xi - L.X[j * dp + i]) * S.Q()[j * dp + k];
+    if constexpr (kLiForm<T>) {
+      T hc = T(0), hp = T(0);
+      for (int j = 0; j < n; ++j) {
+        hc += (xi - L.X[j * dp + i]) * S.Gm()[j * dp + k];
+        hp += S.P()[j * dp + i] * S.P()[j * dp + k];
+      }
+      h += hc - hs * hp;
+    } else {
+      for (int j = 0; j < n; ++j) h += (xi - L.X[j * dp + i]) * S.Q()[j * dp + k];
+    }
     const T fi = S.fr()[i], fk = S.fr()[k];
     const T aik = -(h * fi * fk - (i == k ? T(1) - fi : T(0)));
     S.A()[i * dp + k] = aik;
@@ -793,9 +924,9 @@ __device__ void group_iteration(const Lane<T>& L, const GroupScratch<T>& S, int 
   PHASE_MARK(6);  // the winner
 }
 
-template <typename T, bool kStageW>
+template <typename T, bool kStageM>
 __global__ void __launch_bounds__(kMaxThreads, min_blocks<T>())
-    newton_lanes_kernel(const T* __restrict__ X, const T* __restrict__ W,
+    newton_lanes_kernel(const T* __restrict__ X, const T* __restrict__ M,
                         const T* __restrict__ c, const long long* __restrict__ n_lane,
                         const T* __restrict__ fmini, const T* __restrict__ theta0,
                         const T* __restrict__ params, const T* __restrict__ lbs,
@@ -808,15 +939,15 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks<T>())
   const int nth = blockDim.x;
   const int tid = threadIdx.x;
   const int dp = d | 1;
-  const int wst = kStageW ? (cap | 1) : cap;
+  const int mst = kStageM ? (cap | 1) : cap;
   const int lane0 = blockIdx.x * lanes_per_block;
   const int here = min(lanes_per_block, num_lanes - lane0);
 
-  // block: X (lanes, cap, dp), W (lanes, cap, wst) when staged, c (lanes, cap),
+  // block: X (lanes, cap, dp), M (lanes, cap, mst) when staged, c (lanes, cap),
   // the box (2, dp); then one GroupScratch per group
   T* sX = reinterpret_cast<T*>(smem_raw);
-  T* sW = sX + lanes_per_block * cap * dp;
-  T* sc = sW + (kStageW ? lanes_per_block * cap * wst : 0);
+  T* sM = sX + lanes_per_block * cap * dp;
+  T* sc = sM + (kStageM ? lanes_per_block * cap * mst : 0);
   T* sbox = sc + lanes_per_block * cap;
   T* sgroups = sbox + 2 * dp;
   const int group_words = GroupScratch<T>::words(cap, d, dp);
@@ -826,10 +957,17 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks<T>())
     const int r = i / d;
     sX[r * dp + (i - r * d)] = X[(size_t)lane0 * cap * d + i];
   }
-  if (kStageW) {
-    for (int i = tid; i < here * cap * cap; i += nth) {
-      const int r = i / cap;
-      sW[r * wst + (i - r * cap)] = W[(size_t)lane0 * cap * cap + i];
+  if (kStageM) {
+    if constexpr (kLiForm<T>) {  // Li's lower triangle: nothing reads above it
+      for (int i = tid; i < here * cap * cap; i += nth) {
+        const int r = i / cap, col = i - r * cap;
+        if (col <= r % cap) sM[r * mst + col] = M[(size_t)lane0 * cap * cap + i];
+      }
+    } else {
+      for (int i = tid; i < here * cap * cap; i += nth) {
+        const int r = i / cap;
+        sM[r * mst + (i - r * cap)] = M[(size_t)lane0 * cap * cap + i];
+      }
     }
   }
   for (int i = tid; i < here * cap; i += nth) sc[i] = c[(size_t)lane0 * cap + i];
@@ -856,7 +994,7 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks<T>())
   if (active) {
     Lane<T> L;
     L.X = sX + ll * cap * dp;
-    L.W = kStageW ? sW + ll * cap * wst : W + (size_t)lane * cap * cap;
+    L.M = kStageM ? sM + ll * cap * mst : M + (size_t)lane * cap * cap;
     L.c = sc + ll * cap;
     L.lb = sbox;
     L.ub = sbox + dp;
@@ -864,7 +1002,7 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks<T>())
     L.n = nl < 0 ? 0 : (nl > cap ? cap : static_cast<int>(nl));
     L.d = d;
     L.dp = dp;
-    L.wst = wst;
+    L.mst = mst;
     L.kind = kind;
     L.rule = rule;
     L.ell = params[0];
@@ -942,14 +1080,14 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks<T>())
   }
 }
 
-template <typename T, bool kStageW>
-int launch_as(const void* X, const void* W, const void* c, const void* n,
+template <typename T, bool kStageM>
+int launch_as(const void* X, const void* M, const void* c, const void* n,
               const void* fmini, const void* theta0, const void* params, const void* lbs,
               const void* ubs, const void* xstarts, void* xout, void* vout, int num_lanes,
               int cap, int d, int S, int iterations, int kind, int rule,
               int lanes_per_block, int groups_per_lane, double stol, double sfloor,
               double ridge, double f_tol, double x_tol, int smem, void* stream) {
-  auto kernel = newton_lanes_kernel<T, kStageW>;
+  auto kernel = newton_lanes_kernel<T, kStageM>;
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -958,7 +1096,7 @@ int launch_as(const void* X, const void* W, const void* c, const void* n,
   const int blocks = (num_lanes + lanes_per_block - 1) / lanes_per_block;
   const int threads = lanes_per_block * groups_per_lane * kG;
   kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(X), static_cast<const T*>(W), static_cast<const T*>(c),
+      static_cast<const T*>(X), static_cast<const T*>(M), static_cast<const T*>(c),
       static_cast<const long long*>(n), static_cast<const T*>(fmini),
       static_cast<const T*>(theta0), static_cast<const T*>(params),
       static_cast<const T*>(lbs), static_cast<const T*>(ubs),
@@ -969,18 +1107,18 @@ int launch_as(const void* X, const void* W, const void* c, const void* n,
 }
 
 template <typename T>
-int launch(const void* X, const void* W, const void* c, const void* n,
+int launch(const void* X, const void* M, const void* c, const void* n,
            const void* fmini, const void* theta0, const void* params,
            const void* lbs, const void* ubs, const void* xstarts, void* xout,
            void* vout, int num_lanes, int cap, int d, int S, int iterations,
-           int kind, int rule, int lanes_per_block, int groups_per_lane, int stage_w,
+           int kind, int rule, int lanes_per_block, int groups_per_lane, int stage_m,
            double stol, double sfloor, double ridge, double f_tol, double x_tol,
            int smem, void* stream) {
   if (d < 1 || d > MAX_D || S < 1 || lanes_per_block < 1 || groups_per_lane < 1 ||
       lanes_per_block * groups_per_lane * kG > kMaxThreads)
     return (int)cudaErrorInvalidValue;
-  auto fn = stage_w ? launch_as<T, true> : launch_as<T, false>;
-  return fn(X, W, c, n, fmini, theta0, params, lbs, ubs, xstarts, xout, vout, num_lanes,
+  auto fn = stage_m ? launch_as<T, true> : launch_as<T, false>;
+  return fn(X, M, c, n, fmini, theta0, params, lbs, ubs, xstarts, xout, vout, num_lanes,
             cap, d, S, iterations, kind, rule, lanes_per_block, groups_per_lane, stol,
             sfloor, ridge, f_tol, x_tol, smem, stream);
 }
@@ -998,15 +1136,15 @@ extern "C" int newton_lanes_phase_cycles(unsigned long long* out) {
 #endif
 
 // blocks of `threads` threads and `smem` dynamic bytes that one SM holds
-extern "C" int newton_lanes_blocks_per_sm(int itemsize, int stage_w, int threads, int smem) {
+extern "C" int newton_lanes_blocks_per_sm(int itemsize, int stage_m, int threads, int smem) {
   int blocks = 0;
   cudaError_t e;
   if (itemsize == 4) {
-    auto k = stage_w ? newton_lanes_kernel<float, true> : newton_lanes_kernel<float, false>;
+    auto k = stage_m ? newton_lanes_kernel<float, true> : newton_lanes_kernel<float, false>;
     cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, threads, smem);
   } else {
-    auto k = stage_w ? newton_lanes_kernel<double, true> : newton_lanes_kernel<double, false>;
+    auto k = stage_m ? newton_lanes_kernel<double, true> : newton_lanes_kernel<double, false>;
     cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, threads, smem);
   }
@@ -1014,17 +1152,17 @@ extern "C" int newton_lanes_blocks_per_sm(int itemsize, int stage_w, int threads
 }
 
 #define NEWTON_LANES_ENTRY(NAME, T)                                                \
-  extern "C" int NAME(const void* X, const void* W, const void* c, const void* n, \
+  extern "C" int NAME(const void* X, const void* M, const void* c, const void* n, \
                       const void* fmini, const void* theta0, const void* params,  \
                       const void* lbs, const void* ubs, const void* xstarts,      \
                       void* xout, void* vout, int num_lanes, int cap, int d,      \
                       int S, int iterations, int kind, int rule,                  \
-                      int lanes_per_block, int groups_per_lane, int stage_w,      \
+                      int lanes_per_block, int groups_per_lane, int stage_m,      \
                       double stol, double sfloor, double ridge, double f_tol,     \
                       double x_tol, int smem, void* stream) {                     \
-    return launch<T>(X, W, c, n, fmini, theta0, params, lbs, ubs, xstarts, xout,  \
+    return launch<T>(X, M, c, n, fmini, theta0, params, lbs, ubs, xstarts, xout,  \
                      vout, num_lanes, cap, d, S, iterations, kind, rule,          \
-                     lanes_per_block, groups_per_lane, stage_w, stol, sfloor,     \
+                     lanes_per_block, groups_per_lane, stage_m, stol, sfloor,     \
                      ridge, f_tol, x_tol, smem, stream);                          \
   }
 

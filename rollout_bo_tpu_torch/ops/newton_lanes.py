@@ -11,10 +11,18 @@ has 8 x 200 = 1600 lanes per call.
   hand-written kernel `csrc/newton_lanes.cu` (one warp per (lane, start),
   the lane's GP staged in shared memory); it raises rather than fall
   back. For CPU tensors it runs the plain version.
-- `newton_solve_lanes_ref` is the plain PyTorch version: the same math
-  in the same W = K^{-1} formulation, batch-first over (lane, start). The
-  CPU tests hold it against the JAX kernel, and `chip_smoke.py` holds the
-  CUDA kernel against it on the card.
+- `newton_solve_lanes_ref` is the plain PyTorch version: the same math,
+  batch-first over (lane, start). The CPU tests hold it against the JAX
+  package, and `chip_smoke.py` holds the CUDA kernel against it on the card.
+
+Both take each lane's Li = L^{-1}, the explicit inverse of its Cholesky
+factor that the surrogate state maintains, and compute the posterior
+variance in the form the JAX package gives that dtype (`_lane_matrix`):
+float32 lanes in the TPU kernel's W = K^{-1} = Li^T Li form, k0 - k^T W k;
+float64 lanes in its XLA solver's Li form, k0 - |Li k|^2. The W form's
+rounding grows with cond(K), the Li form's with its square root; the
+solver accepts a step only when the value rises in floating point, so that
+rounding sets the floor at which each argmax stops.
 
 Only the forward solve exists: `rollout/trajectory.py::argmax_with_ift`
 differentiates through the implicit-function-theorem linearization and
@@ -124,22 +132,25 @@ def _profile_terms(kind: str, rho, sq, ell, period):
 # --------------------------------------------------------------------------
 
 
-def _posterior_value(x, Xl, Wl, cl, ml, kind, ell, period, k0, sigma_floor):
-    """(mu, sigma) at x (L, S, d); lane arrays carry a singleton start axis."""
+def _posterior_value(x, Xl, Ml, li, cl, ml, kind, ell, period, k0, sigma_floor):
+    """(mu, sigma) at x (L, S, d); lane arrays carry a singleton start axis.
+    Ml is Li when `li`, else W (`_lane_matrix`)."""
     R = x[..., None, :] - Xl                           # (L, S, cap, d)
     sq = torch.sum(R * R, dim=-1)
     rho = torch.sqrt(torch.clamp(sq, min=0.0))
     kx = _profile_terms(kind, rho, sq, ell, period)[0] * ml
-    w = (Wl @ kx[..., None])[..., 0]
+    u = (Ml @ kx[..., None])[..., 0]                   # Li k, or W k
     mu = torch.sum(kx * cl, dim=-1)
-    var = torch.clamp(k0 - torch.sum(kx * w, dim=-1), min=sigma_floor ** 2)
+    quad = torch.sum(u * u, dim=-1) if li else torch.sum(kx * u, dim=-1)
+    var = torch.clamp(k0 - quad, min=sigma_floor ** 2)
     return mu, torch.sqrt(var)
 
 
-def _posterior_full(x, Xl, Wl, cl, ml, kind, ell, period, k0, sigma_floor):
-    """mu, grad mu, hess mu, sigma, grad sigma, hess sigma at x (L, S, d),
-    with W = K^{-1} in place of the two triangular applications of Li
-    (models/surrogate.py::posterior)."""
+def _posterior_full(x, Xl, Ml, li, cl, ml, kind, ell, period, k0, sigma_floor):
+    """mu, grad mu, hess mu, sigma, grad sigma, hess sigma at x (L, S, d).
+    Li form (`li`, Ml = Li), as models/surrogate.py::posterior: v = Li k,
+    the variance k0 - |v|^2, w = Li^T v and G^T K^{-1} G = (Li G)^T (Li G).
+    W form (Ml = W = K^{-1}): w = W k, k0 - k^T w and G^T W G."""
     d = x.shape[-1]
     R = x[..., None, :] - Xl                           # (L, S, cap, d)
     sq = torch.sum(R * R, dim=-1)
@@ -150,8 +161,17 @@ def _posterior_full(x, Xl, Wl, cl, ml, kind, ell, period, k0, sigma_floor):
     gkxT = gkx.transpose(-1, -2)
     mu = torch.sum(kx * cl, dim=-1)
     grad_mu = (gkxT @ cl[..., None])[..., 0]
-    w = (Wl @ kx[..., None])[..., 0]
-    var = torch.clamp(k0 - torch.sum(kx * w, dim=-1), min=sigma_floor ** 2)
+    if li:
+        v = (Ml @ kx[..., None])[..., 0]
+        w = (Ml.transpose(-1, -2) @ v[..., None])[..., 0]
+        quad = torch.sum(v * v, dim=-1)
+        P = Ml @ gkx                                   # (L, S, cap, d)
+        data = P.transpose(-1, -2) @ P
+    else:
+        w = (Ml @ kx[..., None])[..., 0]
+        quad = torch.sum(kx * w, dim=-1)
+        data = gkxT @ (Ml @ gkx)
+    var = torch.clamp(k0 - quad, min=sigma_floor ** 2)
     sigma = torch.sqrt(var)
     ssafe = torch.clamp(sigma, min=sigma_floor)
     grad_sigma = -(gkxT @ w[..., None])[..., 0] / ssafe[..., None]
@@ -165,22 +185,44 @@ def _posterior_full(x, Xl, Wl, cl, ml, kind, ell, period, k0, sigma_floor):
                + RT @ (R * (cm * b)[..., None]))
     hess_sigma = (
         -grad_sigma[..., :, None] * grad_sigma[..., None, :]
-        - gkxT @ (Wl @ gkx)
+        - data
         - RT @ (R * (wm * b)[..., None])
         - torch.sum(wm * ia, dim=-1)[..., None, None] * eye
     ) / ssafe[..., None, None]
     return mu, grad_mu, hess_mu, sigma, grad_sigma, hess_sigma
 
 
+def _lane_matrix(Li):
+    """(the matrix the lanes' solve reads, True when that is Li itself).
+
+    The form of the variance follows the dtype, as the JAX package routes
+    it (rollout_bo_tpu/rollout/solvers.py:40-64, `pallas_enabled`): float32
+    lanes go to the TPU kernel, which takes W = K^{-1} = Li^T Li (formed
+    here once per call, as pallas_newton.get_solver.flat_impl does), and
+    float64 lanes to the XLA solver, which reads Li. csrc/newton_lanes.cu
+    makes the same choice per instantiation: its float code reads W, its
+    double code Li (lower triangle only)."""
+    if Li.dtype == torch.float64:
+        return Li, True
+    return Li.transpose(-1, -2) @ Li, False
+
+
 def _neg_inf_nonfinite(v):
     return torch.where(torch.isfinite(v), v, -math.inf)
 
 
-def newton_solve_lanes_ref(X, W, c, n, fmini, theta0, ell, lbs, ubs, xstarts,
-                           period=1.0, *, kind="matern52", rule="EI",
-                           iterations=12, sigma_tol=1e-8, sigma_floor=1e-10,
-                           ridge=1e-8, f_tol=0.0, x_tol=0.0):
+def newton_solve_lanes_ref(X, Li, c, n, fmini, theta0, ell, lbs, ubs, xstarts,
+                           period=1.0, **kw):
     """Plain PyTorch version of `newton_solve_lanes` (same arguments)."""
+    M, li = _lane_matrix(Li)
+    return _solve_plain(X, M, li, c, n, fmini, theta0, ell, lbs, ubs, xstarts, period,
+                        **kw)
+
+
+def _solve_plain(X, M, li, c, n, fmini, theta0, ell, lbs, ubs, xstarts, period=1.0, *,
+                 kind="matern52", rule="EI", iterations=12, sigma_tol=1e-8,
+                 sigma_floor=1e-10, ridge=1e-8, f_tol=0.0, x_tol=0.0):
+    """The plain solve on the lane matrix M: Li when `li`, else W."""
     dt, dev = X.dtype, X.device
     nl, cap, d = X.shape
     as_t = lambda a: torch.as_tensor(a, dtype=dt, device=dev)
@@ -190,11 +232,11 @@ def newton_solve_lanes_ref(X, W, c, n, fmini, theta0, ell, lbs, ubs, xstarts,
     scale = torch.max(ubs - lbs)
     boundary_tol = 1e-9 * scale
     ml = (torch.arange(cap, device=dev) < n[:, None]).to(dt)[:, None]  # (L,1,cap)
-    Xl, Wl, cl = X[:, None], W[:, None], c[:, None]
+    Xl, Ml, cl = X[:, None], M[:, None], c[:, None]
     fm, th = fmini[:, None], theta0[:, None]                           # (L, 1)
     zero = torch.zeros((), dtype=dt, device=dev)
     k0 = _profile_terms(kind, zero, zero, ell, period)[0]
-    lane = (Xl, Wl, cl, ml, kind, ell, period, k0, sigma_floor)
+    lane = (Xl, Ml, li, cl, ml, kind, ell, period, k0, sigma_floor)
     eye = torch.eye(d, dtype=dt, device=dev)
     loose = f_tol > 0.0 or x_tol > 0.0
 
@@ -311,19 +353,21 @@ def _library():
 
 
 def _block_shape(cap: int, d: int, S: int, itemsize: int):
-    """(lanes per block, groups per lane, W staged?, dynamic shared bytes).
+    """(lanes per block, groups per lane, lane matrix staged?, dynamic shared bytes).
 
     Must match the layout in csrc/newton_lanes.cu. A group of 32 threads
     (a warp) owns one (lane, start); a block holds `lanes` lanes x
     `groups` groups, and a group loops over the starts g, g + groups, ...
     In words of the lane dtype, with dp = d | 1 and wst = cap | 1 (odd
-    strides keep rows on different banks): per lane X (cap, dp), W (cap,
-    wst) when staged and c (cap,); per block the box (2, dp); per group
-    (`GroupScratch`) 5 cap-long rows, 2 cap x max(dp, 18) for the Hessian
-    strips and the candidates' columns, A and its factor (d, dp) each, 18
-    candidates and 7 vectors of dp, and a (dp + 2)-long result. When one
-    lane with one group does not fit, W stays in device memory. Raises
-    ValueError when even that exceeds the block's shared memory."""
+    strides keep rows on different banks): per lane X (cap, dp), the lane
+    matrix (cap, wst) when staged (W in float32; Li in float64, of which
+    only the lower triangle is copied and read) and c (cap,); per block the
+    box (2, dp); per group (`GroupScratch`) 5 cap-long rows, 2 cap x
+    max(dp, 18) for the Hessian strips and the candidates' columns, A and
+    its factor (d, dp) each, 18 candidates and 7 vectors of dp, and a
+    (dp + 2)-long result. When one lane with one group does not fit, the
+    lane matrix stays in device memory. Raises ValueError when even that
+    exceeds the block's shared memory."""
     if not 1 <= d <= MAX_D:
         raise ValueError(f"newton_lanes kernel: d = {d} outside 1..{MAX_D}")
     if not 1 <= S <= MAX_STARTS:
@@ -358,42 +402,62 @@ def lane_solve_work(n, cap: int, d: int, S: int, iterations: int, itemsize: int)
     """(floating-point operations, bytes) that one `newton_solve_lanes` call needs.
 
     `n` holds the lanes' active counts: loops over the data run to n, not
-    to the capacity. Operations are the fewest the function needs, whoever
-    computes it (a multiply-add is two), per (lane, start, iteration): the
-    18 backtracking values (k(x, X), W k, mu, the variance, the rule); the
-    three passes, with each difference x - X_j taken once; the rule and its
-    partials; the Hessian as W G (2 n^2 d), the rows Q_j, and the d (d + 1)
-    / 2 symmetric entries summed over the data (n d (d + 1)); one d x d
-    Cholesky solve; the direction's norms. Then one value per (lane,
-    start). Left out, so that the count stays a floor: the second,
-    Gershgorin-damped solve (only where the first fails) and whatever the
-    loose freeze saves by ending a start early. Bytes count each input
-    once (X, W, c, n, fmini, theta0 per lane; the box, the starts and the
-    two kernel parameters once) and each output once."""
+    to the capacity; `itemsize` 4 counts the float32 (W) form, 8 the
+    float64 (Li) form (`_lane_matrix`). Operations are the fewest the
+    function needs, whoever computes it (a multiply-add is two), per (lane,
+    start, iteration): the 18 backtracking values (k(x, X), mu, the
+    variance as k^T W k or |Li k|^2, the rule); the three passes, with each
+    difference x - X_j taken once (w = W k; or v = Li k and w = Li^T v); the
+    rule and its partials; the Hessian's data terms, as W G (2 n^2 d) and
+    the rows Q_j, the d (d + 1) / 2 symmetric entries summed over the data
+    (n d (d + 1)); or as P = Li G, the rows C_j = coef_j r_j and the entries
+    of r_j C_j' and P_j P_j' (2 n d (d + 1)); one d x d Cholesky solve; the
+    direction's norms. Then one value per (lane, start). A triangular
+    matvec over n rows is n (n + 1) operations. Left out, so that the count
+    stays a floor: the second, Gershgorin-damped solve (only where the
+    first fails) and whatever the loose freeze saves by ending a start
+    early. Bytes count each input once (X, the lane matrix, c, n, fmini,
+    theta0 per lane; the box, the starts and the two kernel parameters
+    once) and each output once: W whole, Li's lower triangle (its upper
+    one is zero and never read)."""
+    li = itemsize == 8
     profile, profile_terms, rule, partials = 12, 25, 30, 60
     sym = d * (d + 1) // 2
     flops = 0
     for ni in (int(v) for v in n):
-        value = ni * (3 * d + profile) + 2 * ni * ni + 4 * ni + rule
-        passes = (ni * (3 * d + profile_terms + 4 + d)           # k, a, b, G; mu, iso . c
-                  + 2 * ni * ni + 4 * ni                         # w = W k; variance, iso . w
-                  + 4 * ni * d + d)                              # grad mu, grad sigma
-        hessian = (2 * ni * ni * d                               # W G
-                   + ni * (3 * d + 6)                            # Q_j
-                   + 2 * ni * sym                                # sum_j r_j Q_j', i >= k
-                   + 8 * sym + 6 * d)                            # rank-one terms, active set
+        tri = ni * (ni + 1)                                      # Li times an n-vector
+        if li:
+            value = ni * (3 * d + profile) + tri + 4 * ni + rule
+            passes = (ni * (3 * d + profile_terms + 4 + d)       # k, a, b, G; mu, iso . c
+                      + 2 * tri + 4 * ni                         # v = Li k, w = Li^T v;
+                                                                 # |v|^2, iso . w
+                      + 4 * ni * d + d)                          # grad mu, grad sigma
+            hessian = (tri * d                                   # P = Li G
+                       + ni * (d + 4)                            # C_j = coef_j r_j
+                       + 4 * ni * sym                            # r_j C_j' + P_j P_j', i >= k
+                       + 8 * sym + 6 * d)                        # rank-one terms, active set
+        else:
+            value = ni * (3 * d + profile) + 2 * ni * ni + 4 * ni + rule
+            passes = (ni * (3 * d + profile_terms + 4 + d)       # k, a, b, G; mu, iso . c
+                      + 2 * ni * ni + 4 * ni                     # w = W k; variance, iso . w
+                      + 4 * ni * d + d)                          # grad mu, grad sigma
+            hessian = (2 * ni * ni * d                           # W G
+                       + ni * (3 * d + 6)                        # Q_j
+                       + 2 * ni * sym                            # sum_j r_j Q_j', i >= k
+                       + 8 * sym + 6 * d)                        # rank-one terms, active set
         chol = d ** 3 / 3.0 + 2 * d * d + 4 * d
         direction = 2 * d * d + 20 * d                           # Gershgorin, norms
         iteration = (_CANDIDATES * (value + 3 * d) + passes + rule + partials
                      + hessian + chol + direction)
         flops += S * (iterations * iteration + value)
     lanes = len(n)
-    read = (lanes * (cap * d + cap * cap + cap + 2) + 2 * d + S * d + 2) * itemsize + 8 * lanes
+    matrix = cap * (cap + 1) // 2 if li else cap * cap
+    read = (lanes * (cap * d + matrix + cap + 2) + 2 * d + S * d + 2) * itemsize + 8 * lanes
     written = lanes * (d + 1) * itemsize
     return float(flops), int(read + written)
 
 
-def _check_lanes(X, W, c, n, fmini, theta0, lbs, ubs, xstarts, kind, rule):
+def _check_lanes(X, Li, c, n, fmini, theta0, lbs, ubs, xstarts, kind, rule):
     """Validate the lane arguments (both routes); returns lbs, ubs, xstarts
     as tensors of the lane dtype on the lane device."""
     if not supported(kind, rule):
@@ -407,7 +471,7 @@ def _check_lanes(X, W, c, n, fmini, theta0, lbs, ubs, xstarts, kind, rule):
     as_t = lambda a: torch.as_tensor(a, dtype=dt, device=dev)
     lbs, ubs, xstarts = as_t(lbs), as_t(ubs), as_t(xstarts)
     S = xstarts.shape[0]
-    want = {"X": (X, (nl, cap, d), dt), "W": (W, (nl, cap, cap), dt),
+    want = {"X": (X, (nl, cap, d), dt), "Li": (Li, (nl, cap, cap), dt),
             "c": (c, (nl, cap), dt), "n": (n, (nl,), torch.int64),
             "fmini": (fmini, (nl,), dt), "theta0": (theta0, (nl,), dt),
             "lbs": (lbs, (d,), dt), "ubs": (ubs, (d,), dt),
@@ -421,7 +485,7 @@ def _check_lanes(X, W, c, n, fmini, theta0, lbs, ubs, xstarts, kind, rule):
     return lbs, ubs, xstarts
 
 
-def _launch(X, W, c, n, fmini, theta0, ell, lbs, ubs, xstarts, period, *,
+def _launch(X, Li, c, n, fmini, theta0, ell, lbs, ubs, xstarts, period, *,
             kind, rule, iterations, sigma_tol, sigma_floor, ridge, f_tol, x_tol):
     global LAUNCHES
     dt, dev = X.dtype, X.device
@@ -429,20 +493,21 @@ def _launch(X, W, c, n, fmini, theta0, ell, lbs, ubs, xstarts, period, *,
     S = xstarts.shape[0]
     as_t = lambda a: torch.as_tensor(a, dtype=dt, device=dev)
     params = torch.stack([as_t(ell).reshape(()), as_t(period).reshape(())])
-    lanes, groups, stage_w, smem = _block_shape(cap, d, S, X.element_size())
+    lanes, groups, stage_m, smem = _block_shape(cap, d, S, X.element_size())
 
     xout = torch.empty((nl, d), dtype=dt, device=dev)
     vout = torch.empty((nl,), dtype=dt, device=dev)
     if nl == 0:
         return xout, vout
+    M = _lane_matrix(Li)[0]         # W for the float instantiation, Li for double
     fn = getattr(_library(), _ENTRY[dt])
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(X.data_ptr(), W.data_ptr(), c.data_ptr(), n.data_ptr(),
+    err = fn(X.data_ptr(), M.data_ptr(), c.data_ptr(), n.data_ptr(),
              fmini.data_ptr(), theta0.data_ptr(), params.data_ptr(),
              lbs.data_ptr(), ubs.data_ptr(), xstarts.data_ptr(),
              xout.data_ptr(), vout.data_ptr(),
              nl, cap, d, S, iterations, _KIND_IDS[kind], _RULE_IDS[rule], lanes,
-             groups, int(stage_w), sigma_tol, sigma_floor, ridge, f_tol, x_tol,
+             groups, int(stage_m), sigma_tol, sigma_floor, ridge, f_tol, x_tol,
              smem, stream)
     if err != 0:
         raise RuntimeError(f"newton_lanes kernel launch failed: CUDA error {err}")
@@ -450,28 +515,30 @@ def _launch(X, W, c, n, fmini, theta0, ell, lbs, ubs, xstarts, period, *,
     return xout, vout
 
 
-def newton_solve_lanes(X, W, c, n, fmini, theta0, ell, lbs, ubs, xstarts,
+def newton_solve_lanes(X, Li, c, n, fmini, theta0, ell, lbs, ubs, xstarts,
                        period=1.0, *, kind="matern52", rule="EI", iterations=12,
                        sigma_tol=1e-8, sigma_floor=1e-10, ridge=1e-8,
                        f_tol=0.0, x_tol=0.0):
     """Multistart Newton argmax per lane. Returns (xstar (L, d), v (L,)).
 
-    X (L, cap, d), W (L, cap, cap) = K^{-1} of the active block with
-    identity padding, c (L, cap), n (L,) int64 active counts, fmini (L,),
-    theta0 (L,) the rule's theta[0]; ell, period, lbs / ubs (d,) and
-    xstarts (S, d) are shared by every lane. The lane dtype is X's
-    (float32 or float64). `f_tol` / `x_tol` > 0 turn on the IPNewton-style
+    X (L, cap, d), Li (L, cap, cap) = L^{-1}, the lower-triangular inverse
+    of the Cholesky factor of the active block with identity padding (the
+    surrogate state's `Li`: zero above the diagonal), c (L, cap), n (L,)
+    int64 active counts, fmini (L,), theta0 (L,) the rule's theta[0]; ell,
+    period, lbs / ubs (d,) and xstarts (S, d) are shared by every lane. The
+    lane dtype is X's (float32 or float64); it picks the form of the
+    variance (`_lane_matrix`). `f_tol` / `x_tol` > 0 turn on the IPNewton-style
     loose per-start freeze. Every lane tensor must be contiguous. CUDA
     tensors run the kernel, CPU tensors the plain version; any other
     device raises.
     """
-    lbs, ubs, xstarts = _check_lanes(X, W, c, n, fmini, theta0, lbs, ubs, xstarts,
+    lbs, ubs, xstarts = _check_lanes(X, Li, c, n, fmini, theta0, lbs, ubs, xstarts,
                                      kind, rule)
     kw = dict(kind=kind, rule=rule, iterations=iterations, sigma_tol=sigma_tol,
               sigma_floor=sigma_floor, ridge=ridge, f_tol=f_tol, x_tol=x_tol)
     if X.device.type == "cuda":
-        return _launch(X, W, c, n, fmini, theta0, ell, lbs, ubs, xstarts, period, **kw)
+        return _launch(X, Li, c, n, fmini, theta0, ell, lbs, ubs, xstarts, period, **kw)
     if X.device.type == "cpu":
-        return newton_solve_lanes_ref(X, W, c, n, fmini, theta0, ell, lbs, ubs,
+        return newton_solve_lanes_ref(X, Li, c, n, fmini, theta0, ell, lbs, ubs,
                                       xstarts, period, **kw)
     raise ValueError(f"newton_solve_lanes: no route for device {X.device}")

@@ -7,9 +7,7 @@ themselves (`mc.simulate_trajectory_mc(group=...)`,
 `outer.stochastic_solve_fused(mesh=...)`), and these wrappers place the
 inputs as the JAX package's do: the surrogate state replicated from rank 0,
 the restarts and the trajectories split as each function names. Every
-rank of the mesh calls them and gets the same, replicated, result. The JAX
-package's `sharded_stochastic_solve_scanned` wraps the scanned program,
-which is not ported (ROADMAP item 16).
+rank of the mesh calls them and gets the same, replicated, result.
 """
 
 from __future__ import annotations
@@ -26,6 +24,7 @@ __all__ = [
     "sharded_simulate_mc",
     "sharded_stochastic_solve_batch",
     "sharded_stochastic_solve_fused",
+    "sharded_stochastic_solve_scanned",
 ]
 
 
@@ -69,3 +68,19 @@ def sharded_stochastic_solve_fused(state: sg.SurrogateState, tp: TrajectoryParam
         mesh_mod.replicate(state, mesh), tp, rule, xstarts, starts, max_iters=max_iters,
         lr=lr, inner_iterations=inner_iterations, draw_mode=draw_mode,
         select_best=select_best, mesh=mesh)
+
+
+def sharded_stochastic_solve_scanned(state: sg.SurrogateState, tp: TrajectoryParams,
+                                     rule: DecisionRule, xstarts, starts, mesh: Mesh, *,
+                                     max_iters: int = 50, steps_per_call: int = 10,
+                                     lr: float = 0.01, inner_iterations: int = 12,
+                                     draw_mode: str = "reparam"):
+    """The scanned outer solver (`outer.stochastic_solve_scanned`: whole
+    windows of `steps_per_call`) on a mesh, placed as the fused one is:
+    restarts over axis 'restarts', trajectories over axis 'mc'. Returns
+    (xs (R, d), values (R,)) on every rank."""
+    fs = outer_mod.stochastic_solve_fused(
+        mesh_mod.replicate(state, mesh), tp, rule, xstarts, starts, max_iters=max_iters,
+        lr=lr, inner_iterations=inner_iterations, draw_mode=draw_mode, mesh=mesh,
+        steps_per_call=steps_per_call)
+    return fs.x, fs.value

@@ -29,6 +29,8 @@ from rollout_bo_tpu_torch.rollout.outer import (
     stochastic_solve,
     stochastic_solve_batch,
     stochastic_solve_fused,
+    stochastic_solve_scanned,
+    stochastic_solve_stepped,
 )
 from rollout_bo_tpu_torch.rollout.solvers import newton_solve_batch
 from rollout_bo_tpu_torch.rollout.trajectory import (

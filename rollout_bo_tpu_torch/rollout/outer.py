@@ -5,14 +5,18 @@ Port of `rollout_bo_tpu/rollout/outer.py` (reference `optimizers.jl`,
 with the semantics of the JAX package's `make_fused_sga_program`: every
 restart is simulated in lock-step each iteration, a restart freezes when
 the eswavs early-stopping statistic fires, and the loop ends when all have
-stopped. The JAX package's stepped and scanned programs exist to hide
-host<->TPU dispatch cost and are not ported; here the loop is a Python
-loop with a host check of "all stopped" after each iteration, or after
-each window of `steps_per_call` iterations, which gives the scanned
-solver's results; `stochastic_solve` (one start) and
-`stochastic_solve_batch` (no winner selection) are the same loop. The
-deterministic (Gauss-Hermite) solver runs its restarts in lock-step the
-same way, each with its own stop mask.
+stopped. Here the loop is a Python loop with a host check of "all
+stopped" after each iteration, or after each window of `steps_per_call`
+iterations. The JAX package's stepped and scanned solvers
+(`stochastic_solve_stepped`, `stochastic_solve_scanned`) are the same loop
+with that check every `sync_every` iterations, or after whole windows of
+`steps_per_call`. Their program factories (`make_batched_sga_step`,
+`make_scanned_sga_program`, ...) return compiled XLA programs, which hide
+host<->TPU dispatch cost and have no counterpart in eager torch: they are
+not ported. `stochastic_solve` (one start) and `stochastic_solve_batch`
+(no winner selection) are the same loop. The deterministic
+(Gauss-Hermite) solver runs its restarts in lock-step the same way, each
+with its own stop mask.
 
 With a `mesh` (`parallel.mesh`), a solve splits its restarts over the
 ranks of the 'restarts' axis and, for `stochastic_solve_fused`, the
@@ -42,6 +46,8 @@ __all__ = [
     "stochastic_solve",
     "stochastic_solve_batch",
     "stochastic_solve_fused",
+    "stochastic_solve_scanned",
+    "stochastic_solve_stepped",
     "deterministic_solve",
     "deterministic_solve_batch",
 ]
@@ -97,15 +103,14 @@ def _sga(simulate, xs, lbs, ubs, sample_size, *, max_iters, lr, mesh, check_ever
     every restart (gradients included), freezes those whose eswavs
     statistic fires and takes an Adam step clipped to the box for the
     others. The test "every restart has stopped" is made after each window
-    of `check_every` iterations, and the loop runs `max_iters` rounded up
-    to whole windows unless that test ends it: on every rank of `mesh`,
-    which sums the active restarts over the world (the JAX program's
-    all-reduce(AND) of its all-stopped predicate). Returns (xs, iterations
-    run)."""
+    of `check_every` iterations, and the loop runs `max_iters` iterations
+    unless that test ends it: on every rank of `mesh`, which sums the
+    active restarts over the world (the JAX program's all-reduce(AND) of
+    its all-stopped predicate). Returns (xs, iterations run)."""
     opt = adam_init(xs)
     done = torch.zeros(xs.shape[:-1], dtype=torch.bool, device=xs.device)
     it = 0
-    while it < -(-max_iters // check_every) * check_every:
+    while it < max_iters:
         eto = simulate(xs, True)
         done = done | eswavs(eto.grad_x, eto.std_grad_x**2, sample_size)
         opt, xs_new = adam_update(opt, xs, eto.grad_x, lr=lr)
@@ -185,13 +190,50 @@ def stochastic_solve_fused(state: sg.SurrogateState, tp: TrajectoryParams,
     and returns the same result.
     """
     xs, vals, it = _multi_restart(
-        state, tp, rule, xstarts, restarts, max_iters=max_iters, lr=lr,
+        state, tp, rule, xstarts, restarts,
+        max_iters=-(-max_iters // steps_per_call) * steps_per_call, lr=lr,
         inner_iterations=inner_iterations, draw_mode=draw_mode, mesh=mesh,
         shard_stream=True, check_every=steps_per_call)
     if select_best:
         j = torch.argmax(vals)
         return FusedSolve(xs[j], vals[j], it)
     return FusedSolve(xs, vals, it)
+
+
+def stochastic_solve_scanned(state: sg.SurrogateState, tp: TrajectoryParams,
+                             rule: DecisionRule, xstarts, starts, *,
+                             max_iters: int = 50, steps_per_call: int = 10,
+                             lr: float = 0.01, inner_iterations: int = 12,
+                             draw_mode: str = "reparam"):
+    """The JAX package's `stochastic_solve_scanned` (without its `program`
+    argument): the SGA loop in whole windows of `steps_per_call` k, "every
+    restart has stopped" tested after each window, so ceil(max_iters / k) k
+    iterations run unless that test ends the loop. Returns (xs (R, d),
+    values (R,)), the values at the final points: `stochastic_solve_fused(
+    steps_per_call=k)` without `select_best`."""
+    fs = stochastic_solve_fused(state, tp, rule, xstarts, starts, max_iters=max_iters,
+                                lr=lr, inner_iterations=inner_iterations,
+                                draw_mode=draw_mode, steps_per_call=steps_per_call)
+    return fs.x, fs.value
+
+
+def stochastic_solve_stepped(state: sg.SurrogateState, tp: TrajectoryParams,
+                             rule: DecisionRule, xstarts, starts, *,
+                             max_iters: int = 50, lr: float = 0.01,
+                             inner_iterations: int = 12, draw_mode: str = "reparam",
+                             sync_every: int = 10):
+    """The JAX package's `stochastic_solve_stepped` (without its `grad_step`
+    and `sga_step` arguments): at most `max_iters` SGA iterations, "every
+    restart has stopped" tested after every `sync_every`. A stopped restart
+    keeps its point, so the points are those of `stochastic_solve_fused`
+    for any `sync_every`, which sets only how many iterations run on after
+    the last restart stopped. Returns (xs (R, d), values (R,)), the values
+    at the final points."""
+    xs, vals, _ = _multi_restart(
+        state, tp, rule, xstarts, starts, max_iters=max_iters, lr=lr,
+        inner_iterations=inner_iterations, draw_mode=draw_mode, mesh=None,
+        shard_stream=False, check_every=sync_every)
+    return xs, vals
 
 
 def stochastic_solve_batch(state: sg.SurrogateState, tp: TrajectoryParams,

@@ -4,9 +4,12 @@ Port of `rollout_bo_tpu/rollout/solvers.py::maximize_hot`. Every lane of
 the rollout (restart x MC trajectory) carries its own fantasy GP; the
 lanes are flattened into one batch and solved by one call of
 `ops/newton_lanes.py::newton_solve_lanes`: the CUDA kernel for tensors on
-the card, its plain version for CPU tensors. K^{-1} = Li^T Li is formed
-once per call with one batched matmul, as the JAX package's
-`pallas_newton.get_solver.flat_impl` does.
+the card, its plain version for CPU tensors. Each lane passes its state's
+Li = L^{-1} as it is; the lane solver picks the form of the variance from
+the dtype, as the JAX package routes it (`newton_lanes._lane_matrix`):
+float32 forms K^{-1} = Li^T Li once per call with one batched matmul, as
+the JAX package's `pallas_newton.get_solver.flat_impl` does, and float64
+computes k0 - |Li k|^2, as its XLA solver does.
 
 `multistart_maximize`, the BO loops' solver on one surrogate, is the same
 lane solver called with ONE lane and S starts. The lane solver returns
@@ -189,7 +192,8 @@ def maximize_hot(state: sg.SurrogateState, rule: DecisionRule, theta, lbs, ubs,
     `state` and `theta` (..., p) carry the lane axes; the bounds and the
     S starts (S, d) are shared. Nothing here is differentiated. A rule with
     a cost goes to `newton_solve_batch`, whatever its name; every other
-    rule to the lane solver (the CUDA kernel for CUDA tensors).
+    rule to the lane solver (the CUDA kernel for CUDA tensors), which takes
+    each lane's Li as the state holds it.
     """
     if getattr(rule, "cost", None) is not None:
         with torch.no_grad():
@@ -208,13 +212,11 @@ def maximize_hot(state: sg.SurrogateState, rule: DecisionRule, theta, lbs, ubs,
         return t.detach().expand(lead + tail).reshape((-1,) + tail).contiguous()
 
     with torch.no_grad():
-        Li = flat(state.Li, (cap, cap))
-        W = Li.transpose(-1, -2) @ Li
         kth = state.kernel.theta.detach()
         period = kth[1] if kind == "periodic" else torch.ones_like(kth[0])
         xs, vs = newton_lanes.newton_solve_lanes(
-            flat(state.X, (cap, d)), W, flat(state.c, (cap,)), flat(state.n),
-            flat(sg.get_active_minimum(state)), flat(theta[..., 0]),
+            flat(state.X, (cap, d)), flat(state.Li, (cap, cap)), flat(state.c, (cap,)),
+            flat(state.n), flat(sg.get_active_minimum(state)), flat(theta[..., 0]),
             kth[0], lbs, ubs, xstarts, period,
             kind=kind, rule=rule.name, iterations=iterations,
             sigma_tol=rule.sigma_tol, f_tol=float(rule.solve_f_tol),

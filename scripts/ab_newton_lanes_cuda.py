@@ -4,10 +4,14 @@
     python3 scripts/ab_newton_lanes_cuda.py [--old-source PATH/newton_lanes.cu]
 
 The kernel is the package's `csrc/newton_lanes.cu` (a warp per (lane,
-start)). `--old-source` adds an earlier source to compare it with: the
-thread-per-(lane, start) design, whose C entry points take
-`lanes_per_block` and the shared bytes (unpack it from the commit before
-the redesign, e.g. `git archive <commit> | tar -x -C build/parent`).
+start); float32 lanes in the W = K^{-1} form, float64 lanes in the Li =
+L^{-1} form). `--old-source` adds an earlier source of the same design and
+C interface to compare it with: the W form in both dtypes, fed each lane's
+W = Li^T Li formed in the lanes' dtype (unpack it from the commit before
+the float64 Li form, e.g. `git archive <commit> | tar -x -C
+build/parent`). Each kernel is timed on its launch alone, the matrix it
+reads formed before the timed launches. In float32 the two run the same code, so their
+values must agree bit for bit.
 
 All builds start together. Then:
 - per shape, the kernels run in turns (old, new, new, old), each turn the
@@ -17,10 +21,18 @@ All builds start together. Then:
   (ii)  the same shape on lanes whose Newton steps move (lengthscale 0.8 in
         [-1, 1]^10), float32;
   (iii) d 16 (the kernel's maximum), float64: 64 lanes, and 1600 lanes;
-  with the work and the bound from `lane_solve_work`, the values against the
-  old kernel's, and the cycles per phase of a Newton iteration (a build with
-  -DNEWTON_LANES_PROFILE: `clock64` around each phase on thread 0 of every
-  warp, so the cycles include the waits on the SM's other warps);
+  (iv)  the BO loops' shapes of chip_smoke.py phase 3, hartmann6d, float64,
+        12 iterations: the myopic loop's (1 lane, n 104 of capacity 105, 64
+        + 2 starts) and the non-myopic loop's (2000 lanes, n 6..21 of
+        capacity 23, 16 + 2 starts);
+  with the work and the bound from `lane_solve_work` in the lanes' dtype
+  (the fewest operations the function needs: both kernels' share is of
+  it), the values against the old kernel's (in float32 bit for bit), the value floor (each kernel run on the same lanes cast
+  to float32 and to float64: the largest |v - v64| over the lanes, v64 the
+  plain version's value in float64), and the cycles per phase of a Newton
+  iteration (a build with -DNEWTON_LANES_PROFILE: `clock64` around each
+  phase on thread 0 of every warp, so the cycles include the waits on the
+  SM's other warps);
 - at the bench shape, the kernel with its blocks padded so that an SM holds
   only one or two of them (how far more resident warps still help);
 - the compilers' register / stack / spill reports and the blocks an SM holds;
@@ -64,11 +76,9 @@ from rollout_bo_tpu_torch.ops import _build  # noqa: E402
 from rollout_bo_tpu_torch.ops import newton_lanes as nl  # noqa: E402
 from rollout_bo_tpu_torch.ops import qmc  # noqa: E402
 
-_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-_OLD_ARGTYPES = [_P] * 12 + [_I] * 8 + [_D] * 5 + [_I, _P]
 _PROFILE = ("-DNEWTON_LANES_PROFILE",)
-_PHASES = ("passes, rule, active set", "Q strips", "H entries", "Gershgorin + Cholesky",
-           "directions", "candidates' values", "winner")
+_PHASES = ("passes, rule, active set", "Q strips (Li form: P = Li G, rows C)", "H entries",
+           "Gershgorin + Cholesky", "directions", "candidates' values", "winner")
 _SMOKE_SEED = 11
 
 
@@ -80,63 +90,57 @@ def build_old(source: Path):
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {source}:\n{proc.stdout}{proc.stderr}")
-    lib = ctypes.CDLL(str(out))
-    for name in nl._ENTRY.values():
-        getattr(lib, name).argtypes = _OLD_ARGTYPES
-        getattr(lib, name).restype = ctypes.c_int
-    return lib, proc.stdout + proc.stderr
+    return ctypes.CDLL(str(out)), proc.stdout + proc.stderr
 
 
-def old_solver(lib):
-    """The earlier wrapper's launch: lanes x S threads per block."""
-    def solve(X, W, c, n, fmini, th0, ell, lbs, ubs, xstarts, period, *, kind, rule,
-              iterations, f_tol=0.0, x_tol=0.0):
-        dt, dev = X.dtype, X.device
-        L, cap, d = X.shape
-        S = xstarts.shape[0]
-        isz = X.element_size()
-        per_lane = (cap * d + cap * cap + cap) * isz
-        per_thread = (4 * cap + d + 1) * isz
-        lanes = max(1, 128 // S)
-        while lanes > 1 and lanes * (per_lane + S * per_thread) > 227 * 1024:
-            lanes -= 1
-        smem = lanes * (per_lane + S * per_thread)
-        as_t = lambda a: torch.as_tensor(a, dtype=dt, device=dev)
-        params = torch.stack([as_t(ell).reshape(()), as_t(period).reshape(())])
-        xout = torch.empty((L, d), dtype=dt, device=dev)
-        vout = torch.empty((L,), dtype=dt, device=dev)
-        err = getattr(lib, nl._ENTRY[dt])(
-            X.data_ptr(), W.data_ptr(), c.data_ptr(), n.data_ptr(), fmini.data_ptr(),
-            th0.data_ptr(), params.data_ptr(), lbs.data_ptr(), ubs.data_ptr(),
-            xstarts.data_ptr(), xout.data_ptr(), vout.data_ptr(), L, cap, d, S,
-            iterations, nl._KIND_IDS[kind], nl._RULE_IDS[rule], lanes, 1e-8, 1e-10,
-            1e-8, f_tol, x_tol, smem, torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"old kernel launch failed: CUDA error {err}")
-        return xout, vout
+def w_form(Li):
+    """W = Li^T Li in the lanes' dtype, as the W-form kernel's caller formed it."""
+    return Li.transpose(-1, -2) @ Li
+
+
+def package_form(Li):
+    """The matrix the package's kernel reads: W in float32, Li in float64."""
+    return nl._lane_matrix(Li)[0]
+
+
+def solver(lib, matrix):
+    """A build's launch on Li arguments, `matrix(Li)` being what that build
+    reads. `prepare` (which forms it) and `launch` split the two, so that a
+    timing holds the launch alone, the same for every build."""
+    def prepare(args):
+        return args[:1] + (matrix(args[1]).contiguous(),) + args[2:]
+
+    def launch(*args, **kw):
+        return launch_with(lib, args, kw)
+
+    def solve(*args, **kw):
+        return launch(*prepare(args), **kw)
+
+    solve.prepare, solve.launch = prepare, launch
     return solve
 
 
 def launch_with(lib, args, kw, smem=None):
-    """The wrapper's launch on another build of the same source (`lib`), or
-    with more dynamic shared memory than the layout needs (`smem`)."""
-    X, W, c, n, fmini, th0, ell, lbs, ubs, xstarts, period = args
+    """The wrapper's launch on another build (`lib`), or with more dynamic
+    shared memory than the layout needs (`smem`). The lanes' second argument
+    is the matrix that build reads (`solver`)."""
+    X, M, c, n, fmini, th0, ell, lbs, ubs, xstarts, period = args
     dt, dev = X.dtype, X.device
     L, cap, d = X.shape
-    lanes, groups, stage_w, need = nl._block_shape(cap, d, xstarts.shape[0], X.element_size())
+    lanes, groups, stage_m, need = nl._block_shape(cap, d, xstarts.shape[0], X.element_size())
     as_t = lambda a: torch.as_tensor(a, dtype=dt, device=dev)
     params = torch.stack([as_t(ell).reshape(()), as_t(period).reshape(())])
     xout = torch.empty((L, d), dtype=dt, device=dev)
     vout = torch.empty((L,), dtype=dt, device=dev)
     fn = getattr(lib, nl._ENTRY[dt])
     fn.argtypes, fn.restype = nl._ARGTYPES, ctypes.c_int
-    err = fn(X.data_ptr(), W.data_ptr(), c.data_ptr(), n.data_ptr(), fmini.data_ptr(),
+    err = fn(X.data_ptr(), M.data_ptr(), c.data_ptr(), n.data_ptr(), fmini.data_ptr(),
              th0.data_ptr(), params.data_ptr(), lbs.data_ptr(), ubs.data_ptr(),
              xstarts.data_ptr(), xout.data_ptr(), vout.data_ptr(), L, cap, d,
              xstarts.shape[0], kw["iterations"], nl._KIND_IDS[kw["kind"]],
-             nl._RULE_IDS[kw["rule"]], lanes, groups, int(stage_w), 1e-8, 1e-10, 1e-8,
+             nl._RULE_IDS[kw["rule"]], lanes, groups, int(stage_m), 1e-8, 1e-10, 1e-8,
              kw.get("f_tol", 0.0), kw.get("x_tol", 0.0), need if smem is None else smem,
-             torch.cuda.current_stream(dev).cuda_stream)
+             torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else None)
     if err != 0:
         raise RuntimeError(f"kernel launch failed: CUDA error {err}")
     return xout, vout
@@ -147,7 +151,7 @@ def phase_cycles(args, kw):
     lib = _build.load("newton_lanes", _PROFILE)
     buf = (ctypes.c_ulonglong * 8)()
     lib.newton_lanes_phase_cycles(buf)              # sets the counts to 0
-    launch_with(lib, args, kw)
+    solver(lib, package_form)(*args, **kw)
     torch.cuda.synchronize()
     lib.newton_lanes_phase_cycles(buf)
     solves = args[0].shape[0] * args[9].shape[0] * kw["iterations"]
@@ -159,14 +163,15 @@ def residency_times(args, kw, reps):
     shared memory is padded until only that many fit."""
     lib = nl._library()
     X, S = args[0], args[9].shape[0]
-    lanes, groups, stage_w, smem = nl._block_shape(X.shape[1], X.shape[2], S, X.element_size())
+    lanes, groups, stage_m, smem = nl._block_shape(X.shape[1], X.shape[2], S, X.element_size())
     threads = lanes * groups * nl._GROUP
-    most = lib.newton_lanes_blocks_per_sm(X.element_size(), int(stage_w), threads, smem)
+    most = lib.newton_lanes_blocks_per_sm(X.element_size(), int(stage_m), threads, smem)
     out = {}
     for blocks in range(1, most + 1):
         padded = smem if blocks == most else max(smem, nl._SMEM_LIMIT // (blocks + 1) + 4096)
-        got = lib.newton_lanes_blocks_per_sm(X.element_size(), int(stage_w), threads, padded)
-        solve = lambda *a, **k: launch_with(lib, a, k, padded)
+        got = lib.newton_lanes_blocks_per_sm(X.element_size(), int(stage_m), threads, padded)
+        solve = lambda *a, **k: launch_with(
+            lib, a[:1] + (package_form(a[1]),) + a[2:], k, padded)
         out[f"{got} blocks ({got * threads // 32} warps) per SM"] = \
             time_turns({"new": solve}, ["new"], args, kw, reps)[0][1]
     return out
@@ -186,14 +191,13 @@ def shapes(dev):
     f = testfns.get_function("trid10d")
     bench_lanes = {13: 534, 14: 533, 15: 533}
 
-    def pack(st, lo, hi, dt):
+    def pack(st, lo, hi, dt, starts=8, iterations=10):
         t = lambda a: torch.tensor(np.asarray(a), dtype=dt, device=dev)
-        W = st.Li.transpose(-1, -2) @ st.Li
         th0 = torch.zeros(st.X.shape[0], dtype=dt, device=dev)
-        args = (st.X, W, st.c, st.n, sg.get_active_minimum(st), th0, st.kernel.theta[0],
-                t(lo), t(hi), t(qmc.generate_initial_guesses(8, lo, hi)),
+        args = (st.X, st.Li, st.c, st.n, sg.get_active_minimum(st), th0, st.kernel.theta[0],
+                t(lo), t(hi), t(qmc.generate_initial_guesses(starts, lo, hi)),
                 torch.ones((), dtype=dt, device=dev))
-        return args, dict(kind="matern52", rule="EI", iterations=10), st.n.tolist()
+        return args, dict(kind="matern52", rule="EI", iterations=iterations), st.n.tolist()
 
     st = chip_smoke._lane_state(bench_lanes, f.dim, 24, "matern52", (1.0,), f.lbs, f.ubs,
                                 torch.float32, dev, 7, f=f)
@@ -209,6 +213,14 @@ def shapes(dev):
     st = chip_smoke._lane_state({9: 800, 15: 800}, 16, 24, "matern52", (0.8,), lo, hi,
                                 torch.float64, dev, 5)
     out["d16 f64 (1600 lanes, cap 24, S 10)"] = pack(st, lo, hi, torch.float64)
+    f = testfns.get_function("hartmann6d")
+    for name, sizes, cap, starts in (
+            ("myopic f64 (1 lane, n 104 of cap 105, d 6, S 66)", {104: 1}, 105, 64),
+            ("non-myopic f64 (2000 lanes, n 6..21 of cap 23, d 6, S 18)",
+             {6: 500, 12: 500, 17: 500, 21: 500}, 23, 16)):
+        st = chip_smoke._lane_state(sizes, f.dim, cap, "matern52", (0.6,), f.lbs, f.ubs,
+                                    torch.float64, dev, 17, f=f)
+        out[name] = pack(st, f.lbs, f.ubs, torch.float64, starts, 12)
     return out
 
 
@@ -216,7 +228,11 @@ def time_turns(solvers, order, args, kw, reps):
     """ms per launch for each turn of `order` (names into `solvers`)."""
     turns = []
     for name in order:
-        fn = lambda: solvers[name](*args, **kw)
+        solve, run_args = solvers[name], args
+        prepare = getattr(solve, "prepare", None)
+        if prepare is not None:           # W formed outside the timed launches
+            solve, run_args = solve.launch, prepare(args)
+        fn = lambda: solve(*run_args, **kw)
         fn()
         torch.cuda.synchronize()
         ms, _ = chip_smoke._events_ms(fn, reps)
@@ -230,20 +246,41 @@ def time_turns(solvers, order, args, kw, reps):
 
 
 def _as_f64(args):
-    return tuple(a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+    return _cast(args, torch.float64)
+
+
+def _cast(args, dt):
+    return tuple(a.to(dt) if torch.is_tensor(a) and a.is_floating_point() else a
                  for a in args)
+
+
+def value_floor(solvers, args, kw):
+    """Per solver and dtype (float32, float64): the largest |v - v64| over
+    the lanes, each solver run on the lanes cast to that dtype, v64 the
+    plain version's value in float64 (equal infinities count as 0)."""
+    _, v64 = nl.newton_solve_lanes_ref(*_as_f64(args), **kw)
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        cast = _cast(args, dt)
+        for name, solve in solvers.items():
+            v = solve(*cast, **kw)[1].double()
+            out[f"{name} {str(dt).split('.')[1]}"] = float(
+                torch.where(v == v64, 0.0, (v - v64).abs()).max())
+    return out
 
 
 def acquisition_f64(args, kw, x):
     """The acquisition at one point per lane, x (L, d), from the lane
-    arguments in float64: the one yardstick for every solver's points."""
-    X, W, c, n, fmini, th0, ell, _, _, _, period = _as_f64(args)
+    arguments in float64: the one yardstick for every solver's points, on
+    the matrix the lanes' dtype reads (float32: W as formed in float32)."""
+    M, li = nl._lane_matrix(args[1])
+    X, M, c, n, fmini, th0, ell, _, _, _, period = _as_f64(args[:1] + (M,) + args[2:])
     kind, cap = kw["kind"], X.shape[1]
     ml = (torch.arange(cap, device=X.device) < n[:, None]).double()[:, None]
     zero = torch.zeros((), dtype=torch.float64, device=X.device)
     k0 = nl._profile_terms(kind, zero, zero, ell, period)[0]
-    mu, sigma = nl._posterior_value(x.double()[:, None], X[:, None], W[:, None], c[:, None],
-                                    ml, kind, ell, period, k0, 1e-10)
+    mu, sigma = nl._posterior_value(x.double()[:, None], X[:, None], M[:, None], li,
+                                    c[:, None], ml, kind, ell, period, k0, 1e-10)
     v = nl.rule_value(kw["rule"], mu, sigma, th0[:, None], fmini[:, None], 1e-8)[:, 0]
     return torch.where(torch.isfinite(v), v, -torch.inf)
 
@@ -264,12 +301,11 @@ def _small_cases(dev, seed):
             print(f"  seed {seed}, {kind}: no float32 fit (not positive definite), left out")
             continue
         kth = st.kernel.theta
-        W = st.Li.transpose(-1, -2) @ st.Li
         period = kth[1] if kind == "periodic" else torch.ones_like(kth[0])
         for name in nl.SUPPORTED_RULES:
             th0 = torch.full((64,), 0.5 if name == "LCB" else 0.0, dtype=dt, device=dev)
             yield (f"{kind}/{name}",
-                   (st.X, W, st.c, st.n, sg.get_active_minimum(st), th0, kth[0], t(lo),
+                   (st.X, st.Li, st.c, st.n, sg.get_active_minimum(st), th0, kth[0], t(lo),
                     t(hi), xs, period), dict(kind=kind, rule=name))
 
 
@@ -299,7 +335,7 @@ def criterion_b_counts(solvers, dev, seeds, iterations, trace):
             for label, args, kw in _small_cases(dev, seed):
                 kw = dict(kw, iterations=iters)
                 v32 = acquisition_f64(args, kw, plain(*args, **kw)[0])
-                v64 = acquisition_f64(args, kw, plain(*_as_f64(args), **kw)[0])
+                v64 = acquisition_f64(args, kw, chip_smoke._plain64(args, kw)[0])
                 count["plain32"]["trails_plain64"] += int(_trails(v32, v64).sum())
                 determined = ~(_trails(v32, v64) | _trails(v64, v32))
                 for k, solve in solvers.items():
@@ -323,7 +359,7 @@ def trace_lane(solvers, args, kw, lane, title):
     iterations, for each float32 solver and for the plain version in
     float64 (a start's path does not depend on the other starts)."""
     one = tuple(a[lane:lane + 1].contiguous() for a in args[:6]) + tuple(args[6:])
-    runs = dict(solvers, plain64=lambda *a, **k: nl.newton_solve_lanes_ref(*_as_f64(a), **k))
+    runs = dict(solvers, plain64=lambda *a, **k: chip_smoke._plain64(a, k))
     print(f"  trace, {title} (n = {int(args[3][lane])}); rows: start, solver; "
           f"columns: value after 1..{kw['iterations']} iterations")
     for s in range(args[9].shape[0]):
@@ -414,15 +450,15 @@ def main():
         for line in lines:
             print(f"  ptxas {name}: {line}")
 
-    lanes, groups, stage_w, smem = nl._block_shape(24, 10, 10, 4)
+    lanes, groups, stage_m, smem = nl._block_shape(24, 10, 10, 4)
     report["bench_block"] = dict(
         threads=lanes * groups * nl._GROUP, shared_bytes=smem,
         blocks_per_sm=nl._library().newton_lanes_blocks_per_sm(
-            4, int(stage_w), lanes * groups * nl._GROUP, smem))
+            4, int(stage_m), lanes * groups * nl._GROUP, smem))
     print(f"bench shape, new kernel: {report['bench_block']}")
 
-    new = lambda *args, **kw: nl.newton_solve_lanes(*args, **kw)
-    solvers = {"old": old_solver(old_lib), "new": new} if old_lib else {"new": new}
+    new = solver(nl._library(), package_form)
+    solvers = {"old": solver(old_lib, w_form), "new": new} if old_lib else {"new": new}
     order = ["old", "new", "new", "old"] if old_lib else ["new", "new"]
     for name, (args, kw, counts) in shapes(dev).items():
         vs_old = None
@@ -431,6 +467,7 @@ def main():
             torch.cuda.synchronize()
             width = float(torch.max(args[8] - args[7]))
             vs_old = dict(
+                bitwise_equal=bool(torch.equal(xn, xo) and torch.equal(vn, vo)),
                 max_abs_dv=float(torch.where(vn == vo, 0.0, (vn - vo).abs()).max()),
                 argmax_agreement=float(((xn - xo).abs().amax(-1) <= 1e-3 * width)
                                        .double().mean()))
@@ -442,14 +479,17 @@ def main():
                        nbytes / chip_smoke._PEAK_BYTES) * 1e3
         mean = {k: float(np.mean([ms for n_, ms in turns if n_ == k])) for k in solvers}
         phases = phase_cycles(args, kw)
+        floor = value_floor(solvers, args, kw)
         report["shapes"][name] = dict(turns=turns, mean_ms=mean, vs_old=vs_old,
                                       gflop=flops / 1e9, bytes=nbytes, bound_ms=bound_ms,
-                                      phase_cycles=phases)
+                                      phase_cycles=phases, value_floor=floor)
         print(f"{name}: " + ", ".join(f"{n_} {ms:.3f}" for n_, ms in turns) + " ms")
         print(f"  mean ms {mean}; {flops / 1e9:.3f} GFLOP, {nbytes} B, bound {bound_ms:.4f} "
               f"ms, share of bound { {k: round(bound_ms / mean[k], 4) for k in solvers} }"
               + (f"; speedup {mean['old'] / mean['new']:.2f}x; new vs old {vs_old}"
                  if old_lib else ""))
+        print(f"  largest |v - v64| over the lanes (v64: the plain version in float64): "
+              f"{ {k: float(f'{v:.3e}') for k, v in floor.items()} }")
         if name.startswith("bench"):
             report["shapes"][name]["residency_ms"] = residency_times(args, kw, a.reps)
             print(f"  new kernel by resident blocks: {report['shapes'][name]['residency_ms']}")

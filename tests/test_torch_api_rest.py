@@ -14,8 +14,8 @@ tests/test_rollout.py and tests/test_adjoint.py. Tolerances:
   arithmetic, up to the order of additions);
 - fantasy states: rtol 1e-12 on L, Li and the posterior mean;
 - rolled-out trajectories: rtol 1e-8 on the points and draws, as the
-  adjoint tests hold them (the inner solvers differ in form: W = K^{-1}
-  against JAX's L^{-1}); rtol 1e-6 on the drawn gradients of the 1-d
+  adjoint tests hold them (the inner solvers, both in the L^{-1} form in
+  float64, differ in the order of their operations); rtol 1e-6 on the drawn gradients of the 1-d
   problem, whose K is ill-conditioned (lengthscale 0.3, noise 1e-6), and
   on the reward's gradient (an IFT gradient amplifies the solvers'
   difference by the inner Newton system's conditioning).

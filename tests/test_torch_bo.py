@@ -2,10 +2,10 @@
 
 Both packages run the same trial from the same initial design (numpy, a
 seed) in float64 on the CPU, hyperparameter MLE on at every iteration. The
-JAX loops solve with the Li-formulated XLA solver, the port with the
-W = K^{-1} lane solver; in float64 they agree to rounding except where two
-starts tie, so the functions here (braninhoo, hartmann3d) have no symmetry
-that makes starts tie. Tolerances:
+JAX loops solve with the Li-formulated XLA solver, the port with its lane
+solver, which takes the same Li form in float64; they agree to rounding
+except where two starts tie, so the functions here (braninhoo, hartmann3d)
+have no symmetry that makes starts tie. Tolerances:
 - myopic: sampled X within 1e-6 of the box width, the fitted lengthscale
   rtol 1e-6, gaps / regrets / minimum observations rtol 1e-7 and 1e-7
   absolute: an observation inherits its point's difference times the

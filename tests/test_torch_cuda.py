@@ -8,6 +8,8 @@ GPU machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
+The kernel and its plain version take each lane's Li, and solve float32
+lanes in the W = K^{-1} = Li^T Li form and float64 lanes in the Li form.
 Criteria as in chip_smoke.py and tests/test_pallas_newton.py, on the same
 CUDA lanes: (a) the kernel's value matches a plain re-evaluation of the
 acquisition at its argmax (float32 rtol 2e-3, log rules atol 2e-3 in log
@@ -72,8 +74,7 @@ def test_kernel_matches_plain_version(dev, rule_name, kind, dtype):
     xstarts = torch.tensor(qmc.generate_initial_guesses(6, -np.ones(d), np.ones(d)),
                            dtype=dtype, device=dev)
     th = torch.full((L, 1), 0.5 if rule_name == "LCB" else 0.0, dtype=dtype, device=dev)
-    W = st.Li.transpose(-1, -2) @ st.Li
-    args = (st.X, W, st.c, st.n, sg.get_active_minimum(st), th[:, 0].contiguous(),
+    args = (st.X, st.Li, st.c, st.n, sg.get_active_minimum(st), th[:, 0].contiguous(),
             st.kernel.theta[0], lbs, ubs, xstarts,
             st.kernel.theta[1] if kind == "periodic" else 1.0)
     kw = dict(kind=kind, rule=rule_name, iterations=8, f_tol=rule.solve_f_tol,
@@ -116,10 +117,10 @@ def test_kernel_raises_instead_of_falling_back(dev):
     """Shapes beyond the kernel's maxima raise for CUDA tensors."""
     d = nl.MAX_D + 1
     X = torch.zeros((2, 4, d), device=dev)
-    W = torch.eye(4, device=dev).expand(2, 4, 4).contiguous()
+    Li = torch.eye(4, device=dev).expand(2, 4, 4).contiguous()
     z = torch.zeros(2, device=dev)
     with pytest.raises(ValueError, match="outside"):
-        nl.newton_solve_lanes(X, W, torch.zeros((2, 4), device=dev),
+        nl.newton_solve_lanes(X, Li, torch.zeros((2, 4), device=dev),
                               torch.tensor([2, 2], device=dev), z, z, 0.8,
                               torch.full((d,), -1.0, device=dev),
                               torch.full((d,), 1.0, device=dev),
@@ -135,7 +136,7 @@ _EDGE_SHAPES = {
     "n_zero_and_n_capacity": ({12: 12}, 3, 12, 6, torch.float64, 4),
     "capacity_64_d_16_float64": ({40: 4, 64: 4}, 16, 64, 6, torch.float64, 0),
     # the shapes the BO loops give the kernel at the CLIs' defaults (d = 6):
-    # one lane of 104 observations with 64 + 2 starts (W staged, 3 warps),
+    # one lane of 104 observations with 64 + 2 starts (Li staged, 3 warps),
     # and 10 restarts x 200 trajectories at fantasy capacity 23, 16 + 2 starts
     "myopic_loop_one_lane_capacity_105": ({104: 1}, 6, 105, 66, torch.float64, 0),
     "nonmyopic_loop_2000_lanes_capacity_23": (
@@ -173,8 +174,7 @@ def test_kernel_at_the_edges_of_the_block_layout(dev, shape):
     xstarts = torch.tensor(starts, dtype=dtype, device=dev)
     lbs = torch.full((d,), -1.0, dtype=dtype, device=dev)
     th = torch.full((L, 1), theta, dtype=dtype, device=dev)
-    W = st.Li.transpose(-1, -2) @ st.Li
-    args = (st.X, W, st.c, st.n, sg.get_active_minimum(st), th[:, 0].contiguous(),
+    args = (st.X, st.Li, st.c, st.n, sg.get_active_minimum(st), th[:, 0].contiguous(),
             st.kernel.theta[0], lbs, -lbs, xstarts)
     kw = dict(kind="matern52", rule=rule.name, iterations=6)
     before = nl.LAUNCHES
@@ -344,14 +344,17 @@ def _sharded_vs_unsharded(dev, tmp_path, monkeypatch, world, backend, shapes):
     equal to 1e-12, and per rank h x (SGA iterations + 1) launches.
 
     The blocks are needed on the card: cuBLAS picks its batched-GEMM
-    kernel by the batch, so W = Li^T Li (solvers.py) rounds differently at
-    64 and at 128 lanes (2.4e-11 apart on this problem, measured on an
-    H100). That is enough to move the multistart Newton solve's discrete
-    choices (a backtracking step taken or not, one of two nearly tied
-    local maxima), and one trajectory's reward with them: against the
-    unblocked 128-lane solve a value moved by 6e-3 relative. On the CPU
-    the lanes round alike in any batch (test_torch_parallel.py holds the
-    sharded solves to the unblocked one)."""
+    kernel by the batch, so the trajectory's dense products round
+    differently at 64 and at 128 lanes. When the float64 lane solver still
+    took W = Li^T Li, formed by one such product (2.4e-11 apart between the
+    two batch sizes on this problem, measured on an H100), that moved the
+    multistart Newton solve's discrete choices (a backtracking step taken
+    or not, one of two nearly tied local maxima) and one trajectory's
+    reward with them: a value moved by 6e-3 relative against the unblocked
+    128-lane solve. It now reads Li itself; chip_smoke.py phase 10 prints
+    the unblocked difference beside the blocked gate. On the CPU the lanes
+    round alike in any batch (test_torch_parallel.py holds the sharded
+    solves to the unblocked one)."""
     import torch_parallel_ranks as ranks
 
     from rollout_bo_tpu_torch.rollout import mc as mc_mod

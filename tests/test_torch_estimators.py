@@ -6,8 +6,8 @@ deterministic (SAA) outer solver.
 The same GP state (the JAX package's, carried across as numpy arrays) and
 starts go through both packages in float64 at d = 2, capacity 16.
 Tolerance rtol 1e-6 on values and gradients: the JAX CPU route solves the
-inner argmax with the Li-formulated XLA solver and the port with the
-W = K^{-1} lane solver; in float64 they agree to ~1e-12, and the IFT
+inner argmax with the Li-formulated XLA solver and the port with its lane
+solver in the same Li form; in float64 they agree to ~1e-12, and the IFT
 gradients inherit that agreement amplified by at most the conditioning of
 the Newton system.
 """

@@ -15,11 +15,12 @@ This file imports no jax: on a GPU machine without it,
 
     python -m pytest --noconftest -m cuda tests/test_torch_fd.py
 
-On the card `test_adjoint_gradient_matches_fd_of_mc_1d[cuda-2]` fails: the
-lane solver's W = K^{-1} form leaves a rounding floor in the rollout's
-value whose noise in one centered difference at eps 3e-5 is as large as
-the tolerance (ROADMAP section 3). `chip_smoke.py` phase 11 runs the same
-problems (`PROBLEMS`) on the card, with `averaged_fd` and `jitter`.
+A centered difference carries the rollout value's rounding floor as noise
+of ~jitter / eps of slope. The lane solver runs float64 lanes in the Li
+form, whose floor is the JAX package's (tests/test_torch_value_floor.py);
+with the W = K^{-1} form that noise at MC 1-D h 2 was as large as the
+tolerance. `chip_smoke.py` phase 11 runs the same problems (`PROBLEMS`) on
+the card, with `averaged_fd` and `jitter` beside the single difference.
 """
 
 from __future__ import annotations

@@ -6,11 +6,14 @@ layout that `_block_shape` mirrors) would be tested only on the card. Here
 `tests/cuda_emulation/cuda_emu.h` maps the CUDA features the source uses
 onto OS threads and barriers, g++ builds `csrc/newton_lanes.cu` with its
 `<<<...>>>` launch replaced by a loop over blocks, and the same C entry
-points run on CPU tensors. Each case is held to the criteria of
+points run on CPU tensors, both instantiations: float (the W = K^{-1}
+form) and double (the Li form). Each case is held to the criteria of
 tests/test_torch_cuda.py against the plain version: (a) the kernel's value
 matches a plain re-evaluation of the acquisition at its argmax (float32
 rtol 2e-3, float64 1e-6); (b) its solution is never worse than the plain
-solver's beyond 5e-4 relative in float32 / 1e-6 in float64.
+solver's beyond 5e-4 relative in float32 / 1e-6 in float64. The double
+instantiation must read no word of Li above its diagonal, staged in shared
+memory or left in device memory: NaN written there changes no bit.
 
 This checks the arithmetic and the indexing, not the compiler or the card:
 tests/test_torch_cuda.py and chip_smoke.py do that. Skipped without g++.
@@ -72,21 +75,23 @@ def emulated(tmp_path_factory):
     return lib
 
 
-def _solve(lib, X, W, c, n, fmini, th0, ell, lbs, ubs, xstarts, period, *, kind, rule,
+def _solve(lib, X, Li, c, n, fmini, th0, ell, lbs, ubs, xstarts, period, *, kind, rule,
            iterations, f_tol=0.0, x_tol=0.0):
-    """The wrapper's launch, on CPU pointers: same block shape, same arguments."""
+    """The wrapper's launch, on CPU pointers: same block shape, same arguments
+    (the lane matrix of the dtype: W in float32, Li in float64)."""
     dt = X.dtype
     L, cap, d = X.shape
     S = xstarts.shape[0]
-    lanes, groups, stage_w, smem = nl._block_shape(cap, d, S, X.element_size())
+    lanes, groups, stage_m, smem = nl._block_shape(cap, d, S, X.element_size())
+    M = nl._lane_matrix(Li)[0]
     params = torch.tensor([float(ell), float(period)], dtype=dt)
     xout = torch.full((L, d), float("nan"), dtype=dt)
     vout = torch.full((L,), float("nan"), dtype=dt)
     err = getattr(lib, nl._ENTRY[dt])(
-        X.data_ptr(), W.data_ptr(), c.data_ptr(), n.data_ptr(), fmini.data_ptr(),
+        X.data_ptr(), M.data_ptr(), c.data_ptr(), n.data_ptr(), fmini.data_ptr(),
         th0.data_ptr(), params.data_ptr(), lbs.data_ptr(), ubs.data_ptr(),
         xstarts.data_ptr(), xout.data_ptr(), vout.data_ptr(), L, cap, d, S, iterations,
-        nl._KIND_IDS[kind], nl._RULE_IDS[rule], lanes, groups, int(stage_w),
+        nl._KIND_IDS[kind], nl._RULE_IDS[rule], lanes, groups, int(stage_m),
         1e-8, 1e-10, 1e-8, f_tol, x_tol, smem, None)
     assert err == 0
     return xout, vout
@@ -107,11 +112,13 @@ _CASES = {
     "d16_capacity_64_f64": ({40: 1, 64: 1}, 16, 64, 3, "matern52", "EI", torch.float64, 0),
     "W_left_in_device_memory_f32": ({5: 2, 11: 1}, 4, 240, 3, "matern52", "EI",
                                     torch.float32, 0),
+    "Li_left_in_device_memory_f64": ({5: 2, 11: 1}, 4, 240, 3, "matern52", "EI",
+                                     torch.float64, 0),
 }
 
 
-@pytest.mark.parametrize("case", sorted(_CASES))
-def test_emulated_kernel_matches_plain_version(emulated, case):
+def _case_inputs(case):
+    """(state, rule, solver arguments, keywords) of one case of _CASES."""
     sizes, d, cap, S, kind, rule_name, dtype, emptied = _CASES[case]
     rng = np.random.default_rng(3)
     f32 = dtype == torch.float32
@@ -137,14 +144,18 @@ def test_emulated_kernel_matches_plain_version(emulated, case):
         rng.uniform(lo, hi, (S, d))
     t = lambda a: torch.tensor(np.asarray(a), dtype=dtype)
     th = torch.full((L, 1), 0.5 if rule_name == "LCB" else 0.0, dtype=dtype)
-    W = st.Li.transpose(-1, -2) @ st.Li
     period = kern.theta[1] if kind == "periodic" else 1.0
-    args = (st.X, W, st.c, st.n, sg.get_active_minimum(st), th[:, 0].contiguous(),
+    args = (st.X, st.Li, st.c, st.n, sg.get_active_minimum(st), th[:, 0].contiguous(),
             kern.theta[0], t(lo), t(hi), t(starts), period)
     kw = dict(kind=kind, rule=rule_name, iterations=5, f_tol=rule.solve_f_tol,
               x_tol=rule.solve_x_tol)
     assert nl._block_shape(cap, d, S, st.X.element_size())[2] == (cap < 200)
-    xk, vk = _solve(emulated, *args, **kw)
+    return st, rule, th, args, kw
+
+
+def _hold_to_plain_version(st, rule, th, args, kw, xk, vk):
+    """Criteria (a) and (b) of the module docstring for the kernel's (xk, vk)."""
+    f32, rule_name = st.X.dtype == torch.float32, kw["rule"]
     xr, _ = nl.newton_solve_lanes_ref(*args, **kw)
     assert bool(torch.all(torch.isfinite(xk))) and bool(torch.all(torch.isfinite(vk)))
     vk_cross = sg.acquisition(st, rule, xk, th)
@@ -157,3 +168,29 @@ def test_emulated_kernel_matches_plain_version(emulated, case):
     else:
         slack = (5e-4 if f32 else 1e-6) * vr_cross.abs().clamp(min=1.0) + 1e-6
     assert torch.all(vk_cross >= vr_cross - slack)
+
+
+@pytest.mark.parametrize("case", sorted(_CASES))
+def test_emulated_kernel_matches_plain_version(emulated, case):
+    st, rule, th, args, kw = _case_inputs(case)
+    _hold_to_plain_version(st, rule, th, args, kw, *_solve(emulated, *args, **kw))
+
+
+@pytest.mark.parametrize("case", ["matern52_EI_f64_d10_like_the_bench",
+                                  "Li_left_in_device_memory_f64"])
+def test_emulated_double_kernel_reads_only_the_lower_triangle_of_li(emulated, case):
+    """Li is zero above its diagonal, and the double instantiation neither
+    stages nor reads that part, in shared memory (the first case) or in
+    device memory (the second): NaN written there changes no bit, and the
+    result still meets the criteria. (The words of shared memory that are
+    not staged hold NaN patterns in the emulation, so that a read of them
+    shows as a solve that misses the criteria.)"""
+    st, rule, th, args, kw = _case_inputs(case)
+    Li = args[1]
+    upper = torch.ones_like(Li, dtype=torch.bool).triu(1)
+    assert torch.all(Li[upper] == 0)
+    poisoned = torch.where(upper, torch.full_like(Li, float("nan")), Li)
+    xk, vk = _solve(emulated, *args, **kw)
+    xp, vp = _solve(emulated, args[0], poisoned, *args[2:], **kw)
+    assert torch.equal(xk, xp) and torch.equal(vk, vp)
+    _hold_to_plain_version(st, rule, th, args, kw, xp, vp)

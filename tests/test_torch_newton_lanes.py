@@ -4,7 +4,9 @@ The JAX kernel (`rollout_bo_tpu/ops/pallas_newton.py::newton_solve_lanes`)
 runs in Pallas interpret mode on the CPU, as tests/test_pallas_newton.py
 runs it; the port's CPU route is the plain version
 `newton_solve_lanes_ref`. Both see the same lanes (the JAX package's
-states, carried across as numpy arrays). The criteria and tolerances are
+states, carried across as numpy arrays): the JAX kernel takes W = Li^T Li,
+the port each lane's Li, from which it forms W itself in float32 and reads
+Li in float64 (the JAX XLA solver's form). The criteria and tolerances are
 those of test_pallas_solve_matches_xla_solver:
 (a) the solver's value matches a plain re-evaluation of the acquisition at
     its argmax (f32: rtol 2e-3; log rules atol 2e-3 in log space, where
@@ -61,7 +63,8 @@ def _jax_states(L, n, d, cap, kernel, seed, dtype, noise=1e-5):
 
 
 def _lanes(states):
-    """Stacked lane arrays of the JAX states: X, W = Li^T Li, c, n, fmini."""
+    """Stacked lane arrays of the JAX states: X, W = Li^T Li (what the JAX
+    kernel takes), c, n, fmini."""
     X = jnp.stack([s.X for s in states])
     Li = jnp.stack([s.Li for s in states])
     W = jnp.einsum("lji,ljk->lik", Li, Li)
@@ -71,10 +74,14 @@ def _lanes(states):
     return X, W, c, n, fmini
 
 
-def _torch_lanes(lanes, dtype):
-    X, W, c, n, fmini = (np.array(a) for a in lanes)
+def _torch_lanes(states, dtype):
+    """The port's lane arrays of the same states: X, Li, c, n, fmini (the
+    port takes Li where the JAX kernel takes W)."""
+    X, Li, c, n = (np.stack([np.asarray(getattr(s, f)) for s in states])
+                   for f in ("X", "Li", "c", "n"))
+    fmini = np.stack([np.asarray(jsg.get_active_minimum(s)) for s in states])
     t = lambda a: torch.tensor(a, dtype=dtype)
-    return t(X), t(W), t(c), torch.tensor(n, dtype=torch.int64), t(fmini)
+    return t(X), t(Li), t(c), torch.tensor(n, dtype=torch.int64), t(fmini)
 
 
 def _stack(states, lanes):
@@ -100,9 +107,9 @@ def _solve_both(states, rule_name, xstarts, lbs, ubs, iters, dtype, period=1.0,
         *lanes, jnp.full((L,), th, jdt), kth[0], lbs, ubs, xstarts, period,
         kind=kind, rule=rule_name, iterations=iters, f_tol=f_tol, x_tol=x_tol,
         interpret=True)
-    X, W, c, n, fmini = _torch_lanes(lanes, dtype)
+    X, Li, c, n, fmini = _torch_lanes(states, dtype)
     x, v = nl.newton_solve_lanes(
-        X, W, c, n, fmini, torch.full((L,), th, dtype=dtype), float(kth[0]),
+        X, Li, c, n, fmini, torch.full((L,), th, dtype=dtype), float(kth[0]),
         torch.tensor(lbs, dtype=dtype), torch.tensor(ubs, dtype=dtype),
         torch.tensor(xstarts, dtype=dtype), period,
         kind=kind, rule=rule_name, iterations=iters, f_tol=f_tol, x_tol=x_tol)
@@ -217,8 +224,9 @@ def test_per_lane_n_and_periodic_kernel():
 
 def test_loose_poi_float64_matches_jax_xla_solver():
     """f64 lanes with the IPNewton-loose freeze (POI: f_tol = x_tol = 1e-3).
-    In f64 the W vs Li op-ordering noise (~1e-12) is far below any freeze
-    threshold, so the frozen solutions coincide with the JAX XLA solver's."""
+    In f64 both solve in the Li form; their op-ordering noise (~1e-12) is
+    far below any freeze threshold, so the frozen solutions coincide with
+    the JAX XLA solver's."""
     f64 = torch.float64
     L, n, d, cap, S = 4, 7, 3, 12, 4
     kern = jK.matern52((0.8,))
@@ -254,8 +262,7 @@ def test_maximize_hot_flattens_lane_axes():
     assert nl.LAUNCHES == before
     assert x.shape == (2, 3, 2) and v.shape == (2, 3)
     flat = _stack(ports, (6,))
-    W = flat.Li.transpose(-1, -2) @ flat.Li
-    xf, vf = nl.newton_solve_lanes_ref(flat.X, W, flat.c, flat.n,
+    xf, vf = nl.newton_solve_lanes_ref(flat.X, flat.Li, flat.c, flat.n,
                                        sg.get_active_minimum(flat),
                                        torch.zeros(6, dtype=f64), 0.8, lbs, ubs,
                                        xstarts, iterations=6)
@@ -268,10 +275,10 @@ def test_all_starts_nonfinite_gives_zero_and_neg_inf():
     returns x = 0, v = -inf (the JAX kernel's sequential start reduction)."""
     f64 = torch.float64
     X = torch.zeros((1, 4, 2), dtype=f64)
-    W = 0.1 * torch.eye(4, dtype=f64)[None]
+    Li = 0.1 * torch.eye(4, dtype=f64)[None]
     c = torch.ones((1, 4), dtype=f64)
     nan = torch.full((1,), float("nan"), dtype=f64)
-    x, v = nl.newton_solve_lanes(X, W, c, torch.tensor([2]), nan,
+    x, v = nl.newton_solve_lanes(X, Li, c, torch.tensor([2]), nan,
                                  torch.zeros(1, dtype=f64), 0.8,
                                  torch.full((2,), -1.0, dtype=f64),
                                  torch.full((2,), 1.0, dtype=f64),
@@ -285,18 +292,19 @@ def test_arguments_are_checked_on_every_route():
     supported kind / rule) run for CPU tensors too."""
     f64 = torch.float64
     X = torch.zeros((2, 4, 2), dtype=f64)
-    W = torch.eye(4, dtype=f64).expand(2, 4, 4).contiguous()
+    Li = torch.eye(4, dtype=f64).expand(2, 4, 4).contiguous()
     hist = torch.zeros((2, 3, 4), dtype=f64)
     n, z = torch.tensor([2, 3]), torch.zeros(2, dtype=f64)
     box = (torch.full((2,), -1.0, dtype=f64), torch.full((2,), 1.0, dtype=f64),
            torch.zeros((3, 2), dtype=f64))
-    ok = nl.newton_solve_lanes(X, W, hist[:, 0].contiguous(), n, z, z, 0.8, *box,
+    ok = nl.newton_solve_lanes(X, Li, hist[:, 0].contiguous(), n, z, z, 0.8, *box,
                                iterations=1)
     assert ok[0].shape == (2, 2)
-    bad = [((X, W, hist[:, 0], n, z, z), {}, "contiguous"),            # strided view
-           ((X, W, hist[:, 0].contiguous(), n.int(), z, z), {}, "int64"),
-           ((X.float(), W, hist[:, 0].contiguous(), n, z, z), {}, "float32"),
-           ((X, W, hist[:, 0].contiguous(), n, z, z), {"rule": "Random"}, "unsupported")]
+    bad = [((X, Li, hist[:, 0], n, z, z), {}, "contiguous"),           # strided view
+           ((X, Li, hist[:, 0].contiguous(), n.int(), z, z), {}, "int64"),
+           ((X.float(), Li, hist[:, 0].contiguous(), n, z, z), {}, "float32"),
+           ((X, Li[:, :3].contiguous(), hist[:, 0].contiguous(), n, z, z), {}, "Li must"),
+           ((X, Li, hist[:, 0].contiguous(), n, z, z), {"rule": "Random"}, "unsupported")]
     for args, kw, msg in bad:
         with pytest.raises(ValueError, match=msg):
             nl.newton_solve_lanes(*args, 0.8, *box, iterations=1, **kw)
@@ -319,15 +327,15 @@ def test_block_shape_fits_the_card(cap, S, itemsize):
     limits, holds at least one lane and one group, covers every start, and
     its byte count is the layout's (lane state + box + groups' scratch)."""
     for d in range(1, nl.MAX_D + 1):
-        lanes, groups, stage_w, smem = nl._block_shape(cap, d, S, itemsize)
+        lanes, groups, stage_m, smem = nl._block_shape(cap, d, S, itemsize)
         assert lanes >= 1 and 1 <= groups <= S
         assert lanes * groups * nl._GROUP <= nl._MAX_THREADS <= _BLOCK_THREADS
         assert 0 < smem <= _BLOCK_SHARED
         dp = d | 1
         per_group = (5 * cap + 2 * cap * max(dp, 18) + 2 * d * dp + 25 * dp + dp + 2)
-        per_lane = cap * dp + cap + (cap * (cap | 1) if stage_w else 0)
+        per_lane = cap * dp + cap + (cap * (cap | 1) if stage_m else 0)
         assert smem == (lanes * (per_lane + groups * per_group) + 2 * dp) * itemsize
-        assert stage_w      # these capacities keep W in shared memory
+        assert stage_m      # these capacities keep W (or Li) in shared memory
 
 
 def test_block_shape_bench_and_beyond():
@@ -340,8 +348,8 @@ def test_block_shape_bench_and_beyond():
     assert nl._block_shape(24, 10, 1024, 4)[:2] == (1, 16)
     # a capacity whose W = K^{-1} alone exceeds the block: W stays in device
     # memory (240 x 241 floats = 231,360 B)
-    lanes, groups, stage_w, smem = nl._block_shape(240, 10, 10, 4)
-    assert lanes == 1 and groups >= 1 and not stage_w and smem <= _BLOCK_SHARED
+    lanes, groups, stage_m, smem = nl._block_shape(240, 10, 10, 4)
+    assert lanes == 1 and groups >= 1 and not stage_m and smem <= _BLOCK_SHARED
     for bad in (dict(cap=24, d=0, S=4), dict(cap=24, d=17, S=4),
                 dict(cap=24, d=4, S=0), dict(cap=24, d=4, S=1025)):
         with pytest.raises(ValueError, match="outside"):
@@ -376,6 +384,62 @@ def test_lane_solve_work_at_the_bench_shape_and_its_growth():
     assert work(cap=48) == base
     assert nl.lane_solve_work([14] * 8, 48, 10, 10, 10, 4)[1] > \
         nl.lane_solve_work([14] * 8, 24, 10, 10, 10, 4)[1]
+
+
+def test_lane_solve_work_of_the_float64_li_form():
+    """itemsize 8 counts the Li form: Li's lower triangle in bytes, triangular
+    products (n (n + 1) for a matvec) where the W form has square ones
+    (2 n^2), and the Hessian's data term as the Gram of Li G. At the BO
+    loops' two float64 shapes (d 6) the Li form needs fewer operations than
+    the W form would, and its count grows as n^2 at large n."""
+    f32_form = lambda n, cap, S: nl.lane_solve_work(n, cap, 6, S, 12, 4)[0]  # noqa: E731
+    for n, cap, S in (([104], 105, 66), ([15] * 2000, 23, 18)):
+        flops, nbytes = nl.lane_solve_work(n, cap, 6, S, 12, 8)
+        lanes = len(n)
+        read = (lanes * (cap * 6 + cap * (cap + 1) // 2 + cap + 2) + 2 * 6 + S * 6 + 2) * 8
+        assert nbytes == read + 8 * lanes + lanes * 7 * 8
+        assert 0.5 * f32_form(n, cap, S) < flops < f32_form(n, cap, S)
+    assert 3.5 < nl.lane_solve_work([400] * 2, 512, 10, 10, 10, 8)[0] / \
+        nl.lane_solve_work([200] * 2, 512, 10, 10, 10, 8)[0] < 4.0
+    # loops run to n, not to the capacity
+    assert nl.lane_solve_work([14] * 8, 48, 10, 10, 10, 8)[0] == \
+        nl.lane_solve_work([14] * 8, 24, 10, 10, 10, 8)[0]
+
+
+def _float32_lanes(L=6, n=7, d=3, cap=12, seed=4):
+    """A float32 state of L lanes (the port's fit), its rule's theta and
+    the box and starts."""
+    f32 = torch.float32
+    rng = np.random.default_rng(seed)
+    kern = K.matern52((0.8,), device="cpu", dtype=f32)
+    parts = [sg.fit(kern, rng.uniform(-1.0, 1.0, (n, d)),
+                    np.sin(rng.uniform(-3.0, 3.0, n)), capacity=cap, noise=1e-3,
+                    device="cpu", dtype=f32) for _ in range(L)]
+    st = _stack(parts, (L,))
+    box = (torch.full((d,), -1.0, dtype=f32), torch.full((d,), 1.0, dtype=f32))
+    xstarts = torch.tensor(qmc.generate_initial_guesses(4, -np.ones(d), np.ones(d)),
+                           dtype=f32)
+    return st, box, xstarts
+
+
+def test_float32_route_is_the_w_form_bitwise():
+    """float32 lanes given Li solve in the TPU kernel's W form, bit for bit:
+    the entry point and `solvers.maximize_hot` (which passes the state's
+    Li) return exactly what the W-form plain solve returns given W =
+    Li^T Li, formed as one batched matmul."""
+    st, (lbs, ubs), xstarts = _float32_lanes()
+    L = st.X.shape[0]
+    th0 = torch.zeros(L, dtype=torch.float32)
+    args = (st.c, st.n, sg.get_active_minimum(st), th0, st.kernel.theta[0], lbs, ubs,
+            xstarts)
+    W = st.Li.transpose(-1, -2) @ st.Li
+    xw, vw = nl._solve_plain(st.X, W, False, *args, iterations=6)
+    x, v = nl.newton_solve_lanes(st.X, st.Li, *args, iterations=6)
+    xh, vh = solvers.maximize_hot(st, dr.EI(), th0[:, None], lbs, ubs, xstarts,
+                                  iterations=6)
+    assert bool(torch.all(torch.isfinite(vw)))
+    for xo, vo in ((x, v), (xh, vh)):
+        assert torch.equal(xo, xw) and torch.equal(vo, vw)
 
 
 @pytest.mark.parametrize("fn", [sg.fit, K.matern52, K.matern32, K.matern12,

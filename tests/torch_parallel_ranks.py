@@ -110,7 +110,8 @@ def simulate_case(problem, meshes, iterations):
 
 def solve_case(problems, device="cpu", dtype="float64"):
     """Each named problem: (kind, mesh shape, solver keywords); the sharded
-    batch or fused solve, its kernel launches and its SGA iterations."""
+    batch, fused or scanned solve, its kernel launches and its SGA
+    iterations (-1 where the solver does not report them)."""
     dev, dt = mesh_mod.rank_device(device), getattr(torch, dtype)
     out = {}
     for name, (kind, (restarts, mc), p, kw) in problems.items():
@@ -120,6 +121,10 @@ def solve_case(problems, device="cpu", dtype="float64"):
         if kind == "batch":
             xs, vals = sharded.sharded_stochastic_solve_batch(st, tp, dr.EI(), xstarts,
                                                               starts, mesh, **kw)
+            it = -1
+        elif kind == "scanned":
+            xs, vals = sharded.sharded_stochastic_solve_scanned(st, tp, dr.EI(), xstarts,
+                                                                starts, mesh, **kw)
             it = -1
         else:
             xs, vals, it = sharded.sharded_stochastic_solve_fused(st, tp, dr.EI(), xstarts,
@@ -209,4 +214,6 @@ def unsharded_solve(kind, p, kw, device="cpu", dtype=f64):
     st, tp, xstarts, starts = port_problem(p, device, dtype)
     if kind == "batch":
         return outer.stochastic_solve_batch(st, tp, dr.EI(), xstarts, starts, **kw)
+    if kind == "scanned":
+        return outer.stochastic_solve_scanned(st, tp, dr.EI(), xstarts, starts, **kw)
     return outer.stochastic_solve_fused(st, tp, dr.EI(), xstarts, starts, **kw)
