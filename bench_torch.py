@@ -1,0 +1,143 @@
+#!/usr/bin/env python3
+"""Headline benchmark of the PyTorch port: one h=3 rollout-acquisition
+optimization per BO iteration, timed as bench.py times the JAX package.
+
+    python3 bench_torch.py [--device cuda|cpu]
+
+The configuration is bench.py's (the reference's archived
+nonmyopic-shortrun-timing run): trid10d, 12 observations in a capacity-20
+Matern-5/2 surrogate (lengthscale 1, noise 1e-5, seed 1906), horizon 3,
+200 QMC trajectories, 8 outer SGA restarts, 50 SGA iterations with the
+eswavs early stop, lr 0.01, 8 + 2 inner starts, 10 Newton iterations,
+float32. The solve is `rollout.outer.stochastic_solve_fused(select_best=True)`,
+the port's counterpart of `make_fused_sga_program`. Reference wall time:
+309.4 s per BO iteration (BASELINE.md).
+
+The protocol is bench.py's: one warm-up acquisition, whose winner must be
+finite, then 3 timed ones, each on a new QMC stream tensor and each ending
+in `torch.cuda.synchronize()`; the median is reported. Earlier lines give
+the card's name and power limit (nvidia-smi), the SGA iterations of each
+acquisition, its lane-kernel launches (checked: horizon x (SGA iterations
++ 1) on the card, 0 on the CPU, where the plain PyTorch version runs) and
+the three times. The last line is bench.py's JSON.
+
+The card is the default and its absence raises; `--device cpu` runs the
+plain PyTorch route (the tests do).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import statistics
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+BASELINE_S = 309.4  # reference trid10d h=3 s/iter (BASELINE.md)
+METRIC = "trid10d_h3_rollout_acq_opt_seconds_per_iter"
+TIMED_RUNS = 3
+
+
+def bench_problem(device, dtype, *, name="trid10d", n_obs=12, capacity=20, mc=200,
+                  horizon=3, starts=8, restarts=8):
+    """bench.py's problem (bench.py:39-62) built with the port's functions:
+    the surrogate state, the trajectory parameters (x0 = 0, theta = 0, the
+    box, the QMC stream (mc, d + 1, horizon + 1)), the inner starts
+    (starts + 2, d) and the outer restarts (restarts, d)."""
+    from rollout_bo_tpu_torch.models import surrogate as sg
+    from rollout_bo_tpu_torch.models import testfns
+    from rollout_bo_tpu_torch.ops import kernels as K
+    from rollout_bo_tpu_torch.ops import qmc
+    from rollout_bo_tpu_torch.rollout.trajectory import TrajectoryParams
+
+    f = testfns.get_function(name)
+    d = f.dim
+    t = lambda a: torch.tensor(np.asarray(a), dtype=dtype, device=device)
+    rng = np.random.default_rng(1906)
+    X0 = qmc.randsample(n_obs, d, f.lbs, f.ubs, rng)
+    y0 = f.batch(torch.tensor(X0, dtype=torch.float64)).numpy()
+    state = sg.fit(K.matern52((1.0,), device=device, dtype=dtype), X0, y0,
+                   capacity=capacity, noise=1e-5, device=device, dtype=dtype)
+    xstarts = t(qmc.generate_initial_guesses(starts, f.lbs, f.ubs))
+    z = qmc.gen_low_discrepancy_sequence(mc, d, horizon + 1)
+    tp = TrajectoryParams(x0=torch.zeros(d, dtype=dtype, device=device),
+                          theta=torch.zeros(1, dtype=dtype, device=device),
+                          lbs=t(f.lbs), ubs=t(f.ubs), rnstream=t(z))
+    rs = t(qmc.generate_batch(restarts, f.lbs, f.ubs)[:restarts])
+    return state, tp, xstarts, rs
+
+
+def acquire(state, tp, xstarts, restarts, *, max_iters=50, lr=0.01, inner_iterations=10):
+    """One acquisition: the multi-restart SGA solve with winner selection."""
+    from rollout_bo_tpu_torch.models.decision_rules import EI
+    from rollout_bo_tpu_torch.rollout import outer
+
+    return outer.stochastic_solve_fused(state, tp, EI(), xstarts, restarts,
+                                        max_iters=max_iters, lr=lr,
+                                        inner_iterations=inner_iterations, select_best=True)
+
+
+def card_line(device) -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
+    if device.type != "cuda":
+        return f"device: {device} (the plain PyTorch route; no card)"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def main(argv=None):
+    from rollout_bo_tpu_torch.experiments.myopic import add_device_argument, resolve_device
+    from rollout_bo_tpu_torch.ops import newton_lanes as nl
+    from rollout_bo_tpu_torch.ops import qmc
+
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    add_device_argument(p)
+    device = resolve_device(p.parse_args(argv).device)
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    print(card_line(device))
+
+    state, tp, xstarts, restarts = bench_problem(device, torch.float32)
+    d, dtype = tp.lbs.shape[0], tp.lbs.dtype
+    iterations, launches, times = [], [], []
+
+    def run(rnstream):
+        sync()
+        nl.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = acquire(state, tp._replace(rnstream=rnstream), xstarts, restarts)
+        sync()
+        seconds = time.perf_counter() - t0
+        iterations.append(res.iterations)
+        launches.append(nl.LAUNCHES)
+        return res, seconds
+
+    res, _ = run(tp.rnstream)                                  # warm-up
+    if not (bool(torch.all(torch.isfinite(res.x))) and math.isfinite(float(res.value))):
+        raise AssertionError(f"non-finite acquisition result x={res.x} v={res.value}")
+    for _ in range(TIMED_RUNS):
+        # a new stream tensor per call, as bench.py:84-91 (the same values:
+        # the Sobol stream is deterministic)
+        z = torch.tensor(qmc.gen_low_discrepancy_sequence(tp.mc_iters, d, tp.horizon + 1),
+                         dtype=dtype, device=device)
+        times.append(run(z)[1])
+
+    want = [tp.horizon * (it + 1) if cuda else 0 for it in iterations]
+    print(f"SGA iterations per acquisition (warm-up, then timed): {iterations}")
+    print(f"lane-kernel launches per acquisition: {launches} "
+          f"(expected {'horizon x (SGA iterations + 1)' if cuda else '0 on the CPU'}: {want})")
+    if launches != want:
+        raise AssertionError(f"lane-kernel launches {launches} != {want}")
+    print(f"seconds per acquisition (timed): {times}")
+    val = statistics.median(times)
+    print(json.dumps({"metric": METRIC, "value": val, "unit": "s",
+                      "vs_baseline": BASELINE_S / val}))
+
+
+if __name__ == "__main__":
+    main()

@@ -130,7 +130,17 @@ Run from the repository root on a machine with one NVIDIA Hopper card
    centered difference, the gate, with its ratio; beside it the mean of 11
    differences at points 1e-7 apart and the function's rounding floor
    (jitter), which on the MC 1-D problems (h 1 and 2) must be within 3x
-   the CPU route's, computed in the same phase.
+   the CPU route's, computed in the same phase;
+12. the measurement entry points, each run as a user runs it (its own
+   process, no arguments): `bench_torch.py` (bench.py's protocol: its last
+   line has bench.py's four keys and metric name, a finite value, and
+   launches = 3 x (SGA iterations + 1) per acquisition),
+   `scripts/throughput_torch.py` (trajectories/s per card at 4096 lanes, h
+   3, with gradients; 3 launches per call) and
+   `scripts/profile_bench_torch.py` (5 SGA steps under torch.profiler: ms
+   per step, the device-busy share of the traced window, in (0, 1], and
+   the top kernels by device time, the lane kernel among them). A non-zero
+   exit of any of them fails the phase.
 
 `--phases 3 11` runs only the phases named (1 and 2 always run); a partial
 run prints neither of the two closing lines.
@@ -334,13 +344,24 @@ def _compare(st, rule, th, lbs, ubs, xstarts, iterations, label, timing=False):
             f"(a: {ok_a}, max |v - acq(x)| = {float(err.max()):.3e} at lane {i}: "
             f"{float(vk[i])} vs {float(vk_cross[i])}; b: {ok_b}, min kernel - plain = "
             f"{float((vk_cross - vr_cross).min()):.3e})")
-    flops, nbytes = nl.lane_solve_work(st.n.tolist(), st.X.shape[1], st.X.shape[2],
-                                       xstarts.shape[0], iterations, st.X.element_size())
-    bound_ops, bound_bytes = flops / _PEAK_FLOPS[dt] * 1e3, nbytes / _PEAK_BYTES * 1e3
     return dict(max_abs_err=float(vs_plain.max()), max_err_reeval=float(err.max()),
                 agree=agree, apart=int(far.sum()), sided=sided, void=void, moved=moved,
-                ms=ms, plain_ms=plain_ms, flops=flops,
-                bytes=nbytes, bound_ms=max(bound_ops, bound_bytes),
+                ms=ms, plain_ms=plain_ms,
+                **lane_bound(st.n.tolist(), st.X.shape[1], st.X.shape[2], xstarts.shape[0],
+                             iterations, dt))
+
+
+def lane_bound(n, cap, d, S, iterations, dtype):
+    """The least time the card could take for one `newton_solve_lanes` call
+    on lanes of active counts n: the larger of its operations over the peak
+    rate of `dtype` and its bytes over the memory rate (`lane_solve_work`).
+    Returns dict(flops, bytes, bound_ms, bound_by)."""
+    from rollout_bo_tpu_torch.ops import newton_lanes as nl
+
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    flops, nbytes = nl.lane_solve_work(n, cap, d, S, iterations, itemsize)
+    bound_ops, bound_bytes = flops / _PEAK_FLOPS[dtype] * 1e3, nbytes / _PEAK_BYTES * 1e3
+    return dict(flops=flops, bytes=nbytes, bound_ms=max(bound_ops, bound_bytes),
                 bound_by="operations" if bound_ops >= bound_bytes else "bytes")
 
 
@@ -502,43 +523,14 @@ def _edge_cases(dev):
 # --------------------------------------------------------------------------
 
 
-def _bench_problem(dev, dtype, name="trid10d", n_obs=12, capacity=20, mc=200,
-                   horizon=3, starts=8, restarts=8):
-    """bench.py's configuration (trid10d, 12 observations in a capacity-20
-    surrogate, 200 QMC trajectories, horizon 3, 8 + 2 starts, 8 restarts)."""
-    from rollout_bo_tpu_torch.models import surrogate as sg
-    from rollout_bo_tpu_torch.models import testfns
-    from rollout_bo_tpu_torch.ops import kernels as K
-    from rollout_bo_tpu_torch.ops import qmc
-    from rollout_bo_tpu_torch.rollout.trajectory import TrajectoryParams
-
-    f = testfns.get_function(name)
-    d = f.dim
-    t = lambda a: torch.tensor(np.asarray(a), dtype=dtype, device=dev)
-    rng = np.random.default_rng(1906)
-    X0 = qmc.randsample(n_obs, d, f.lbs, f.ubs, rng)
-    y0 = f.batch(torch.tensor(X0, dtype=torch.float64)).numpy()
-    state = sg.fit(K.matern52((1.0,), device=dev, dtype=dtype), X0, y0,
-                   capacity=capacity, noise=1e-5,
-                   device=dev, dtype=dtype)
-    xstarts = t(qmc.generate_initial_guesses(starts, f.lbs, f.ubs))
-    z = qmc.gen_low_discrepancy_sequence(mc, d, horizon + 1)
-    tp = TrajectoryParams(x0=torch.zeros(d, dtype=dtype, device=dev),
-                          theta=torch.zeros(1, dtype=dtype, device=dev),
-                          lbs=t(f.lbs), ubs=t(f.ubs), rnstream=t(z))
-    rs = t(qmc.generate_batch(restarts, f.lbs, f.ubs)[:restarts])
-    return state, tp, xstarts, rs
-
-
 def phase_main_path(dev, card):
-    from rollout_bo_tpu_torch.models.decision_rules import EI
+    import bench_torch
     from rollout_bo_tpu_torch.ops import newton_lanes as nl
     from rollout_bo_tpu_torch.rollout.outer import stochastic_solve_fused
 
-    state, tp, xstarts, restarts = _bench_problem(dev, torch.float32)
-    acquire = lambda: stochastic_solve_fused(
-        state, tp, EI(), xstarts, restarts, max_iters=50, lr=0.01,
-        inner_iterations=10, select_best=True)
+    problem = bench_torch.bench_problem(dev, torch.float32)
+    state, tp, xstarts, restarts = problem
+    acquire = lambda: bench_torch.acquire(*problem)
 
     torch.cuda.synchronize()
     nl.LAUNCHES = 0
@@ -586,11 +578,12 @@ def phase_main_path(dev, card):
 
 
 def _setup_small(dev):
+    from bench_torch import bench_problem
     from rollout_bo_tpu_torch.models.decision_rules import EI
 
-    state, tp, xstarts, rs = _bench_problem(dev, torch.float64, name="trid2d", n_obs=6,
-                                            capacity=10, mc=8, horizon=2, starts=4,
-                                            restarts=4)
+    state, tp, xstarts, rs = bench_problem(dev, torch.float64, name="trid2d", n_obs=6,
+                                           capacity=10, mc=8, horizon=2, starts=4,
+                                           restarts=4)
     return state, tp, EI(), xstarts, rs
 
 
@@ -1071,19 +1064,20 @@ def _rank_sharded(rank, world, init_method, backend, prefix, kw):
     (`_worker_problems`)."""
     import torch.distributed as dist
 
+    from bench_torch import acquire, bench_problem
     from rollout_bo_tpu_torch.models import decision_rules as dr
     from rollout_bo_tpu_torch.models import testfns
     from rollout_bo_tpu_torch.ops import newton_lanes as nl
     from rollout_bo_tpu_torch.parallel import mesh as mesh_mod
     from rollout_bo_tpu_torch.parallel import sharded
-    from rollout_bo_tpu_torch.rollout import bo, outer
+    from rollout_bo_tpu_torch.rollout import bo
 
     torch.set_num_threads(1)
     mesh_mod.initialize_distributed(init_method, world, rank, backend=backend)
     try:
         dev = mesh_mod.rank_device("cuda")
         report = dict(rank=rank, device=str(dev), solves=[])
-        state, tp, xstarts, restarts = _bench_problem(dev, torch.float32)
+        state, tp, xstarts, restarts = bench_problem(dev, torch.float32)
         for r, m in kw["shapes"]:
             mesh = mesh_mod.make_mesh(restarts=r, mc=m)
             solve = lambda: sharded.sharded_stochastic_solve_fused(
@@ -1100,9 +1094,7 @@ def _rank_sharded(rank, world, init_method, backend, prefix, kw):
             x = res.x.cpu()
             plain_s = []
             if kw.get("plain"):
-                plain = lambda: outer.stochastic_solve_fused(
-                    state, tp, dr.EI(), xstarts, restarts, max_iters=50, lr=0.01,
-                    inner_iterations=10, select_best=True)
+                plain = lambda: acquire(state, tp, xstarts, restarts)
                 plain()                               # warm-up
                 for turn in ((plain, plain_s), (solve, seconds)) * 2 + ((plain, plain_s),):
                     run, times = turn
@@ -1485,7 +1477,84 @@ def _fd_checks(dev):
                              f"route's rounding floor) on the card: {missed}")
 
 
-_PHASES = (3, 4, 5, 6, 7, 8, 9, 10, 11)
+# --------------------------------------------------------------------------
+# phase 12: the measurement entry points, as a user runs them
+# --------------------------------------------------------------------------
+
+
+def _run_entry_point(args, timeout):
+    """`python3 <args>` from the repository root; its stdout lines and wall
+    seconds. A non-zero exit raises with the end of its output."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *args], cwd=root, capture_output=True, text=True,
+                          timeout=timeout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{' '.join(args)} exited {proc.returncode}:\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return proc.stdout.strip().splitlines(), time.perf_counter() - t0
+
+
+def _listed(lines, prefix):
+    """The first [...] list on the line that starts with `prefix`."""
+    line = next(ln for ln in lines if ln.startswith(prefix))
+    return json.loads(line[line.index("["):line.index("]") + 1])
+
+
+def phase_measurement(card):
+    t_phase = time.perf_counter()
+    lines, wall = _run_entry_point(["bench_torch.py"], 600)
+    bench = json.loads(lines[-1])
+    its = _listed(lines, "SGA iterations per acquisition")
+    launches = _listed(lines, "lane-kernel launches per acquisition")
+    if (list(bench) != ["metric", "value", "unit", "vs_baseline"]
+            or bench["metric"] != "trid10d_h3_rollout_acq_opt_seconds_per_iter"
+            or not math.isfinite(bench["value"]) or bench["value"] <= 0):
+        raise AssertionError(f"bench_torch.py's last line is not bench.py's: {lines[-1]}")
+    if launches != [3 * (i + 1) for i in its]:
+        raise AssertionError(f"bench_torch.py: launches {launches} != 3 x ({its} + 1)")
+    print(f"bench_torch.py: {bench['value']:.4f} s per acquisition (median; "
+          f"{', '.join(f'{t:.4f}' for t in _listed(lines, 'seconds per acquisition'))} s), "
+          f"vs_baseline {bench['vs_baseline']:.1f}x; SGA iterations {its}, lane-kernel "
+          f"launches {launches}; {wall:.1f} s wall; on {card}")
+
+    lines, wall = _run_entry_point(["scripts/throughput_torch.py"], 600)
+    tput = json.loads(lines[-1])
+    if (tput["mc_per_call"] != 4096 or tput["horizon"] != 3 or tput["backend"] != "cuda"
+            or tput["lane_kernel_launches_per_call"] != 3
+            or not (math.isfinite(tput["value"]) and tput["value"] > 0)):
+        raise AssertionError(f"scripts/throughput_torch.py: {lines[-1]}")
+    print(f"scripts/throughput_torch.py: {tput['value']:.1f} trajectories/s/card "
+          f"({tput['mc_per_call']} trajectories, h {tput['horizon']}, with gradients: "
+          f"{tput['seconds_per_call'] * 1e3:.2f} ms per call, median of 5; "
+          f"{tput['lane_kernel_launches_per_call']:g} lane-kernel launches per call of "
+          f"{tput['lane_kernel_lanes']} lanes, "
+          f"{', '.join(f'{t:.3f}' for t in tput['lane_kernel_ms'])} ms against bounds of "
+          f"{', '.join(f'{t:.4f}' for t in tput['lane_kernel_bound_ms'])} ms (by "
+          f"{tput['lane_kernel_bound_by']})); {wall:.1f} s wall; on {card}")
+
+    with tempfile.TemporaryDirectory(prefix="profile_bench_torch-") as tmp:
+        lines, wall = _run_entry_point(["scripts/profile_bench_torch.py", "--outdir", tmp], 900)
+    prof = json.loads(lines[-1])
+    lane = [i for i, k in enumerate(prof["top"]) if "newton_lanes_kernel" in k["name"]]
+    if not (prof["busy_share"] is not None and 0.0 < prof["busy_share"] <= 1.0) or not lane:
+        raise AssertionError(f"scripts/profile_bench_torch.py: busy share "
+                             f"{prof['busy_share']}, lane kernel among the top kernels: "
+                             f"{bool(lane)}")
+    k = prof["top"][lane[0]]
+    print(f"scripts/profile_bench_torch.py: {prof['ms_per_step']:.2f} ms per SGA step "
+          f"({prof['traced_ms_per_step']:.2f} traced), device busy {prof['busy_share']:.4f} "
+          f"of the {prof['window_ms']:.1f} ms traced window, {prof['launches']} kernels of "
+          f"{prof['device_ms']:.2f} ms over {prof['steps']} steps "
+          f"({prof['device_ms_over_untraced_wall']:.4f} "
+          f"of the untraced steps' wall); the lane kernel #{lane[0] + 1} by device "
+          f"time ({k['ms']:.2f} ms, {k['count']}x); {wall:.1f} s wall; on {card}")
+    for i, k in enumerate(prof["top"][:8]):
+        print(f"  {i + 1}. {k['ms']:8.2f} ms {k['count']:6d}x  {k['name'][:100]}")
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
+
+
+_PHASES = (3, 4, 5, 6, 7, 8, 9, 10, 11, 12)
 
 
 def main(argv=None):
@@ -1516,6 +1585,8 @@ def main(argv=None):
         phase_sharded(smi)
     if 11 in phases:
         phase_examples(dev, smi)
+    if 12 in phases:
+        phase_measurement(smi)
     torch.cuda.synchronize()
     if phases != set(_PHASES):
         print(f"partial run (phases {sorted(phases)}): no closing lines")

@@ -68,8 +68,8 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-import chip_smoke  # noqa: E402  (the lanes and the bench problem)
-from rollout_bo_tpu_torch.models import decision_rules as dr  # noqa: E402
+import bench_torch  # noqa: E402  (the bench problem)
+import chip_smoke  # noqa: E402  (the lanes, their timing and bounds)
 from rollout_bo_tpu_torch.models import surrogate as sg  # noqa: E402
 from rollout_bo_tpu_torch.models import testfns  # noqa: E402
 from rollout_bo_tpu_torch.ops import _build  # noqa: E402
@@ -373,12 +373,9 @@ def trace_lane(solvers, args, kw, lane, title):
 def acquisition_launch_times(dev):
     """CUDA-event ms of every kernel launch inside one bench.py acquisition."""
     from rollout_bo_tpu_torch.rollout import solvers as rs
-    from rollout_bo_tpu_torch.rollout.outer import stochastic_solve_fused
 
-    state, tp, xstarts, restarts = chip_smoke._bench_problem(dev, torch.float32)
-    acquire = lambda: stochastic_solve_fused(
-        state, tp, dr.EI(), xstarts, restarts, max_iters=50, lr=0.01,
-        inner_iterations=10, select_best=True)
+    problem = bench_torch.bench_problem(dev, torch.float32)
+    acquire = lambda: bench_torch.acquire(*problem)
     acquire()
     torch.cuda.synchronize()
     events = []
@@ -473,10 +470,9 @@ def main():
                                        .double().mean()))
         turns = time_turns(solvers, order, args, kw, a.reps)
         X, S = args[0], args[9].shape[0]
-        flops, nbytes = nl.lane_solve_work(counts, X.shape[1], X.shape[2], S,
-                                           kw["iterations"], X.element_size())
-        bound_ms = max(flops / chip_smoke._PEAK_FLOPS[X.dtype],
-                       nbytes / chip_smoke._PEAK_BYTES) * 1e3
+        work = chip_smoke.lane_bound(counts, X.shape[1], X.shape[2], S, kw["iterations"],
+                                     X.dtype)
+        flops, nbytes, bound_ms = work["flops"], work["bytes"], work["bound_ms"]
         mean = {k: float(np.mean([ms for n_, ms in turns if n_ == k])) for k in solvers}
         phases = phase_cycles(args, kw)
         floor = value_floor(solvers, args, kw)
