@@ -9,17 +9,24 @@ nonmyopic-shortrun-timing run): trid10d, 12 observations in a capacity-20
 Matern-5/2 surrogate (lengthscale 1, noise 1e-5, seed 1906), horizon 3,
 200 QMC trajectories, 8 outer SGA restarts, 50 SGA iterations with the
 eswavs early stop, lr 0.01, 8 + 2 inner starts, 10 Newton iterations,
-float32. The solve is `rollout.outer.stochastic_solve_fused(select_best=True)`,
-the port's counterpart of `make_fused_sga_program`. Reference wall time:
-309.4 s per BO iteration (BASELINE.md).
+float32. The solve is the port's `make_fused_sga_program(select_best=True)`,
+built once, as bench.py builds the JAX program (bench.py:70-72): on the
+card, CUDA graphs of one SGA step and of the final pass. Reference wall
+time: 309.4 s per BO iteration (BASELINE.md).
 
-The protocol is bench.py's: one warm-up acquisition, whose winner must be
-finite, then 3 timed ones, each on a new QMC stream tensor and each ending
-in `torch.cuda.synchronize()`; the median is reported. Earlier lines give
-the card's name and power limit (nvidia-smi), the SGA iterations of each
-acquisition, its lane-kernel launches (checked: horizon x (SGA iterations
-+ 1) on the card, 0 on the CPU, where the plain PyTorch version runs) and
-the three times. The last line is bench.py's JSON.
+The protocol is bench.py's: one warm-up acquisition (on the card, the
+program's capture), whose winner must be finite, then 3 timed ones, each
+on a new QMC stream tensor and each ending in `torch.cuda.synchronize()`;
+the median is reported. The same protocol first runs the solve in the
+eager loop (`stochastic_solve_fused` with no program), on a line of its
+own, with the largest difference between the two routes' winners on the
+last stream. Earlier lines give the card's name and power limit
+(nvidia-smi), the program's capture seconds, memory-pool bytes and
+warm-up launches, then for the program the SGA iterations of each
+acquisition, its lane-kernel launches (checked on both routes: horizon x
+(SGA iterations + 1) on the card, 0 on the CPU, where the plain PyTorch
+version runs) and the three times. The last line is bench.py's JSON, of
+the program.
 
 The card is the default and its absence raises; `--device cpu` runs the
 plain PyTorch route (the tests do).
@@ -71,14 +78,27 @@ def bench_problem(device, dtype, *, name="trid10d", n_obs=12, capacity=20, mc=20
     return state, tp, xstarts, rs
 
 
-def acquire(state, tp, xstarts, restarts, *, max_iters=50, lr=0.01, inner_iterations=10):
-    """One acquisition: the multi-restart SGA solve with winner selection."""
+def acquire(state, tp, xstarts, restarts, *, max_iters=50, lr=0.01, inner_iterations=10,
+            program=None):
+    """One acquisition: the multi-restart SGA solve with winner selection,
+    in the eager loop, or through `program` (`fused_program`)."""
     from rollout_bo_tpu_torch.models.decision_rules import EI
     from rollout_bo_tpu_torch.rollout import outer
 
     return outer.stochastic_solve_fused(state, tp, EI(), xstarts, restarts,
                                         max_iters=max_iters, lr=lr,
-                                        inner_iterations=inner_iterations, select_best=True)
+                                        inner_iterations=inner_iterations, select_best=True,
+                                        program=program)
+
+
+def fused_program(state, tp, xstarts):
+    """`make_fused_sga_program(select_best=True)` with `acquire`'s solver
+    settings, so that both routes solve one problem."""
+    from rollout_bo_tpu_torch.models.decision_rules import EI
+    from rollout_bo_tpu_torch.rollout import outer
+
+    kw = {k: v for k, v in acquire.__kwdefaults__.items() if k != "program"}
+    return outer.make_fused_sga_program(state, tp, EI(), xstarts, select_best=True, **kw)
 
 
 def card_line(device) -> str:
@@ -94,6 +114,7 @@ def main(argv=None):
     from rollout_bo_tpu_torch.experiments.myopic import add_device_argument, resolve_device
     from rollout_bo_tpu_torch.ops import newton_lanes as nl
     from rollout_bo_tpu_torch.ops import qmc
+    from rollout_bo_tpu_torch.utils import graphs
 
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     add_device_argument(p)
@@ -104,35 +125,56 @@ def main(argv=None):
 
     state, tp, xstarts, restarts = bench_problem(device, torch.float32)
     d, dtype = tp.lbs.shape[0], tp.lbs.dtype
-    iterations, launches, times = [], [], []
+    program = fused_program(state, tp, xstarts)
 
-    def run(rnstream):
-        sync()
-        nl.LAUNCHES = 0
-        t0 = time.perf_counter()
-        res = acquire(state, tp._replace(rnstream=rnstream), xstarts, restarts)
-        sync()
-        seconds = time.perf_counter() - t0
-        iterations.append(res.iterations)
-        launches.append(nl.LAUNCHES)
-        return res, seconds
+    def route(program):
+        """bench.py's protocol: (SGA iterations, launches, seconds, winner)
+        per acquisition, the warm-up first. The launches leave out those of
+        the graphs' warm-up runs before a capture (the program's first
+        call), which `warmup` holds per acquisition."""
+        iterations, launches, warmup, times = [], [], [], []
 
-    res, _ = run(tp.rnstream)                                  # warm-up
-    if not (bool(torch.all(torch.isfinite(res.x))) and math.isfinite(float(res.value))):
-        raise AssertionError(f"non-finite acquisition result x={res.x} v={res.value}")
-    for _ in range(TIMED_RUNS):
-        # a new stream tensor per call, as bench.py:84-91 (the same values:
-        # the Sobol stream is deterministic)
-        z = torch.tensor(qmc.gen_low_discrepancy_sequence(tp.mc_iters, d, tp.horizon + 1),
-                         dtype=dtype, device=device)
-        times.append(run(z)[1])
+        def run(rnstream):
+            sync()
+            nl.LAUNCHES, warm0 = 0, graphs.WARMUP_LAUNCHES
+            t0 = time.perf_counter()
+            res = acquire(state, tp._replace(rnstream=rnstream), xstarts, restarts,
+                          program=program)
+            sync()
+            times.append(time.perf_counter() - t0)
+            iterations.append(res.iterations)
+            warmup.append(graphs.WARMUP_LAUNCHES - warm0)
+            launches.append(nl.LAUNCHES - warmup[-1])
+            return res
 
-    want = [tp.horizon * (it + 1) if cuda else 0 for it in iterations]
+        res = run(tp.rnstream)                                 # warm-up
+        if not (bool(torch.all(torch.isfinite(res.x))) and math.isfinite(float(res.value))):
+            raise AssertionError(f"non-finite acquisition result x={res.x} v={res.value}")
+        for _ in range(TIMED_RUNS):
+            # a new stream tensor per call, as bench.py:84-91 (the same values:
+            # the Sobol stream is deterministic)
+            z = torch.tensor(qmc.gen_low_discrepancy_sequence(tp.mc_iters, d, tp.horizon + 1),
+                             dtype=dtype, device=device)
+            res = run(z)
+        want = [tp.horizon * (it + 1) if cuda else 0 for it in iterations]
+        if launches != want or any(warmup[1:]):
+            raise AssertionError(f"lane-kernel launches {launches} != {want}, or warm-up "
+                                 f"launches {warmup} after the first call")
+        return iterations, launches, warmup[0], times[1:], res
+
+    its, launches, _, times, eager = route(None)
+    print(f"eager route: {statistics.median(times)} s per acquisition (median; {times}), "
+          f"SGA iterations {its}, lane-kernel launches {launches}")
+    iterations, launches, warm, times, res = route(program)
+    print(f"program: capture {sum(g.capture_seconds for g in program.graphs)} s, "
+          f"memory pools {sum(g.pool_bytes for g in program.graphs)} B, "
+          f"{warm} lane-kernel launches in the warm-up runs before it; winner on the last "
+          f"stream against the eager route's: max |dx| "
+          f"{float(torch.max(torch.abs(res.x - eager.x)))}, |dv| "
+          f"{abs(float(res.value) - float(eager.value))}")
     print(f"SGA iterations per acquisition (warm-up, then timed): {iterations}")
     print(f"lane-kernel launches per acquisition: {launches} "
-          f"(expected {'horizon x (SGA iterations + 1)' if cuda else '0 on the CPU'}: {want})")
-    if launches != want:
-        raise AssertionError(f"lane-kernel launches {launches} != {want}")
+          f"(expected {'horizon x (SGA iterations + 1)' if cuda else '0 on the CPU'})")
     print(f"seconds per acquisition (timed): {times}")
     val = statistics.median(times)
     print(json.dumps({"metric": METRIC, "value": val, "unit": "s",

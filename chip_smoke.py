@@ -35,13 +35,18 @@ Run from the repository root on a machine with one NVIDIA Hopper card
    lane where that run and the float32 one are themselves farther apart
    than (b) grants, and a lane agrees if the kernel ends where the
    float64 run does; both counts are printed;
-4. main path: `stochastic_solve_fused(select_best=True)` at the exact
-   bench.py configuration (trid10d, horizon 3, 200 QMC trajectories, 8
-   restarts, 10 + 8 + 2 inner starts, 50 SGA iterations, float32) on the
-   card; checks a finite winner inside the box, that the kernel ran
-   3 x (SGA iterations + 1) times, and that a small float64 run of the
-   same path agrees with the CPU route (the plain solver); times the
-   median of 2 acquisitions after a warm-up;
+4. main path: the port's `make_fused_sga_program(select_best=True)` (CUDA
+   graphs of one SGA step and of the final pass), built once as
+   `bench_torch.py` builds it, at the exact bench.py configuration
+   (trid10d, horizon 3, 200 QMC trajectories, 8 restarts, 10 + 8 + 2 inner
+   starts, 50 SGA iterations, float32) on the card; the first call
+   captures. Checks a finite winner inside the box, each graph captured
+   once, that the first call ran the kernel 3 x (SGA iterations + 1)
+   times besides the 3 x 2 x 3 of the graphs' warm-up runs, that a small
+   float64 run of the same path agrees with the CPU route (the plain
+   solver, the program run eagerly); times the median of 2 acquisitions
+   after the first, each launching the kernel 3 x (SGA iterations + 1)
+   times. The `kernels` line's launches are the first call's;
 5. myopic BO, one full-protocol trial through the experiment CLI
    (`experiments.myopic.main`): hartmann6d, budget 100, 64 starts, EI / POI
    / LCB / Random, 5 initial samples, Matern-5/2 with the MLE every
@@ -57,9 +62,12 @@ Run from the repository root on a machine with one NVIDIA Hopper card
    restarts, 50 SGA iterations, 16 + 2 starts, MLE on, float64, budget 15
    (depth; the widths are the CLI's defaults). Same CSV checks; kernel
    launches = sum over BO iterations of horizon x (SGA iterations + 1),
-   plus one per fallback taken. Prints seconds per BO iteration, SGA
-   iterations per acquisition, fallbacks, the final gap and the share of
-   solver lanes that left their start. Then one BO iteration with
+   plus one per fallback taken, besides those of the graphs' warm-up runs
+   (the acquisitions run their cached program). Prints seconds per BO
+   iteration, SGA iterations per acquisition, fallbacks, the final gap and
+   the share of solver lanes that left their start (over the solver calls
+   a replay does not hide: the warm-up runs and the fallbacks). Then one
+   BO iteration with
    `--deterministic-solve` at the same width (8 Gauss-Hermite nodes: 512
    quadrature trajectories per restart), timed;
 7. small float64 trials, card against CPU route: a 4-iteration myopic
@@ -84,13 +92,15 @@ Run from the repository root on a machine with one NVIDIA Hopper card
    widths (braninhoo, 100 QMC trajectories, 8 + 2 restarts, 8 + 2 starts,
    h 1, 50 SGA iterations, float32, modes uniform / nonuniform / gp),
    budget 1 (depth). Checks the CSVs, costs in [1, 1 + amp], gaps in
-   [0, 1], and kernel launches == fallbacks taken: a cost-aware solve
-   never reaches the kernel (the torch `newton_solve_batch` takes it).
-   Prints per mode the acquisition median, the seconds per simulate call,
-   `newton_solve_batch`'s share of it (CUDA events around each solver
-   call) and the cumulative cost. Then one simulate call at the same
-   width, in turns for plain EI (the kernel) and the three cost-aware
-   rules on the same inputs: the cost channel's price per call;
+   [0, 1], one cached program (two graphs) per mode, and kernel launches
+   == fallbacks taken: a cost-aware solve never reaches the kernel (the
+   torch `newton_solve_batch` takes it). The trials run as users run
+   them, through the program cache. Then one eager simulate call at the
+   same width, in turns for plain EI (the kernel) and the three cost-aware
+   rules on the same inputs: the cost channel's price per call. Prints
+   per mode the acquisition median, and from the eager call the seconds
+   per simulate call, `newton_solve_batch`'s share of it (CUDA events
+   around each solver call, which a replay hides) and the cumulative cost;
 10. the sharded path (`parallel/`), ranks of torch.distributed started
    with `spawn`, each launching the kernel on its share of the lanes:
    `sharded_stochastic_solve_fused(select_best=True)` at the bench.py
@@ -132,15 +142,31 @@ Run from the repository root on a machine with one NVIDIA Hopper card
    (jitter), which on the MC 1-D problems (h 1 and 2) must be within 3x
    the CPU route's, computed in the same phase;
 12. the measurement entry points, each run as a user runs it (its own
-   process, no arguments): `bench_torch.py` (bench.py's protocol: its last
-   line has bench.py's four keys and metric name, a finite value, and
-   launches = 3 x (SGA iterations + 1) per acquisition),
+   process, no arguments), each through its program (CUDA graphs) and,
+   on an earlier line, eagerly: `bench_torch.py` (bench.py's protocol on
+   `make_fused_sga_program(select_best=True)`: its last line has
+   bench.py's four keys and metric name, a finite value, and launches =
+   3 x (SGA iterations + 1) per acquisition),
    `scripts/throughput_torch.py` (trajectories/s per card at 4096 lanes, h
-   3, with gradients; 3 launches per call) and
-   `scripts/profile_bench_torch.py` (5 SGA steps under torch.profiler: ms
-   per step, the device-busy share of the traced window, in (0, 1], and
-   the top kernels by device time, the lane kernel among them). A non-zero
-   exit of any of them fails the phase.
+   3, with gradients, a graph of the call; 3 launches per call) and
+   `scripts/profile_bench_torch.py` (5 replays of `make_batched_sga_step`
+   under torch.profiler: ms per step, the device-busy share of the traced
+   window, in (0, 1], and the top kernels by device time, the lane kernel
+   among them). A non-zero exit of any of them fails the phase;
+13. the SGA programs against the eager loop: bench.py's acquisition at
+   its width, in float32 and in float64, eagerly and through
+   `make_fused_sga_program(select_best=True)`, a warm-up of each (the
+   program's capture) and then the median of 3 in turns, each on a new
+   stream: the same SGA iterations, winner and value bit for bit (the two
+   routes run the same kernels at the same shapes on one card), kernel
+   launches 3 x (SGA iterations + 1) on both (on the program's first
+   call besides the 3 x 2 x 3 of its graphs' warm-up runs), the capture
+   seconds and the graphs' memory-pool bytes. Then one
+   non-myopic trial through the CLI at phase 6's widths with the budget
+   cut to 3, through the program cache and then in the eager loop: one
+   program captured for the trial (its two graphs once each), the same
+   points within 1e-9, the launch identity on both routes, the seconds
+   per BO iteration of each.
 
 `--phases 3 11` runs only the phases named (1 and 2 always run); a partial
 run prints neither of the two closing lines.
@@ -526,45 +552,65 @@ def _edge_cases(dev):
 def phase_main_path(dev, card):
     import bench_torch
     from rollout_bo_tpu_torch.ops import newton_lanes as nl
-    from rollout_bo_tpu_torch.rollout.outer import stochastic_solve_fused
+    from rollout_bo_tpu_torch.rollout.outer import make_fused_sga_program, stochastic_solve_fused
+    from rollout_bo_tpu_torch.utils import graphs
 
     problem = bench_torch.bench_problem(dev, torch.float32)
     state, tp, xstarts, restarts = problem
-    acquire = lambda: bench_torch.acquire(*problem)
+    program = bench_torch.fused_program(state, tp, xstarts)
+    acquire = lambda: bench_torch.acquire(*problem, program=program)
 
     torch.cuda.synchronize()
-    nl.LAUNCHES = 0
+    nl.LAUNCHES, warm0 = 0, graphs.WARMUP_LAUNCHES
     t0 = time.perf_counter()
     res = acquire()
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = nl.LAUNCHES
-    if launches != 3 * (res.iterations + 1):
-        raise AssertionError(f"kernel launches {launches} != 3 x ({res.iterations} + 1)")
+    # the first call captures: the warm-up runs of its two graphs (3 launches
+    # each) launch the kernel besides the replays
+    launches, warm = nl.LAUNCHES, graphs.WARMUP_LAUNCHES - warm0
+    if warm != graphs.WARMUP * 2 * 3 or launches - warm != 3 * (res.iterations + 1):
+        raise AssertionError(f"kernel launches {launches} != {graphs.WARMUP} x 2 x 3 warm-up "
+                             f"+ 3 x ({res.iterations} + 1)")
+    if sum(g.captures for g in program.graphs) != 2:
+        raise AssertionError("the fused program did not capture its two graphs once each")
     x, v = res.x, res.value
     if x.shape != (10,) or not bool(torch.all(torch.isfinite(x))) or not math.isfinite(float(v)):
         raise AssertionError(f"bad acquisition result x={x} v={v}")
     if not (bool(torch.all((x >= tp.lbs) & (x <= tp.ubs))) and float(v) >= 0.0):
         raise AssertionError(f"winner outside the box or negative value: x={x} v={v}")
-    print(f"main path: bench.py configuration, {res.iterations} SGA iterations, "
-          f"{launches} kernel launches, v_best {float(v):.6g}, first call {first_s:.3f} s")
+    print(f"main path: bench.py configuration through make_fused_sga_program(select_best="
+          f"True), {res.iterations} SGA iterations, {launches} kernel launches ({warm} in "
+          f"the warm-up runs before the capture, {launches - warm} replayed), v_best "
+          f"{float(v):.6g}, first call {first_s:.3f} s (the capture of its two graphs "
+          f"{sum(g.capture_seconds for g in program.graphs):.3f} s of it)")
 
-    times = []
+    times, replayed = [], []
     for _ in range(2):
         torch.cuda.synchronize()
+        nl.LAUNCHES = 0
         t0 = time.perf_counter()
-        acquire()
+        r = acquire()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        if nl.LAUNCHES != 3 * (r.iterations + 1):
+            raise AssertionError(f"a call after the capture: kernel launches {nl.LAUNCHES} "
+                                 f"!= 3 x ({r.iterations} + 1)")
+        replayed.append(nl.LAUNCHES)
     median = statistics.median(times)
     print(f"main path: median {median:.4f} s per acquisition over 2 runs "
-          f"({', '.join(f'{s:.4f}' for s in times)}) on {card}")
+          f"({', '.join(f'{s:.4f}' for s in times)}), kernel launches {replayed} = 3 x "
+          f"(SGA iterations + 1); on {card}")
 
-    # a small float64 run of the same path: the card (kernel) against the
-    # CPU route (plain solver), which the CPU tests hold to the JAX package
-    small = lambda device: stochastic_solve_fused(
-        *_setup_small(device), max_iters=5, lr=0.05, inner_iterations=6,
-        select_best=True)
+    # a small float64 run of the same path: the card (kernel, graphs) against
+    # the CPU route (plain solver, eager program), which the CPU tests hold
+    # to the JAX package
+    def small(device):
+        st, tps, rule, xs, rs = _setup_small(device)
+        kw = dict(max_iters=5, lr=0.05, inner_iterations=6, select_best=True)
+        prog = make_fused_sga_program(st, tps, rule, xs, **kw)
+        return stochastic_solve_fused(st, tps, rule, xs, rs, program=prog, **kw)
+
     gpu, cpu = small(dev), small(torch.device("cpu"))
     torch.cuda.synchronize()
     if gpu.iterations != cpu.iterations or not torch.allclose(
@@ -597,10 +643,17 @@ def _recording():
     """Records what the CLIs do not return: each trial's result with its
     wall seconds and the kernel-launch count at its end, the seconds of each
     MLE refit, and per lane-solver call the share of lanes whose argmax is
-    at none of its start points."""
+    at none of its start points. The launch counts leave out the launches
+    of the graphs' warm-up runs before a capture (`warmup`, counted since
+    the recording began): they are the launches whose results the loop
+    used, which the phases hold to the SGA iterations. A graph's replay
+    runs no Python, so on the program route the solver-call share is that
+    of the warm-up runs and of the solves outside the graphs (fallbacks);
+    `solver_calls` says how many."""
     from rollout_bo_tpu_torch.models import surrogate as sg
     from rollout_bo_tpu_torch.ops import newton_lanes as nl
     from rollout_bo_tpu_torch.rollout import bo, solvers
+    from rollout_bo_tpu_torch.utils import graphs
 
     rec = dict(trials=[], mle_s=[], moved=[], acquisitions=[])
     hot, refit = solvers.maximize_hot, sg.optimize_hypers
@@ -610,6 +663,8 @@ def _recording():
 
     def maximize_hot(state, rule, theta, lbs, ubs, xstarts, **kw):
         x, v = hot(state, rule, theta, lbs, ubs, xstarts, **kw)
+        if torch.cuda.is_current_stream_capturing():
+            return x, v                  # a graph's capture computes nothing
         starts = torch.maximum(torch.minimum(xstarts, ubs), lbs)
         away = (x[..., None, :] - starts).abs().amax(dim=-1).amin(dim=-1)
         rec["moved"].append((away > 1e-6 * torch.max(ubs - lbs)).double().mean())
@@ -624,18 +679,23 @@ def _recording():
         return out
 
     def acquire_or_fall_back(acq, fallback, state, rnstream, restarts, h):
-        before = nl.LAUNCHES
+        before, warm = nl.LAUNCHES, graphs.WARMUP_LAUNCHES
         out = acquire(acq, fallback, state, rnstream, restarts, h)
+        warm = graphs.WARMUP_LAUNCHES - warm
         rec["acquisitions"].append(dict(h=h, iterations=int(out[1]), fallback=bool(out[2]),
-                                        launches=nl.LAUNCHES - before))
+                                        launches=nl.LAUNCHES - before - warm, warmup=warm))
         return out
+
+    warm0 = graphs.WARMUP_LAUNCHES
 
     def timed(loop):
         def run(*args, **kw):
             t0 = time.perf_counter()
             res = loop(*args, **kw)
+            warm = graphs.WARMUP_LAUNCHES - warm0
             rec["trials"].append(dict(
-                res=res, seconds=time.perf_counter() - t0, launches=nl.LAUNCHES,
+                res=res, seconds=time.perf_counter() - t0, launches=nl.LAUNCHES - warm,
+                warmup=warm, solver_calls=len(rec["moved"]),
                 mle_s=rec["mle_s"][:], moved=torch.stack(rec["moved"]).cpu().numpy()
                 if rec["moved"] else np.zeros(0), acquisitions=rec["acquisitions"][:]))
             for key in ("mle_s", "moved", "acquisitions"):
@@ -654,6 +714,21 @@ def _recording():
         bo._acquire_or_fall_back = acquire
         for name, loop in loops.items():
             setattr(bo, name, loop)
+
+
+@contextlib.contextmanager
+def _eager_loops():
+    """The non-myopic and adaptive loops' acquisitions in the eager loop
+    (`_rollout_acquirer` with no program key): the route that the programs
+    are held to."""
+    from rollout_bo_tpu_torch.rollout import bo
+
+    acquirer = bo._rollout_acquirer
+    bo._rollout_acquirer = lambda *a, **kw: acquirer(*a, **dict(kw, program_key=None))
+    try:
+        yield
+    finally:
+        bo._rollout_acquirer = acquirer
 
 
 @contextlib.contextmanager
@@ -788,13 +863,16 @@ def phase_nonmyopic_cli(card, budget=15, horizon=2):
     ell = _lengthscale_in_bounds(res, "non-myopic")
     print(f"non-myopic BO, hartmann6d, h {horizon}, 10 restarts x 200 trajectories, "
           f"budget {budget}: final gap {gaps[-1]:.4f}, {trial['launches']} kernel "
-          f"launches, acquisition median {statistics.median(res.times):.4f} s "
+          f"launches (besides {trial['warmup']} in the graphs' warm-up runs), acquisition "
+          f"median {statistics.median(res.times):.4f} s "
           f"(min {res.times.min():.4f}, max {res.times.max():.4f}), whole BO iteration "
           f"{trial['seconds'] / budget:.4f} s, SGA iterations per acquisition "
           f"{res.sga_iterations.tolist()}, fallbacks {int(res.fallbacks.sum())}, MLE "
           f"refit median {statistics.median(trial['mle_s']):.4f} s, fitted lengthscale "
           f"{ell:.4f}, solver lanes that left their start "
-          f"{float(trial['moved'].mean()):.4f}; on {card}")
+          f"{float(trial['moved'].mean()):.4f} (over the {trial['solver_calls']} solver "
+          f"calls a replay does not hide: the graphs' warm-up runs and the fallbacks); on "
+          f"{card}")
 
     # the Gauss-Hermite (SAA) solver at the same width: 8 nodes, so
     # 8^(h+1) quadrature trajectories per restart; one BO iteration
@@ -860,7 +938,8 @@ def phase_adaptive_cli(card, budget=15, horizon=2):
     ell = _lengthscale_in_bounds(res, "adaptive")
     print(f"adaptive BO, hartmann6d, h 0 / {horizon} alternating, 10 restarts x 100 "
           f"trajectories, budget {budget}: final gap {rows['gaps'][-1]:.4f}, "
-          f"{trial['launches']} kernel launches, acquisition median h 0 "
+          f"{trial['launches']} kernel launches (besides {trial['warmup']} in the graphs' "
+          f"warm-up runs), acquisition median h 0 "
           f"{statistics.median(times[0]):.4f} s, h {horizon} "
           f"{statistics.median(times[horizon]):.4f} s (min {min(times[horizon]):.4f}, max "
           f"{max(times[horizon]):.4f}), SGA iterations per acquisition "
@@ -875,51 +954,65 @@ def phase_cost_aware_cli(dev, card, budget=1):
     from rollout_bo_tpu_torch.experiments import cost_aware
     from rollout_bo_tpu_torch.ops import newton_lanes as nl
 
+    from rollout_bo_tpu_torch.rollout import bo
+    from rollout_bo_tpu_torch.utils import graphs
+
     modes = ("uniform", "nonuniform", "gp")
     amp = 3.0
-    with tempfile.TemporaryDirectory() as out, _recording() as rec, \
-            _simulate_timing() as sim:
-        per_mode = []
+    # the trials run as users run them: their acquisitions through the
+    # program cache (CUDA graphs); the time per simulate call and
+    # newton_solve_batch's share of it, which a replay hides, come from
+    # eager simulate calls at the same width (`_simulate_cost_against_kernel`)
+    with tempfile.TemporaryDirectory() as out, _recording() as rec:
+        cached, captures = set(bo._PROGRAM_CACHE), graphs.CAPTURES
         nl.LAUNCHES = 0
         for mode in modes:
-            before = len(sim["simulate_s"])
             cost_aware.main(["--function-name", "braninhoo", "--trials", "1", "--budget",
                              str(budget), "--modes", mode, "--cost-amp", str(amp),
                              "--seed", "1906", "--output-dir", out])
             torch.cuda.synchronize()
-            per_mode.append((sim["simulate_s"][before:], sim["solver_ms"][before:]))
         base = os.path.join(out, "braninhoo")
+        costs = {}
         for mode in modes:
             for metric in ("gaps", "observations", "times"):
                 _check_csv(os.path.join(base, f"{mode}_rollout_h1_{metric}.csv"), budget,
                            gaps=metric == "gaps")
-            costs = _check_csv(os.path.join(base, f"{mode}_costs.csv"), budget)
-            if not np.all((costs >= 1.0) & (costs <= 1.0 + amp)):
-                raise AssertionError(f"cost-aware {mode}: costs {costs} outside [1, {1 + amp}]")
-            per_mode[modes.index(mode)] += (costs,)
+            costs[mode] = _check_csv(os.path.join(base, f"{mode}_costs.csv"), budget)
+            if not np.all((costs[mode] >= 1.0) & (costs[mode] <= 1.0 + amp)):
+                raise AssertionError(f"cost-aware {mode}: costs {costs[mode]} outside "
+                                     f"[1, {1 + amp}]")
+    programs = [k for k in bo._PROGRAM_CACHE if k not in cached]
+    if len(programs) != len(modes) or graphs.CAPTURES - captures != 2 * len(modes):
+        raise AssertionError(f"cost-aware: {len(programs)} new programs and "
+                             f"{graphs.CAPTURES - captures} captures, not one program of "
+                             f"two graphs per mode")
+    simulate = _simulate_cost_against_kernel(dev, card, amp)
     before = 0
-    for mode, trial, (sim_s, solver_ms, costs) in zip(modes, rec["trials"], per_mode):
+    for mode, trial in zip(modes, rec["trials"]):
         res, launches = trial["res"], trial["launches"] - before
         before = trial["launches"]
         if launches != int(res.fallbacks.sum()):
             raise AssertionError(f"cost-aware {mode}: {launches} kernel launches, not the "
                                  f"{int(res.fallbacks.sum())} fallbacks taken: a cost-aware "
                                  "solve reached the lane kernel")
-        share = sum(solver_ms) / 1e3 / sum(sim_s)
+        sim_s, share = simulate[mode]
         print(f"cost-aware BO, braninhoo, {mode}, 10 restarts x 100 trajectories, budget "
-              f"{budget}, float32: acquisition median {statistics.median(res.times):.4f} s, "
-              f"{len(sim_s)} simulate calls of {statistics.median(sim_s):.4f} s (median), "
-              f"newton_solve_batch {share:.4f} of their time, {launches} kernel launches = "
+              f"{budget}, float32, through the program cache: acquisition median "
+              f"{statistics.median(res.times):.4f} s, {launches} kernel launches = "
               f"fallbacks, SGA iterations {res.sga_iterations.tolist()}, cumulative cost "
-              f"{costs.sum():.4f}; on {card}")
-    _simulate_cost_against_kernel(dev, card, amp)
+              f"{costs[mode].sum():.4f}; an eager simulate call at this width "
+              f"{sim_s:.4f} s (median), newton_solve_batch {share:.4f} of its time; "
+              f"on {card}")
 
 
 def _simulate_cost_against_kernel(dev, card, amp, reps=3):
-    """One simulate call (with gradients) at phase 9's width on one
+    """One eager simulate call (with gradients) at phase 9's width on one
     braninhoo surrogate: plain EI, which the kernel solves, against the
     three cost-aware rules, which newton_solve_batch solves; timed in turns
-    (forward, then backward order) after a warm-up of each."""
+    (forward, then backward order) after a warm-up of each, with CUDA
+    events around each newton_solve_batch call (`_simulate_timing`).
+    Returns {mode: (median seconds per call, newton_solve_batch's share of
+    the calls' time)} of the cost-aware rules."""
     from rollout_bo_tpu_torch.experiments import cost_aware
     from rollout_bo_tpu_torch.models import decision_rules as dr
     from rollout_bo_tpu_torch.models import surrogate as sg
@@ -947,25 +1040,28 @@ def _simulate_cost_against_kernel(dev, card, amp, reps=3):
     call = lambda rule: mc.simulate_trajectory_mc(state, tp, rule, xstarts,
                                                   with_gradients=True)
     seconds = {name: [] for name in rules}
+    solver_ms = {name: [] for name in rules}
     for name, rule in rules.items():
         call(rule)                                          # warm-up
     names = list(rules)
-    for r in range(reps):
-        for name in names if r % 2 == 0 else names[::-1]:
-            launches = nl.LAUNCHES
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            call(rules[name])
-            torch.cuda.synchronize()
-            seconds[name].append(time.perf_counter() - t0)
-            if nl.LAUNCHES - launches != (name == "EI (kernel)"):
-                raise AssertionError(f"simulate call with {name}: "
-                                     f"{nl.LAUNCHES - launches} kernel launches")
+    with _simulate_timing() as sim:
+        for r in range(reps):
+            for name in names if r % 2 == 0 else names[::-1]:
+                launches = nl.LAUNCHES
+                call(rules[name])
+                seconds[name].append(sim["simulate_s"][-1])
+                solver_ms[name].append(sim["solver_ms"][-1])
+                if nl.LAUNCHES - launches != (name == "EI (kernel)"):
+                    raise AssertionError(f"simulate call with {name}: "
+                                         f"{nl.LAUNCHES - launches} kernel launches")
     base = statistics.median(seconds["EI (kernel)"])
     print(f"simulate call, braninhoo, h 1, 10 restarts x 100 trajectories, 10 starts, "
           f"float32, median of {reps} in turns: " + ", ".join(
               f"{name} {statistics.median(v):.4f} s ({statistics.median(v) / base:.2f}x)"
               for name, v in seconds.items()) + f"; on {card}")
+    return {name: (statistics.median(seconds[name]),
+                   sum(solver_ms[name]) / 1e3 / sum(seconds[name]))
+            for name in rules if name != "EI (kernel)"}
 
 
 def phase_card_equals_cpu(dev):
@@ -1517,6 +1613,8 @@ def phase_measurement(card):
           f"{', '.join(f'{t:.4f}' for t in _listed(lines, 'seconds per acquisition'))} s), "
           f"vs_baseline {bench['vs_baseline']:.1f}x; SGA iterations {its}, lane-kernel "
           f"launches {launches}; {wall:.1f} s wall; on {card}")
+    for prefix in ("eager route:", "program:"):
+        print(f"  bench_torch.py {next(ln for ln in lines if ln.startswith(prefix))}")
 
     lines, wall = _run_entry_point(["scripts/throughput_torch.py"], 600)
     tput = json.loads(lines[-1])
@@ -1532,10 +1630,15 @@ def phase_measurement(card):
           f"{', '.join(f'{t:.3f}' for t in tput['lane_kernel_ms'])} ms against bounds of "
           f"{', '.join(f'{t:.4f}' for t in tput['lane_kernel_bound_ms'])} ms (by "
           f"{tput['lane_kernel_bound_by']})); {wall:.1f} s wall; on {card}")
+    for prefix in ("eager route:", "program:"):
+        print(f"  scripts/throughput_torch.py "
+              f"{next(ln for ln in lines if ln.startswith(prefix))}")
 
     with tempfile.TemporaryDirectory(prefix="profile_bench_torch-") as tmp:
         lines, wall = _run_entry_point(["scripts/profile_bench_torch.py", "--outdir", tmp], 900)
     prof = json.loads(lines[-1])
+    eager = json.loads(next(ln for ln in lines if ln.startswith("eager route:"))
+                       .split(":", 1)[1])
     lane = [i for i, k in enumerate(prof["top"]) if "newton_lanes_kernel" in k["name"]]
     if not (prof["busy_share"] is not None and 0.0 < prof["busy_share"] <= 1.0) or not lane:
         raise AssertionError(f"scripts/profile_bench_torch.py: busy share "
@@ -1551,10 +1654,163 @@ def phase_measurement(card):
           f"time ({k['ms']:.2f} ms, {k['count']}x); {wall:.1f} s wall; on {card}")
     for i, k in enumerate(prof["top"][:8]):
         print(f"  {i + 1}. {k['ms']:8.2f} ms {k['count']:6d}x  {k['name'][:100]}")
+    print(f"  eager route: {eager['ms_per_step']:.2f} ms per SGA step "
+          f"({eager['traced_ms_per_step']:.2f} traced), device busy {eager['busy_share']:.4f} "
+          f"of the {eager['window_ms']:.1f} ms traced window, {eager['launches']} kernels of "
+          f"{eager['device_ms']:.2f} ms ({eager['device_ms_over_untraced_wall']:.4f} of the "
+          f"untraced steps' wall)")
+    print("  " + next(ln for ln in lines if ln.startswith("program:")))
     print(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
 
 
-_PHASES = (3, 4, 5, 6, 7, 8, 9, 10, 11, 12)
+# --------------------------------------------------------------------------
+# phase 13: the SGA programs (CUDA graphs) against the eager loop
+# --------------------------------------------------------------------------
+
+
+def _graph_numbers(program):
+    """(captures, capture seconds, memory-pool bytes) of a program's graphs."""
+    gs = program.graphs
+    return (sum(g.captures for g in gs), sum(g.capture_seconds for g in gs),
+            sum(g.pool_bytes for g in gs))
+
+
+def _routes_at_bench_width(dev, card, dtype, reps=3):
+    """bench.py's acquisition in the eager loop and through the fused
+    program: a warm-up of each (the program's capture), then `reps` rounds
+    in turns, each on a new stream tensor. Both routes run the same
+    kernels at the same shapes on one card, so the gate is bit for bit:
+    the same SGA iterations, winner and value on every stream. Kernel
+    launches 3 x (SGA iterations + 1) on both routes, on the program's
+    first call besides its graphs' warm-up runs, and on every later call
+    with none besides."""
+    import bench_torch
+    from rollout_bo_tpu_torch.ops import newton_lanes as nl
+    from rollout_bo_tpu_torch.ops import qmc
+    from rollout_bo_tpu_torch.utils import graphs
+
+    state, tp, xstarts, restarts = bench_torch.bench_problem(dev, dtype)
+    d = tp.lbs.shape[0]
+    program = bench_torch.fused_program(state, tp, xstarts)
+    routes = {"eager": None, "program": program}
+    seconds = {name: [] for name in routes}
+
+    warm = 0
+
+    def run(name, rnstream):
+        nonlocal warm
+        torch.cuda.synchronize()
+        nl.LAUNCHES, warm0 = 0, graphs.WARMUP_LAUNCHES
+        t0 = time.perf_counter()
+        res = bench_torch.acquire(state, tp._replace(rnstream=rnstream), xstarts, restarts,
+                                  program=routes[name])
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        warm += graphs.WARMUP_LAUNCHES - warm0
+        if nl.LAUNCHES - (graphs.WARMUP_LAUNCHES - warm0) != 3 * (res.iterations + 1):
+            raise AssertionError(f"programs, {dtype}, {name}: {nl.LAUNCHES} kernel launches "
+                                 f"({graphs.WARMUP_LAUNCHES - warm0} warm-up) != 3 x "
+                                 f"({res.iterations} + 1)")
+        return res, s
+
+    first = {name: run(name, tp.rnstream) for name in routes}
+    if warm != graphs.WARMUP * 2 * 3:
+        raise AssertionError(f"programs, {dtype}: {warm} warm-up launches, not "
+                             f"{graphs.WARMUP} x 2 graphs x 3")
+    captures, capture_s, pool = _graph_numbers(program)
+    if captures != 2:
+        raise AssertionError(f"programs, {dtype}: {captures} captures, not one per graph")
+    its = []
+    for r in range(reps):
+        z = torch.tensor(qmc.gen_low_discrepancy_sequence(tp.mc_iters, d, tp.horizon + 1),
+                         dtype=dtype, device=dev)
+        out = {}
+        for name in (list(routes) if r % 2 == 0 else list(routes)[::-1]):
+            out[name], t = run(name, z)
+            seconds[name].append(t)
+        a, b = out["eager"], out["program"]
+        if not (a.iterations == b.iterations and torch.equal(a.x, b.x)
+                and torch.equal(a.value, b.value)):
+            raise AssertionError(f"programs, {dtype}: the program's winner {b} is not the "
+                                 f"eager loop's {a} bit for bit")
+        its.append(b.iterations)
+    if warm != graphs.WARMUP * 2 * 3:
+        raise AssertionError(f"programs, {dtype}: warm-up launches after the capture")
+    med = {name: statistics.median(v) for name, v in seconds.items()}
+    print(f"programs, bench width ({dtype}, 8 restarts x 200 trajectories, h 3): eager "
+          f"{med['eager']:.4f} s, program {med['program']:.4f} s per acquisition (median "
+          f"of {reps} in turns: eager {', '.join(f'{t:.4f}' for t in seconds['eager'])}; "
+          f"program {', '.join(f'{t:.4f}' for t in seconds['program'])}), first calls "
+          f"eager {first['eager'][1]:.4f} s, program {first['program'][1]:.4f} s; winners "
+          f"equal bit for bit on every stream; SGA iterations {its}, kernel launches "
+          f"3 x (SGA iterations + 1) on both routes; capture {capture_s:.3f} s (2 graphs), "
+          f"memory pools {pool} B, {warm} warm-up launches; on {card}")
+    return dict(eager_s=med["eager"], program_s=med["program"], capture_s=capture_s,
+                pool_bytes=pool)
+
+
+def _nonmyopic_cli_routes(card, budget=3, horizon=2):
+    """One non-myopic trial through the CLI at phase 6's widths, budget cut
+    to 3, through the program cache, then the same trial in the eager loop:
+    one program captured for the whole trial (its two graphs once each),
+    the same points within 1e-9, the launch identity on both routes."""
+    from rollout_bo_tpu_torch.experiments import nonmyopic
+    from rollout_bo_tpu_torch.ops import newton_lanes as nl
+    from rollout_bo_tpu_torch.rollout import bo
+    from rollout_bo_tpu_torch.utils import graphs
+
+    argv = ["--function-name", "hartmann6d", "--horizon", str(horizon), "--trials", "1",
+            "--budget", str(budget), "--mc-samples", "200", "--batch-size", "8",
+            "--sgd-iterations", "50", "--starts", "16", "--optimize",
+            "--variance-reduction", "--seed", "1906"]
+    trials, cached = {}, set(bo._PROGRAM_CACHE)
+    for route in ("program", "eager"):
+        captures = graphs.CAPTURES
+        with tempfile.TemporaryDirectory() as out, contextlib.ExitStack() as stack:
+            if route == "eager":
+                stack.enter_context(_eager_loops())
+            rec = stack.enter_context(_recording())
+            nl.LAUNCHES = 0
+            nonmyopic.main(argv + ["--output-dir", out])
+            torch.cuda.synchronize()
+        (trial,) = rec["trials"]
+        res = trial["res"]
+        want = int(horizon * (res.sga_iterations + 1).sum() + res.fallbacks.sum())
+        if trial["launches"] != want:
+            raise AssertionError(f"non-myopic CLI, {route}: {trial['launches']} kernel "
+                                 f"launches, not {want}")
+        trials[route] = (trial, graphs.CAPTURES - captures)
+    new = [k for k in bo._PROGRAM_CACHE if k not in cached]
+    (prog_trial, captures), (eager_trial, eager_captures) = trials["program"], trials["eager"]
+    if len(new) != 1 or captures != 2 or eager_captures != 0:
+        raise AssertionError(f"non-myopic CLI: {len(new)} new programs, {captures} captures "
+                             f"(eager route {eager_captures}), not one program's 2 graphs")
+    apart = float(np.abs(prog_trial["res"].X - eager_trial["res"].X).max())
+    if apart > 1e-9:
+        raise AssertionError(f"non-myopic CLI: the program's points are {apart:.3e} from "
+                             "the eager loop's")
+    _, capture_s, pool = _graph_numbers(bo._PROGRAM_CACHE[new[0]])
+    line = ", ".join(
+        f"{route} {t['seconds'] / budget:.4f} s per BO iteration (acquisitions "
+        f"{', '.join(f'{x:.4f}' for x in t['res'].times)} s)"
+        for route, (t, _) in trials.items())
+    print(f"programs, non-myopic CLI trial (hartmann6d, h {horizon}, 10 restarts x 200 "
+          f"trajectories, float64, budget {budget}): {line}; one program captured "
+          f"({capture_s:.3f} s, memory pools {pool} B), points within {apart:.1e} of the "
+          f"eager loop's, SGA iterations {prog_trial['res'].sga_iterations.tolist()}; "
+          f"on {card}")
+    return dict(capture_s=capture_s, pool_bytes=pool)
+
+
+def phase_programs(dev, card):
+    t_phase = time.perf_counter()
+    for dtype in (torch.float32, torch.float64):
+        _routes_at_bench_width(dev, card, dtype)
+    _nonmyopic_cli_routes(card)
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+
+
+_PHASES = (3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13)
 
 
 def main(argv=None):
@@ -1587,6 +1843,8 @@ def main(argv=None):
         phase_examples(dev, smi)
     if 12 in phases:
         phase_measurement(smi)
+    if 13 in phases:
+        phase_programs(dev, smi)
     torch.cuda.synchronize()
     if phases != set(_PHASES):
         print(f"partial run (phases {sorted(phases)}): no closing lines")

@@ -90,9 +90,13 @@ def make_true_cost(f, fn_name: str, amp: float, width: float):
     else:
         x_exp = 0.5 * (np.asarray(f.lbs) + np.asarray(f.ubs))
 
+    centre = [float(e) for e in x_exp]
+
     def c(x):
-        d2 = torch.sum((x - torch.as_tensor(x_exp, dtype=x.dtype, device=x.device)) ** 2,
-                       dim=-1)
+        # the centre as numbers, not a tensor copied from the host: the
+        # cost runs inside the acquisition's CUDA graph, whose capture
+        # refuses host-to-device copies
+        d2 = sum((x[..., i] - e) ** 2 for i, e in enumerate(centre))
         return 1.0 + amp * torch.exp(-d2 / (2.0 * width**2))
 
     return c

@@ -44,6 +44,7 @@ __all__ = [
     "SUPPORTED_RULES",
     "MAX_D",
     "LAUNCHES",
+    "RECORDED",
     "supported",
     "lane_solve_work",
     "newton_solve_lanes",
@@ -63,8 +64,12 @@ _BACKTRACK_STEPS = 9
 _CANDIDATES = 2 * _BACKTRACK_STEPS
 _EPS = 1e-14                   # must match kEps in csrc/newton_lanes.cu
 
-# Kernel launches since the counter was last reset (set it to 0 to count).
+# Kernel launches since the counter was last reset (set it to 0 to count);
+# a CUDA graph's replay adds the launches it holds (`utils.graphs`).
 LAUNCHES = 0
+# Launches recorded into a CUDA graph under capture: they run nothing then,
+# and run at each replay of the graph, which adds them to LAUNCHES.
+RECORDED = 0
 
 
 def supported(kind: str, rule_name: str) -> bool:
@@ -457,9 +462,24 @@ def lane_solve_work(n, cap: int, d: int, S: int, iterations: int, itemsize: int)
     return float(flops), int(read + written)
 
 
+def _on_device(a, dt, dev):
+    """`a` as a tensor of dtype dt on dev. A tensor is converted on the
+    device and a Python number filled there, so that neither copies from
+    the host (which a CUDA-graph capture refuses); an array from the host
+    is copied, and raises inside a capture."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=dev, dtype=dt)
+    if isinstance(a, (int, float)):
+        return torch.full((), a, dtype=dt, device=dev)
+    if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise ValueError("newton_solve_lanes: inside a CUDA-graph capture the bounds, "
+                         "starts and kernel parameters must be tensors or numbers")
+    return torch.as_tensor(a, dtype=dt, device=dev)
+
+
 def _check_lanes(X, Li, c, n, fmini, theta0, lbs, ubs, xstarts, kind, rule):
     """Validate the lane arguments (both routes); returns lbs, ubs, xstarts
-    as tensors of the lane dtype on the lane device."""
+    as tensors of the lane dtype on the lane device (`_on_device`)."""
     if not supported(kind, rule):
         raise ValueError(f"newton_solve_lanes: unsupported ({kind!r}, {rule!r})")
     dt, dev = X.dtype, X.device
@@ -468,8 +488,7 @@ def _check_lanes(X, Li, c, n, fmini, theta0, lbs, ubs, xstarts, kind, rule):
     if X.dim() != 3:
         raise ValueError(f"newton_solve_lanes: X must be (L, cap, d), got {tuple(X.shape)}")
     nl, cap, d = X.shape
-    as_t = lambda a: torch.as_tensor(a, dtype=dt, device=dev)
-    lbs, ubs, xstarts = as_t(lbs), as_t(ubs), as_t(xstarts)
+    lbs, ubs, xstarts = (_on_device(a, dt, dev) for a in (lbs, ubs, xstarts))
     S = xstarts.shape[0]
     want = {"X": (X, (nl, cap, d), dt), "Li": (Li, (nl, cap, cap), dt),
             "c": (c, (nl, cap), dt), "n": (n, (nl,), torch.int64),
@@ -487,12 +506,18 @@ def _check_lanes(X, Li, c, n, fmini, theta0, lbs, ubs, xstarts, kind, rule):
 
 def _launch(X, Li, c, n, fmini, theta0, ell, lbs, ubs, xstarts, period, *,
             kind, rule, iterations, sigma_tol, sigma_floor, ridge, f_tol, x_tol):
-    global LAUNCHES
+    """One launch on the current stream. It copies nothing from the host and
+    does not synchronize, so a CUDA graph can capture it (`utils.graphs`):
+    the launcher runs `cudaFuncSetAttribute`, the launch and
+    `cudaGetLastError`. The library's measurement entries
+    (`newton_lanes_phase_cycles`, `newton_lanes_blocks_per_sm`) copy from
+    the device or query it, and are called only outside the path."""
+    global LAUNCHES, RECORDED
     dt, dev = X.dtype, X.device
     nl, cap, d = X.shape
     S = xstarts.shape[0]
-    as_t = lambda a: torch.as_tensor(a, dtype=dt, device=dev)
-    params = torch.stack([as_t(ell).reshape(()), as_t(period).reshape(())])
+    params = torch.stack([_on_device(ell, dt, dev).reshape(()),
+                          _on_device(period, dt, dev).reshape(())])
     lanes, groups, stage_m, smem = _block_shape(cap, d, S, X.element_size())
 
     xout = torch.empty((nl, d), dtype=dt, device=dev)
@@ -511,7 +536,10 @@ def _launch(X, Li, c, n, fmini, theta0, ell, lbs, ubs, xstarts, period, *,
              smem, stream)
     if err != 0:
         raise RuntimeError(f"newton_lanes kernel launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    if torch.cuda.is_current_stream_capturing():
+        RECORDED += 1
+    else:
+        LAUNCHES += 1
     return xout, vout
 
 

@@ -26,6 +26,10 @@ from rollout_bo_tpu_torch.rollout.mc import (
 from rollout_bo_tpu_torch.rollout.outer import (
     deterministic_solve,
     deterministic_solve_batch,
+    make_batched_grad_step,
+    make_batched_sga_step,
+    make_fused_sga_program,
+    make_scanned_sga_program,
     stochastic_solve,
     stochastic_solve_batch,
     stochastic_solve_fused,

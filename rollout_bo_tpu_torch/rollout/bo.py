@@ -6,9 +6,14 @@ Port of `rollout_bo_tpu/rollout/bo.py` (reference
 `experiments/myopic_bayesopt.jl:207-263`, `adaptive_bayesopt.jl:479-526`).
 Each loop is a plain Python loop, one BO iteration per pass: acquisition
 solve -> true-function evaluation -> rank-1 condition -> hyperparameter
-MLE. The JAX package fuses k iterations into one scanned device program,
-caches its jitted programs and runs the MLE under a mask; those exist to
-hide host<->TPU dispatch and compile cost and are not ported.
+MLE. The non-myopic and adaptive loops take their stochastic acquisition
+program (`outer.make_fused_sga_program` or `make_scanned_sga_program`: CUDA
+graphs on the card) from `_cached_program`, as the JAX package does, so
+that one capture serves every BO iteration of a trial and every trial with
+the same key. The JAX package also fuses k myopic iterations into one
+scanned device program, and runs the observe step (condition and masked
+MLE), the exploration fallback and the Gauss-Hermite acquisition as jitted
+programs; here those run eagerly.
 
 Per iteration the host reads what the loop needs: the acquisition's best
 value (non-myopic, to decide on the fallback) and the new point with its
@@ -20,6 +25,7 @@ from __future__ import annotations
 import math
 import os
 import time
+from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Callable
 
@@ -40,6 +46,29 @@ from rollout_bo_tpu_torch.utils import metrics
 
 __all__ = ["MyopicBOResult", "run_myopic_bo", "run_nonmyopic_bo", "run_adaptive_bo",
            "alternating_horizon", "fixed_horizon", "truncated_horizon"]
+
+
+_PROGRAM_CACHE: OrderedDict = OrderedDict()
+_PROGRAM_CACHE_MAX = 64  # LRU bound: entries pin CUDA graphs, their memory
+# pools and the tensors their closures hold
+
+
+def _cached_program(key, builder):
+    """The program under `key`, built by `builder()` on a miss (the JAX
+    package's cache of jitted programs across runner calls, e.g. the trials
+    of a CLI sweep). The key covers everything the program bakes in as a
+    constant: rule and theta, solver settings, shapes, dtype, kernel kind,
+    box and device. LRU-bounded, so that a long-lived process that sweeps
+    many configurations cannot pile up captured graphs without limit."""
+    fn = _PROGRAM_CACHE.get(key)
+    if fn is None:
+        fn = builder()
+        _PROGRAM_CACHE[key] = fn
+        while len(_PROGRAM_CACHE) > _PROGRAM_CACHE_MAX:
+            _PROGRAM_CACHE.popitem(last=False)
+    else:
+        _PROGRAM_CACHE.move_to_end(key)
+    return fn
 
 
 @dataclass
@@ -84,6 +113,10 @@ class _Trial:
         kernel = kernel or kern.matern52(device=self.device, dtype=dtype)
         self.state = sg.fit(kernel, x_init, y_init, capacity=self.capacity,
                             noise=noise, device=self.device, dtype=dtype)
+        # what a cached program bakes in of the problem (the JAX _shape_key)
+        self.shape_key = (self.capacity, testfn.dim, str(dtype), kernel.kind,
+                          tuple(np.asarray(lbs).tolist()), tuple(np.asarray(ubs).tolist()),
+                          str(self.device))
         # np.array copies: the box bounds are strided views of (d, 2)
         self.as_t = lambda a: torch.tensor(np.array(a), dtype=dtype, device=self.device)
         self.lbs, self.ubs = self.as_t(lbs), self.as_t(ubs)
@@ -311,7 +344,9 @@ def run_nonmyopic_bo(
     ends the loop) or "batch" (`outer.stochastic_solve_batch` and the
     argmax: fused's points; `sga_iterations` records -1). `times[b]` is the
     wall time of the acquisition (fallback included), synchronized with
-    the device.
+    the device. "fused" and "scanned" run their program
+    (`outer.make_fused_sga_program(select_best=True)`, `make_scanned_sga_program`)
+    from `_cached_program`, keyed as the JAX package keys it.
 
     `mesh` (`parallel.mesh.Mesh`; every rank of it runs this call): the
     restarts are cut to `num_restarts` (the two near-boundary points are
@@ -320,7 +355,8 @@ def run_nonmyopic_bo(
     axis; the Gauss-Hermite solve splits its restarts the same way. After
     every observation (and MLE) the surrogate is replicated from rank 0, so
     that rounding cannot part the ranks, and a fallback's point is rank 0's.
-    Every rank returns the trial; rank 0's is the one to record.
+    Every rank returns the trial; rank 0's is the one to record. The solves
+    on a mesh run in the eager loop.
     """
     if outer_solver not in ("fused", "scanned", "batch"):
         raise ValueError(f"unknown outer solver {outer_solver!r}")
@@ -330,13 +366,19 @@ def run_nonmyopic_bo(
                mle_every=mle_every, dtype=dtype, device=device, x_init=x_init,
                checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every,
                lead=mesh is None or mesh.rank == 0)
+    program_key = None
+    if mesh is None:
+        program_key = ("nm_acquire", rule, tuple(map(float, theta)), mc_iters, num_starts,
+                       num_restarts, sgd_iters, lr, solver_iterations, draw_mode,
+                       log10_parity, outer_solver, steps_per_call, t.shape_key)
     theta = t.as_t(theta)
     make_rnstream = _rnstream_maker(t, mc_iters, use_low_discrepancy, log10_parity)
     acquire = _rollout_acquirer(t, rule, theta, deterministic=deterministic,
                                 ghq_nodes=ghq_nodes, sgd_iters=sgd_iters, lr=lr,
                                 solver_iterations=solver_iterations, draw_mode=draw_mode,
                                 log10_parity=log10_parity, mesh=mesh,
-                                outer_solver=outer_solver, steps_per_call=steps_per_call)
+                                outer_solver=outer_solver, steps_per_call=steps_per_call,
+                                program_key=program_key)
     fallback = _make_exploration_fallback(rule, theta, t.lbs, t.ubs, t.xstarts,
                                           solver_iterations)
     if not use_low_discrepancy:
@@ -388,12 +430,25 @@ def _rnstream_maker(t: _Trial, mc_iters, use_low_discrepancy, log10_parity):
 
 def _rollout_acquirer(t: _Trial, rule, theta, *, deterministic, ghq_nodes, sgd_iters,
                       lr, solver_iterations, draw_mode, log10_parity, mesh=None,
-                      outer_solver="fused", steps_per_call=1):
+                      outer_solver="fused", steps_per_call=1, program_key=None):
     """acquire(state, rnstream, restarts, h) -> (x, value, SGA iterations or
     -1) of the h-step rollout acquisition: the stochastic solver named by
     `outer_solver` (see `run_nonmyopic_bo`), or the Gauss-Hermite one with
     `deterministic` (which ignores the stream); on the ranks of `mesh` if
-    one is given."""
+    one is given. With `program_key` the "fused" and "scanned" solves run
+    the program cached under program_key + (h,); without one (on a mesh)
+    they run the eager loop, the route the tests hold the programs to."""
+
+    def program(state, tp, h):
+        def build():
+            kw = dict(lr=lr, inner_iterations=solver_iterations, draw_mode=draw_mode)
+            if outer_solver == "scanned":
+                return outer_mod.make_scanned_sga_program(
+                    state, tp, rule, t.xstarts, steps_per_call=steps_per_call, **kw)
+            return outer_mod.make_fused_sga_program(state, tp, rule, t.xstarts,
+                                                    max_iters=sgd_iters, select_best=True, **kw)
+
+        return _cached_program(program_key + (h,), build)
 
     def acquire(state, rnstream, restarts, h):
         if deterministic:
@@ -413,9 +468,19 @@ def _rollout_acquirer(t: _Trial, rule, theta, *, deterministic, ghq_nodes, sgd_i
                                                         restarts, **kw)
             j = torch.argmax(vals)
             return xs[j], vals[j], -1
-        res = outer_mod.stochastic_solve_fused(
-            state, tp, rule, t.xstarts, restarts, select_best=True,
-            steps_per_call=steps_per_call if outer_solver == "scanned" else 1, **kw)
+        if program_key is None:
+            res = outer_mod.stochastic_solve_fused(
+                state, tp, rule, t.xstarts, restarts, select_best=True,
+                steps_per_call=steps_per_call if outer_solver == "scanned" else 1, **kw)
+            return res.x, res.value, res.iterations
+        prog = program(state, tp, h)
+        if outer_solver == "scanned":
+            res = outer_mod._scanned_program_solve(prog, state, tp.rnstream, restarts,
+                                                   sgd_iters)
+            j = torch.argmax(res.value)
+            return res.x[j], res.value[j], res.iterations
+        res = outer_mod.stochastic_solve_fused(state, tp, rule, t.xstarts, restarts,
+                                               select_best=True, program=prog)
         return res.x, res.value, res.iterations
 
     return acquire
@@ -519,6 +584,10 @@ def run_adaptive_bo(
     `rollout_solver_saa`). The buffers hold len(x_init) + budget
     observations (n_init + budget without x_init), as in the JAX package.
 
+    The stochastic solve runs `outer.make_fused_sga_program(select_best=True)`,
+    one program per horizon from `_cached_program` (keyed as the JAX
+    package keys it).
+
     The result carries `times` (acquisition wall seconds, synchronized),
     `allocations` (peak device bytes per acquisition above the level
     before it), `sga_iterations` and `fallbacks`.
@@ -531,12 +600,15 @@ def run_adaptive_bo(
                kernel=kernel, noise=noise, kernel_lbs=kernel_lbs, kernel_ubs=kernel_ubs,
                mle_every=mle_every, dtype=dtype, device=device, x_init=x_init,
                checkpoint_path=None, checkpoint_every=1)
+    program_key = ("ad_acquire", rule, tuple(map(float, theta)), mc_iters, num_starts,
+                   num_restarts, sgd_iters, lr, solver_iterations, draw_mode, log10_parity,
+                   t.shape_key)
     theta = t.as_t(theta)
     make_rnstream = _rnstream_maker(t, mc_iters, use_low_discrepancy, log10_parity)
     acquire = _rollout_acquirer(t, rule, theta, deterministic=deterministic,
                                 ghq_nodes=ghq_nodes, sgd_iters=sgd_iters, lr=lr,
                                 solver_iterations=solver_iterations, draw_mode=draw_mode,
-                                log10_parity=log10_parity)
+                                log10_parity=log10_parity, program_key=program_key)
     fallback = _make_exploration_fallback(rule, theta, t.lbs, t.ubs, t.xstarts,
                                           solver_iterations)
     sga_iterations = np.zeros(budget, dtype=int)

@@ -1,1 +1,1 @@
-from rollout_bo_tpu_torch.utils import checkpoint, experiment, lazy, logging, metrics, profiling
+from rollout_bo_tpu_torch.utils import checkpoint, experiment, graphs, lazy, logging, metrics, profiling

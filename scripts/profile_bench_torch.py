@@ -6,9 +6,13 @@ trajectories, 8 + 2 inner starts, float32) it runs `--steps` SGA steps
 with no early exit, each what one pass of `rollout.outer._sga` does: one
 `simulate_trajectory_mc(with_gradients=True)` over every restart x
 trajectory lane, the eswavs freeze, and an Adam step clipped to the box.
-After a warm-up step it times the steps untraced, then again under
-`utils.profiling.trace` (torch.profiler; `trace.json` in `--outdir`), and
-parses that trace (`summarize`) into:
+The steps are replays of `outer.make_batched_sga_step` (one CUDA graph on
+the card), as scripts/profile_bench.py:67-80 profiles the jitted step;
+the same steps run eagerly first (`sga_steps`), measured the same way and
+printed on a line of their own (their trace in `--outdir`/eager). For
+each route, after a warm-up step (the program's capture) it times the
+steps untraced, then again under `utils.profiling.trace` (torch.profiler;
+`trace.json` in `--outdir`), and parses that trace (`summarize`) into:
 - the top CUDA kernels by total device time, with their counts;
 - the total device time;
 - the device-busy share: the union of the kernel intervals over the traced
@@ -19,7 +23,7 @@ On the CPU (no kernels) it lists the top host ops (`cpu_op`, inclusive
 times) instead and gives no busy share. A trace taken on the card that
 holds no kernel raises: the profiler saw no CUDA activity there.
 
-The last line is one JSON object with these numbers.
+The last line is one JSON object with these numbers, of the program.
 
 Run:  python scripts/profile_bench_torch.py [--steps 5] [--device cpu]
 """
@@ -114,9 +118,55 @@ def summarize(trace_json: dict, top: int) -> dict:
     return out
 
 
+def program_steps(step, state, tp, restarts, steps):
+    """`steps` calls of a `make_batched_sga_step` program from `restarts`;
+    returns the points."""
+    from rollout_bo_tpu_torch.rollout import outer
+
+    carry = (restarts, outer.adam_init(restarts),
+             torch.zeros(restarts.shape[:-1], dtype=torch.bool, device=restarts.device),
+             torch.zeros(restarts.shape[:-1], dtype=restarts.dtype, device=restarts.device))
+    for _ in range(steps):
+        carry = step(state, tp.rnstream, carry)
+    return carry[0]
+
+
+def profile_route(run, steps, outdir, top, cuda):
+    """One route: a warm-up step, `steps` steps untraced, then traced into
+    `outdir`; (the JSON object of its numbers, the trace's summary)."""
+    from rollout_bo_tpu_torch.utils import profiling
+
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    run(1)                                                     # warm-up
+    sync()
+    t0 = time.perf_counter()
+    run(steps)
+    sync()
+    wall = time.perf_counter() - t0
+    with profiling.trace(outdir):
+        t0 = time.perf_counter()
+        run(steps)
+        sync()
+        traced = time.perf_counter() - t0
+    with open(os.path.join(outdir, "trace.json")) as fh:
+        s = summarize(json.load(fh), top)
+    if cuda and not s["kernels"]:
+        raise RuntimeError("the trace holds no CUDA kernel: the profiler recorded no "
+                           "CUDA activity on this card")
+    rows = s["kernels"] or s["host_ops"]
+    return {"steps": steps, "ms_per_step": wall / steps * 1e3,
+            "traced_ms_per_step": traced / steps * 1e3,
+            "launches": s["launches"], "device_ms": s["device_ms"],
+            "window_ms": s["window_ms"],
+            "busy_share": s["busy_share"],
+            "device_ms_over_untraced_wall": s["device_ms"] / (wall * 1e3),
+            "top": [dict(name=n, ms=ms, count=c) for n, ms, c in rows]}, s
+
+
 def main(argv=None):
     from rollout_bo_tpu_torch.experiments.myopic import add_device_argument, resolve_device
-    from rollout_bo_tpu_torch.utils import profiling
+    from rollout_bo_tpu_torch.models.decision_rules import EI
+    from rollout_bo_tpu_torch.rollout import outer
 
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--steps", type=int, default=5)
@@ -127,51 +177,32 @@ def main(argv=None):
     args = p.parse_args(argv)
     device = resolve_device(args.device)
     cuda = device.type == "cuda"
-    sync = torch.cuda.synchronize if cuda else (lambda: None)
     print(bench_torch.card_line(device))
 
     state, tp, xstarts, restarts = bench_torch.bench_problem(device, torch.float32)
-    run = lambda: sga_steps(state, tp, xstarts, restarts, args.steps)
-    sga_steps(state, tp, xstarts, restarts, 1)                 # warm-up
-    sync()
-    t0 = time.perf_counter()
-    run()
-    sync()
-    wall = time.perf_counter() - t0
-    with profiling.trace(args.outdir):
-        t0 = time.perf_counter()
-        run()
-        sync()
-        traced = time.perf_counter() - t0
-    print(f"{args.steps} steps in {wall:.3f} s = {wall / args.steps * 1e3:.1f} ms/step "
-          f"({traced / args.steps * 1e3:.1f} ms/step under the profiler)")
-
-    with open(os.path.join(args.outdir, "trace.json")) as fh:
-        s = summarize(json.load(fh), args.top)
-    if cuda and not s["kernels"]:
-        raise RuntimeError("the trace holds no CUDA kernel: the profiler recorded no "
-                           "CUDA activity on this card")
+    eager, _ = profile_route(lambda n: sga_steps(state, tp, xstarts, restarts, n),
+                             args.steps, os.path.join(args.outdir, "eager"), args.top, cuda)
+    eager["top"] = eager["top"][:8]
+    print(f"eager route: {json.dumps(eager)}")
+    step = outer.make_batched_sga_step(state, tp, EI(), xstarts, lr=0.01, inner_iterations=10)
+    out, s = profile_route(lambda n: program_steps(step, state, tp, restarts, n),
+                           args.steps, args.outdir, args.top, cuda)
+    print(f"program: capture {step.capture_seconds} s, memory pool {step.pool_bytes} B; "
+          f"{args.steps} steps = {out['ms_per_step']:.1f} ms/step "
+          f"({out['traced_ms_per_step']:.1f} ms/step under the profiler)")
     if s["kernels"]:
         print(f"\ntop CUDA kernels by device time ({s['launches']} launches, "
               f"{s['device_ms']:.1f} ms in all; "
               f"device busy {s['busy_share']:.4f} of the {s['window_ms']:.1f} ms window):")
-        rows = s["kernels"]
     else:
         print("\ntop host ops by inclusive time (no CUDA kernels in this trace):")
-        rows = s["host_ops"]
-    for name, ms, count in rows:
-        print(f"  {ms:9.2f} ms  {count:7d}x  {name[:120]}")
+    for row in out["top"]:
+        print(f"  {row['ms']:9.2f} ms  {row['count']:7d}x  {row['name'][:120]}")
     if s["kernels"]:
         print(f"kernel time of the traced steps over the untraced steps' wall: "
-              f"{s['device_ms'] / (wall * 1e3):.4f} (the busy share without the profiler's "
-              f"host overhead, if the kernels take as long untraced)")
-    print(json.dumps({"steps": args.steps, "ms_per_step": wall / args.steps * 1e3,
-                      "traced_ms_per_step": traced / args.steps * 1e3,
-                      "launches": s["launches"], "device_ms": s["device_ms"],
-                      "window_ms": s["window_ms"],
-                      "busy_share": s["busy_share"],
-                      "device_ms_over_untraced_wall": s["device_ms"] / (wall * 1e3),
-                      "top": [dict(name=n, ms=ms, count=c) for n, ms, c in rows]}))
+              f"{out['device_ms_over_untraced_wall']:.4f} (the busy share without the "
+              f"profiler's host overhead, if the kernels take as long untraced)")
+    print(json.dumps(out))
     return s
 
 

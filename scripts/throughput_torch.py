@@ -11,8 +11,13 @@ capacity 20, Matern-5/2 with lengthscale 1, seed 1906), 8 + 2 inner starts,
 float32, x0 = 0, `--mc` QMC trajectories.
 
 Default mode measures the card: one warm-up call, then the median of
-`--reps` calls, each ending in `torch.cuda.synchronize()`; it also checks
-that each call launched the lane kernel `--horizon` times.
+`--reps` calls, each ending in `torch.cuda.synchronize()`, of the call as
+one program (`utils.graphs.GraphProgram`, a CUDA graph: the counterpart
+of the `jax.jit` that scripts/throughput.py:146-150 times), captured by a
+call before the warm-up. The same protocol first times the call run
+eagerly, on a line of its own. It checks on both routes that each call
+launched the lane kernel `--horizon` times. The last line is the
+program's.
 
 `--nworkers N --backend gloo|nccl` (the flags of the port's non-myopic
 CLI) is the counterpart of `--virtual N`: for n = 1, 2, 4, 8 up to N it
@@ -48,6 +53,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import bench_torch  # noqa: E402  (bench.py's problem)
 from rollout_bo_tpu_torch.experiments.myopic import add_device_argument  # noqa: E402
 from rollout_bo_tpu_torch.experiments.myopic import resolve_device  # noqa: E402
+from rollout_bo_tpu_torch.utils.graphs import GraphProgram  # noqa: E402
 
 # reference: one serial Julia trajectory + gradient of the h=3 trid10d
 # configuration is ~309.4 s / (50 SGD iterations x 8 restarts x 200 MC)
@@ -101,15 +107,27 @@ def single_card(args, device):
 
     cuda = device.type == "cuda"
     state, tp, xstarts = _problem(args, device, args.mc)
-    call = lambda: mc_mod.simulate_trajectory_mc(
-        state, tp, EI(), xstarts, with_gradients=True, iterations=args.inner_iterations)
-    nl.LAUNCHES = 0
-    seconds, eto = _timed(call, args.reps, torch.cuda.synchronize if cuda else (lambda: None))
-    launches = nl.LAUNCHES / (args.reps + 1)
-    if launches != (args.horizon if cuda else 0):
-        raise AssertionError(f"{launches} lane-kernel launches per call on {device}, "
-                             f"expected {args.horizon if cuda else 0}")
-    dt = statistics.median(seconds)
+    estimate = lambda st, tpx: mc_mod.simulate_trajectory_mc(
+        st, tpx, EI(), xstarts, with_gradients=True, iterations=args.inner_iterations)
+    call = lambda: estimate(state, tp)
+    program = GraphProgram(estimate, device=device)
+
+    def timed(fn):
+        nl.LAUNCHES = 0
+        seconds, eto = _timed(fn, args.reps, torch.cuda.synchronize if cuda else (lambda: None))
+        launches = nl.LAUNCHES / (args.reps + 1)
+        if launches != (args.horizon if cuda else 0):
+            raise AssertionError(f"{launches} lane-kernel launches per call on {device}, "
+                                 f"expected {args.horizon if cuda else 0}")
+        return statistics.median(seconds), eto, launches
+
+    dt, _, _ = timed(call)
+    print(f"eager route: {dt} s per call (median of {args.reps}), "
+          f"{args.mc / dt} trajectories/s")
+    program(state, tp)          # the capture; the timed calls are replays
+    dt, eto, launches = timed(lambda: program(state, tp))
+    print(f"program: capture {program.capture_seconds} s, memory pool "
+          f"{program.pool_bytes} B")
     return dict(_header(args, device), mode="single_chip", seconds_per_call=dt,
                 value=args.mc / dt, unit="trajectories/s/chip",
                 reference_equiv_traj_per_s=REFERENCE_EQUIV_TRAJ_PER_S,

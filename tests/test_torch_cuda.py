@@ -1,6 +1,7 @@
 """PyTorch port on the card: the CUDA Newton lane kernel vs its plain version,
-and the sharded path (ranks of torch.distributed that each launch the
-kernel on their share of the lanes) vs the same solve with no mesh.
+the sharded path (ranks of torch.distributed that each launch the kernel
+on their share of the lanes) vs the same solve with no mesh, and the SGA
+programs (CUDA graphs, `utils.graphs`) vs the eager route.
 
 Every test here is marked `cuda` and skips without a CUDA device (the
 kernel has no CPU mode). This file imports no jax, so it also runs on a
@@ -16,7 +17,9 @@ acquisition at its argmax (float32 rtol 2e-3, log rules atol 2e-3 in log
 space; float64 rtol 1e-6); (b) its solution is never worse than the plain
 solver's beyond 5e-4 relative in float32 / 1e-6 in float64 — or beyond
 the acceptance tolerance f_tol (|v| + 1) under the loose freeze, whose
-stopping iteration rounding near the threshold may shift.
+stopping iteration rounding near the threshold may shift. A program's
+replay runs the kernels its eager body runs, at the same shapes, on the
+same card: the two are held equal bit for bit.
 """
 
 import numpy as np
@@ -397,3 +400,179 @@ def test_nccl_refuses_two_ranks_on_one_card(dev):
     mesh_mod.check_backend("nccl", torch.cuda.device_count())
     with pytest.raises(RuntimeError, match="--backend gloo"):
         mesh_mod.check_backend("nccl", torch.cuda.device_count() + 1)
+
+
+# --------------------------------------------------------------------------
+# the SGA programs: CUDA graphs against the eager route
+# --------------------------------------------------------------------------
+
+PROGRAMS = ("make_batched_grad_step", "make_batched_sga_step", "make_scanned_sga_program",
+            "make_fused_sga_program")
+
+
+def _program_problem(dev, dtype, restarts=4):
+    """bench_torch.bench_problem cut small: trid2d, h 2, 8 trajectories."""
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import bench_torch
+
+    return bench_torch.bench_problem(dev, dtype, name="trid2d", n_obs=6, capacity=10, mc=8,
+                                     horizon=2, starts=4, restarts=restarts)
+
+
+def _same(a, b):
+    """Two results (nested tuples of tensors) equal bit for bit."""
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for x in tree for t in _tensors(x)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("factory", PROGRAMS)
+def test_program_replays_equal_the_eager_route(dev, factory, dtype):
+    """Each factory's program against its eager route: the fused program
+    against `stochastic_solve_fused` with no program, the others against
+    their own function run eagerly. Per call: the same result bit for bit;
+    a replay launches the lane kernel as often as the eager route (horizon
+    2 per simulate), and a call that captures as often besides its warm-up
+    runs' launches; a second call on a new stream equals the eager route
+    on that stream and leaves the first call's tensors as they were (no
+    aliasing); three restarts instead of four capture a second graph."""
+    from rollout_bo_tpu_torch.rollout import outer
+    from rollout_bo_tpu_torch.utils import graphs
+
+    st, tp, xstarts, restarts = _program_problem(dev, dtype)
+    rule, kw = dr.EI(), dict(lr=0.05, inner_iterations=6)
+    z2 = torch.tensor(np.random.default_rng(7).standard_normal(tuple(tp.rnstream.shape)),
+                      dtype=dtype, device=dev)
+    if factory == "make_batched_grad_step":
+        kw.pop("lr")
+    extra = {"make_scanned_sga_program": dict(steps_per_call=3),
+             "make_fused_sga_program": dict(max_iters=5, select_best=True)}.get(factory, {})
+    prog = getattr(outer, factory)(st, tp, rule, xstarts, **kw, **extra)
+    graph = prog.step if factory == "make_fused_sga_program" else getattr(prog, "_fn", prog)
+    captured = lambda: sum(g.captures for g in getattr(prog, "graphs", (prog,)))  # noqa: E731
+
+    def carry(xs):
+        return (xs, outer.adam_init(xs), torch.zeros(xs.shape[0], dtype=torch.bool, device=dev),
+                torch.zeros(xs.shape[0], dtype=dtype, device=dev))
+
+    def args(z, xs):
+        return (st, z, xs if factory in ("make_batched_grad_step", "make_fused_sga_program")
+                else carry(xs))
+
+    def eager(z, xs):
+        if factory == "make_fused_sga_program":
+            res = outer.stochastic_solve_fused(st, tp._replace(rnstream=z), rule, xstarts, xs,
+                                               **kw, **extra)
+            return (res.x, res.value), res.iterations
+        return graph.fn(*args(z, xs)), None
+
+    def call(z, xs):
+        captures, warm0, before = captured(), graphs.WARMUP_LAUNCHES, nl.LAUNCHES
+        out = prog(*args(z, xs))
+        torch.cuda.synchronize()
+        launches, warm = nl.LAUNCHES - before, graphs.WARMUP_LAUNCHES - warm0
+        before = nl.LAUNCHES
+        want, its = eager(z, xs)
+        torch.cuda.synchronize()
+        eager_launches = nl.LAUNCHES - before
+        if captured() == captures:
+            assert warm == 0 and launches == eager_launches > 0
+        else:
+            # the fused program warms up a step's graph and the final pass's
+            per_run = 2 * tp.horizon if factory == "make_fused_sga_program" else eager_launches
+            assert warm == graphs.WARMUP * per_run and launches - warm == eager_launches > 0
+        assert _same(out, want), factory
+        if its is not None:
+            assert prog.iterations == its
+        return out
+
+    first = call(tp.rnstream, restarts)
+    kept = [t.clone() for t in _tensors(first)]
+    second = call(z2, restarts)
+    assert not _same(first, second)
+    assert all(torch.equal(a, b) for a, b in zip(_tensors(first), kept))
+    assert not {t.data_ptr() for t in _tensors(first)} & {t.data_ptr() for t in _tensors(second)}
+    assert graph.captures == 1
+    call(tp.rnstream, restarts[:3].contiguous())
+    assert graph.captures == 2
+
+
+@pytest.mark.parametrize("solver", ["scanned", "stepped"])
+def test_solvers_with_programs_equal_the_eager_loop(dev, solver):
+    """`stochastic_solve_scanned(program=)` and `stochastic_solve_stepped(
+    sga_step=)` against the same solvers with no program: bit for bit."""
+    from rollout_bo_tpu_torch.rollout import outer
+
+    st, tp, xstarts, restarts = _program_problem(dev, torch.float64)
+    kw = dict(lr=0.05, inner_iterations=6)
+    if solver == "scanned":
+        prog = outer.make_scanned_sga_program(st, tp, dr.EI(), xstarts, steps_per_call=2, **kw)
+        got = outer.stochastic_solve_scanned(st, tp, dr.EI(), xstarts, restarts, max_iters=5,
+                                             program=prog, **kw)
+        want = outer.stochastic_solve_scanned(st, tp, dr.EI(), xstarts, restarts, max_iters=5,
+                                              steps_per_call=2, **kw)
+    else:
+        step = outer.make_batched_sga_step(st, tp, dr.EI(), xstarts, **kw)
+        got = outer.stochastic_solve_stepped(st, tp, dr.EI(), xstarts, restarts, max_iters=5,
+                                             sync_every=2, sga_step=step, **kw)
+        want = outer.stochastic_solve_stepped(st, tp, dr.EI(), xstarts, restarts, max_iters=5,
+                                              sync_every=2, **kw)
+    torch.cuda.synchronize()
+    assert _same(got, want)
+
+
+def test_graph_program_raises_on_a_host_sync_and_never_runs_eagerly(dev):
+    """A function that reads a tensor on the host cannot be captured: the
+    capture raises, and so does every later call (no eager fallback)."""
+    from rollout_bo_tpu_torch.utils import graphs
+
+    calls = []
+
+    def fn(x):
+        calls.append(1)
+        return x * float(x.sum())
+
+    prog = graphs.GraphProgram(fn, device=dev)
+    x = torch.ones(4, device=dev)
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            prog(x)
+        torch.cuda.synchronize()
+    assert prog.captures == 0 and len(calls) == 2 * (graphs.WARMUP + 1) == 8
+
+
+def test_bo_loop_takes_one_cached_program_on_the_card(dev, monkeypatch):
+    """A small non-myopic trial on the card through the program cache: one
+    program for the trial, captured once, reused by a second trial; the
+    points equal the eager loop's bit for bit."""
+    from rollout_bo_tpu_torch.models import testfns
+    from rollout_bo_tpu_torch.rollout import bo
+
+    monkeypatch.setattr(bo, "_PROGRAM_CACHE", type(bo._PROGRAM_CACHE)())
+    f = testfns.get_function("hartmann3d")
+    kw = dict(horizon=1, mc_iters=8, budget=2, num_starts=8, num_restarts=2, sgd_iters=3,
+              lr=0.05, solver_iterations=8, device=dev,
+              x_init=np.random.default_rng(3).uniform(f.lbs, f.ubs, (5, f.dim)))
+    res = bo.run_nonmyopic_bo(f, **kw)
+    (program,) = bo._PROGRAM_CACHE.values()
+    assert [g.captures for g in program.graphs] == [1, 1]
+    again = bo.run_nonmyopic_bo(f, **kw)
+    assert [g.captures for g in program.graphs] == [1, 1]
+    acquirer = bo._rollout_acquirer
+    monkeypatch.setattr(bo, "_rollout_acquirer",      # the eager loop: no program key
+                        lambda *a, **k: acquirer(*a, **dict(k, program_key=None)))
+    eager = bo.run_nonmyopic_bo(f, **kw)
+    np.testing.assert_array_equal(res.X, eager.X)
+    np.testing.assert_array_equal(again.X, eager.X)
