@@ -48,28 +48,38 @@ Run from the repository root on a machine with one NVIDIA Hopper card
    after the first, each launching the kernel 3 x (SGA iterations + 1)
    times. The `kernels` line's launches are the first call's;
 5. myopic BO, one full-protocol trial through the experiment CLI
-   (`experiments.myopic.main`): hartmann6d, budget 100, 64 starts, EI / POI
-   / LCB / Random, 5 initial samples, Matern-5/2 with the MLE every
-   iteration, float64. Checks every CSV (header, sentinel, one row of 100
-   finite numbers), gaps in [0, 1] and non-decreasing, 100 kernel launches
-   per solved acquisition and none for Random, the fitted lengthscale in
-   [0.1, 5], EI's final gap > 0. Prints per acquisition the final gap, the
-   seconds per BO iteration (the solve alone: median; solve, observe,
-   condition and MLE: mean), the seconds per MLE refit, the fitted
-   lengthscale and the share of solves whose winner left its start point;
+   (`experiments.myopic.main`, its default `--steps-per-call 0`: the
+   budget as one chunk program, a CUDA graph of one BO iteration replayed
+   100 times): hartmann6d, budget 100, 64 starts, EI / POI / LCB / Random,
+   5 initial samples, Matern-5/2 with the MLE every iteration, float64.
+   Checks every CSV (header, sentinel, one row of 100 finite numbers), gaps
+   in [0, 1] and non-decreasing, 100 kernel launches per solved acquisition
+   and none for Random (the warm-up runs of the capture taken off), the
+   fitted lengthscale in [0.1, 5], EI's final gap > 0. Prints per
+   acquisition the final gap, the seconds per BO iteration (the chunk's
+   over 100; the trial's over 100), the fitted lengthscale and the share of
+   solves whose winner left its start point (over the warm-up runs: a
+   replay hides the rest). Then, timed apart from the trials: the observe
+   program (condition + MLE) at n 105 against the eager observe, bit for
+   bit, with the eager refit's ms and the replay's; and one EI trial at a
+   cut budget (10) in the eager loop and through its chunk program in one
+   process: the same points bit for bit, the seconds per BO iteration of
+   each, the captures, capture seconds and pool bytes;
 6. non-myopic BO, one trial through `experiments.nonmyopic.main` at the
    CLI's width: hartmann6d, horizon 2, 200 QMC trajectories, 8 + 2
    restarts, 50 SGA iterations, 16 + 2 starts, MLE on, float64, budget 15
    (depth; the widths are the CLI's defaults). Same CSV checks; kernel
    launches = sum over BO iterations of horizon x (SGA iterations + 1),
    plus one per fallback taken, besides those of the graphs' warm-up runs
-   (the acquisitions run their cached program). Prints seconds per BO
-   iteration, SGA iterations per acquisition, fallbacks, the final gap and
-   the share of solver lanes that left their start (over the solver calls
-   a replay does not hide: the warm-up runs and the fallbacks). Then one
-   BO iteration with
-   `--deterministic-solve` at the same width (8 Gauss-Hermite nodes: 512
-   quadrature trajectories per restart), timed;
+   (the acquisitions, the observe step and the fallback run their cached
+   programs). Prints seconds per BO iteration, SGA iterations per
+   acquisition, fallbacks, the final gap, the refit and observe ms timed
+   apart (the observe program at n 20 against the eager observe, bit for
+   bit) and the share of solver lanes that left their start (over the
+   solver calls a replay does not hide: the warm-up runs and the
+   fallbacks). Then one BO iteration with `--deterministic-solve` at the
+   same width (8 Gauss-Hermite nodes: 512 quadrature trajectories per
+   restart) through its program, timed;
 7. small float64 trials, card against CPU route: a 4-iteration myopic
    trial, a 2-iteration non-myopic trial (h 1, 8 samples), one
    `deterministic=True` iteration (h 1, 4 Gauss-Hermite nodes), a
@@ -86,13 +96,16 @@ Run from the repository root on a machine with one NVIDIA Hopper card
    the allocations finite and >= 0, and per BO iteration kernel launches =
    h x (SGA iterations + 1) + the fallback's one, so none in an h = 0
    iteration but a fallback's. Prints the acquisition median for h = 0 and
-   h = 2, SGA iterations, the MLE refit median, the final gap and the peak
-   device bytes per h = 2 acquisition;
+   h = 2, SGA iterations, the refit and observe ms timed apart (at n 16),
+   the final gap and the peak device bytes per h = 2 acquisition. Then
+   the exploration fallback's program on a state of that size against its
+   eager call: bit for bit, one launch per call, timed;
 9. cost-aware BO through `experiments.cost_aware.main` at the CLI's
    widths (braninhoo, 100 QMC trajectories, 8 + 2 restarts, 8 + 2 starts,
    h 1, 50 SGA iterations, float32, modes uniform / nonuniform / gp),
    budget 1 (depth). Checks the CSVs, costs in [1, 1 + amp], gaps in
-   [0, 1], one cached program (two graphs) per mode, and kernel launches
+   [0, 1], one cached acquisition program (two graphs) and one observe
+   graph per mode, every capture in a cached program, and kernel launches
    == fallbacks taken: a cost-aware solve never reaches the kernel (the
    torch `newton_solve_batch` takes it). The trials run as users run
    them, through the program cache. Then one eager simulate call at the
@@ -124,23 +137,23 @@ Run from the repository root on a machine with one NVIDIA Hopper card
    cards also the multi-process worker's `--bench-mc` over NCCL;
 11. the notebook-analog examples (`rollout_bo_tpu_torch/examples/`) at
    their default widths, each timed with its kernel launches and its own
-   gates: derivs_ei (the EI derivative chain within 1e-5 of centered FD;
-   no launch), fantasy_conditioning (rank-1 condition against a refit,
-   CUDA events; the reset to 1e-12), laplace_approximation (100 x 100
-   episodes, float32, peak device memory), overview (15 launches: 1 per
-   myopic BO iteration), explanatory (21 points, 64 trajectories, h 2: 3
-   simulate calls of h launches each; the same sweep on the CPU route in
-   the same phase, the card's count of rows that agree with FD within 2 of
-   the CPU route's) and rollout_bo (the explicit dual back-substitution
-   within 1e-7 of autograd on an improving sample path with interior inner
-   solves). Then each FD problem of tests/test_torch_fd.py (MC h 1 and 2,
-   MC 2-D, the theta gradient, Gauss-Hermite, the ground-truth observable
-   and the explicit adjoint on it) through the kernel in float64, at the
-   JAX tests' eps and tolerances: the gradient and the JAX test's one
-   centered difference, the gate, with its ratio; beside it the mean of 11
-   differences at points 1e-7 apart and the function's rounding floor
-   (jitter), which on the MC 1-D problems (h 1 and 2) must be within 3x
-   the CPU route's, computed in the same phase;
+   gates: derivs_ei (the EI derivative chain within 1e-5 of centered FD; no
+   launch), fantasy_conditioning (rank-1 condition against a refit, CUDA
+   events; the reset to 1e-12), laplace_approximation (100 x 100 episodes,
+   float32, peak device memory), overview (15 launches: 1 per myopic BO
+   iteration, the chunk's warm-up runs taken off), explanatory (21 points,
+   64 trajectories, h 2: 3 simulate calls of h launches each; the same
+   sweep on the CPU route in the same phase, the card's count of rows that
+   agree with FD within 2 of the CPU route's) and rollout_bo (the explicit
+   dual back-substitution within 1e-7 of autograd on an improving sample
+   path with interior inner solves). Then each FD problem of
+   tests/test_torch_fd.py (MC h 1 and 2, MC 2-D, the theta gradient,
+   Gauss-Hermite, the ground-truth observable and the explicit adjoint on
+   it) through the kernel in float64, at the JAX tests' eps and tolerances:
+   the gradient and the JAX test's one centered difference, the gate, with
+   its ratio; beside it the mean of 11 differences at points 1e-7 apart and
+   the function's rounding floor (jitter), which on the MC 1-D problems (h
+   1 and 2) must be within 3x the CPU route's, computed in the same phase;
 12. the measurement entry points, each run as a user runs it (its own
    process, no arguments), each through its program (CUDA graphs) and,
    on an earlier line, eagerly: `bench_torch.py` (bench.py's protocol on
@@ -161,12 +174,17 @@ Run from the repository root on a machine with one NVIDIA Hopper card
    routes run the same kernels at the same shapes on one card), kernel
    launches 3 x (SGA iterations + 1) on both (on the program's first
    call besides the 3 x 2 x 3 of its graphs' warm-up runs), the capture
-   seconds and the graphs' memory-pool bytes. Then one
-   non-myopic trial through the CLI at phase 6's widths with the budget
-   cut to 3, through the program cache and then in the eager loop: one
-   program captured for the trial (its two graphs once each), the same
-   points within 1e-9, the launch identity on both routes, the seconds
-   per BO iteration of each.
+   seconds and the graphs' memory-pool bytes. Then non-myopic trials
+   through the CLI at phase 6's widths, through the program cache and then
+   in the eager loop (every program run eagerly): the fused solver (budget
+   cut to 3), the batch solver (2) and the Gauss-Hermite one (1): one
+   acquisition program captured for the trial (its two graphs once each)
+   and one observe graph, the same points within 1e-9, the launch identity
+   on both routes, the seconds per BO iteration of each. Then myopic
+   trials (hartmann6d, budget 4, EI and Random) in chunks of 1 and of 4
+   against the eager loop, bit for bit, one launch per EI iteration; and
+   the observe program at the non-myopic width against the eager observe,
+   bit for bit.
 
 `--phases 3 11` runs only the phases named (1 and 2 always run); a partial
 run prints neither of the two closing lines.
@@ -641,22 +659,23 @@ def _setup_small(dev):
 @contextlib.contextmanager
 def _recording():
     """Records what the CLIs do not return: each trial's result with its
-    wall seconds and the kernel-launch count at its end, the seconds of each
-    MLE refit, and per lane-solver call the share of lanes whose argmax is
-    at none of its start points. The launch counts leave out the launches
-    of the graphs' warm-up runs before a capture (`warmup`, counted since
-    the recording began): they are the launches whose results the loop
-    used, which the phases hold to the SGA iterations. A graph's replay
-    runs no Python, so on the program route the solver-call share is that
-    of the warm-up runs and of the solves outside the graphs (fallbacks);
-    `solver_calls` says how many."""
-    from rollout_bo_tpu_torch.models import surrogate as sg
+    wall seconds and the kernel-launch count at its end, and per
+    lane-solver call the share of lanes whose argmax is at none of its
+    start points. The launch counts leave out the launches of the graphs'
+    warm-up runs before a capture (`warmup`, counted since the recording
+    began): they are the launches whose results the loop used, which the
+    phases hold to the SGA iterations. A graph's replay runs no Python, so
+    on the program route the solver-call share is that of the warm-up runs
+    and of the solves outside the graphs; `solver_calls` says how many. For
+    the same reason it times no refit (the refit runs inside the observe
+    program's replays): the refit ms that the phases print come from
+    `_observe_routes`, timed apart from the trials."""
     from rollout_bo_tpu_torch.ops import newton_lanes as nl
     from rollout_bo_tpu_torch.rollout import bo, solvers
     from rollout_bo_tpu_torch.utils import graphs
 
-    rec = dict(trials=[], mle_s=[], moved=[], acquisitions=[])
-    hot, refit = solvers.maximize_hot, sg.optimize_hypers
+    rec = dict(trials=[], moved=[], acquisitions=[])
+    hot = solvers.maximize_hot
     acquire = bo._acquire_or_fall_back
     loops = {name: getattr(bo, name)
              for name in ("run_myopic_bo", "run_nonmyopic_bo", "run_adaptive_bo")}
@@ -669,14 +688,6 @@ def _recording():
         away = (x[..., None, :] - starts).abs().amax(dim=-1).amin(dim=-1)
         rec["moved"].append((away > 1e-6 * torch.max(ubs - lbs)).double().mean())
         return x, v
-
-    def optimize_hypers(*args, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = refit(*args, **kw)
-        torch.cuda.synchronize()
-        rec["mle_s"].append(time.perf_counter() - t0)
-        return out
 
     def acquire_or_fall_back(acq, fallback, state, rnstream, restarts, h):
         before, warm = nl.LAUNCHES, graphs.WARMUP_LAUNCHES
@@ -696,21 +707,21 @@ def _recording():
             rec["trials"].append(dict(
                 res=res, seconds=time.perf_counter() - t0, launches=nl.LAUNCHES - warm,
                 warmup=warm, solver_calls=len(rec["moved"]),
-                mle_s=rec["mle_s"][:], moved=torch.stack(rec["moved"]).cpu().numpy()
+                moved=torch.stack(rec["moved"]).cpu().numpy()
                 if rec["moved"] else np.zeros(0), acquisitions=rec["acquisitions"][:]))
-            for key in ("mle_s", "moved", "acquisitions"):
+            for key in ("moved", "acquisitions"):
                 rec[key].clear()
             return res
         return run
 
-    solvers.maximize_hot, sg.optimize_hypers = maximize_hot, optimize_hypers
+    solvers.maximize_hot = maximize_hot
     bo._acquire_or_fall_back = acquire_or_fall_back
     for name, loop in loops.items():
         setattr(bo, name, timed(loop))
     try:
         yield rec
     finally:
-        solvers.maximize_hot, sg.optimize_hypers = hot, refit
+        solvers.maximize_hot = hot
         bo._acquire_or_fall_back = acquire
         for name, loop in loops.items():
             setattr(bo, name, loop)
@@ -718,17 +729,199 @@ def _recording():
 
 @contextlib.contextmanager
 def _eager_loops():
-    """The non-myopic and adaptive loops' acquisitions in the eager loop
-    (`_rollout_acquirer` with no program key): the route that the programs
-    are held to."""
+    """The BO loops in the eager loop: the acquisitions through
+    `_rollout_acquirer` with no program key, and every program (observe,
+    fallback, myopic iteration) calling its function eagerly
+    (`GraphProgram.__call__` patched): the route that the programs are held
+    to."""
     from rollout_bo_tpu_torch.rollout import bo
+    from rollout_bo_tpu_torch.utils import graphs
 
-    acquirer = bo._rollout_acquirer
+    acquirer, call = bo._rollout_acquirer, graphs.GraphProgram.__call__
     bo._rollout_acquirer = lambda *a, **kw: acquirer(*a, **dict(kw, program_key=None))
+    graphs.GraphProgram.__call__ = lambda self, *a: self.fn(*a)
     try:
         yield
     finally:
         bo._rollout_acquirer = acquirer
+        graphs.GraphProgram.__call__ = call
+
+
+@contextlib.contextmanager
+def _asked_programs():
+    """The keys the BO loops ask `bo._cached_program` for inside the block,
+    in order: the programs a trial took, whether it built them or found
+    them cached."""
+    from rollout_bo_tpu_torch.rollout import bo
+
+    asked, cached_program = [], bo._cached_program
+
+    def asking(key, builder):
+        asked.append(key)
+        return cached_program(key, builder)
+
+    bo._cached_program = asking
+    try:
+        yield asked
+    finally:
+        bo._cached_program = cached_program
+
+
+def _taken(asked, name):
+    """The cached programs under the keys in `asked` named `name`, once each."""
+    from rollout_bo_tpu_torch.rollout import bo
+
+    return [bo._PROGRAM_CACHE[k] for k in dict.fromkeys(asked) if k[0] == name]
+
+
+def _cached_captures():
+    """{key: captures} of every program in the BO loops' program cache."""
+    from rollout_bo_tpu_torch.rollout import bo
+
+    return {k: sum(g.captures for g in getattr(p, "graphs", (p,)))
+            for k, p in bo._PROGRAM_CACHE.items()}
+
+
+def _tree_equal(a, b):
+    """Two results (states, tuples of tensors) equal bit for bit."""
+    from rollout_bo_tpu_torch.utils import graphs
+
+    la, lb = [], []
+    return (graphs._flatten(a, la) == graphs._flatten(b, lb) and len(la) == len(lb)
+            and all(torch.equal(x, y) for x, y in zip(la, lb)))
+
+
+def _hartmann6d_state(dev, n, cap, seed=1906):
+    """hartmann6d, n uniform observations in a capacity-cap buffer, float64."""
+    from rollout_bo_tpu_torch.models import surrogate as sg
+    from rollout_bo_tpu_torch.models import testfns
+    from rollout_bo_tpu_torch.ops import kernels as K
+
+    f = testfns.get_function("hartmann6d")
+    X = np.random.default_rng(seed).uniform(f.lbs, f.ubs, (n, f.dim))
+    return f, sg.fit(K.matern52(device=dev, dtype=torch.float64), X,
+                     f.batch(torch.tensor(X)).numpy(), capacity=cap, noise=1e-6, device=dev,
+                     dtype=torch.float64)
+
+
+def _observe_routes(dev, card, *, cap, label, reps=3):
+    """The observe program (`bo._observer`: true function, condition, MLE
+    when due) on a hartmann6d state of cap - 1 observations in a
+    capacity-cap buffer, float64, against its function run eagerly on the
+    same new point: equal bit for bit, with the MLE and without (the same
+    kernels at the same shapes on one card; one graph each). Timed apart
+    from any trial, synchronized, the median of `reps` in turns: the eager
+    refit alone (`optimize_hypers` after the condition), the eager observe
+    and the replayed one (MLE due). Returns those ms with the program's
+    capture seconds and pool bytes."""
+    from rollout_bo_tpu_torch.models import surrogate as sg
+    from rollout_bo_tpu_torch.rollout import bo
+    from rollout_bo_tpu_torch.utils import graphs
+
+    f, state = _hartmann6d_state(dev, cap - 1, cap)
+    t = lambda a: torch.tensor(np.asarray(a), dtype=torch.float64, device=dev)  # noqa: E731
+    klbs, kubs = t([0.1]), t([5.0])
+    fn = bo._observer(f, klbs, kubs)
+    prog = graphs.GraphProgram(fn, device=dev)
+    rng = np.random.default_rng(7)
+    for do_mle in (True, False):
+        x = t(rng.uniform(f.lbs, f.ubs))
+        got, want = prog(state, x, do_mle), fn(state, x, do_mle)
+        torch.cuda.synchronize()
+        if not _tree_equal(got, want):
+            raise AssertionError(f"observe program ({label}, MLE {do_mle}): the replay is not "
+                                 "the eager observe bit for bit")
+    if prog.captures != 2:
+        raise AssertionError(f"observe program ({label}): {prog.captures} captures, not 2")
+    x = t(rng.uniform(f.lbs, f.ubs))
+    conditioned = sg.condition(state, x, f.f(x))
+    calls = {"refit": lambda: sg.optimize_hypers(conditioned, klbs, kubs),
+             "eager": lambda: fn(state, x, True), "program": lambda: prog(state, x, True)}
+    ms = {name: [] for name in calls}
+    for r in range(reps):
+        for name in list(calls) if r % 2 == 0 else list(calls)[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            calls[name]()
+            torch.cuda.synchronize()
+            ms[name].append(1e3 * (time.perf_counter() - t0))
+    med = {name: statistics.median(v) for name, v in ms.items()}
+    print(f"observe program, {label} (hartmann6d, n {cap} of capacity {cap}, float64): replay "
+          f"== eager bit for bit with and without the MLE; timed apart from the trial "
+          f"(median of {reps} in turns): eager refit {med['refit']:.2f} ms, eager observe "
+          f"{med['eager']:.2f} ms, replayed observe {med['program']:.2f} ms; capture "
+          f"{prog.capture_seconds:.3f} s (2 graphs), memory pools {prog.pool_bytes} B; on "
+          f"{card}")
+    return dict(refit_ms=med["refit"], eager_ms=med["eager"], replay_ms=med["program"],
+                capture_s=prog.capture_seconds, pool_bytes=prog.pool_bytes)
+
+
+def _myopic_routes(dev, card, *, budget, rule_name="EI", chunks=(0,), label="myopic"):
+    """One myopic trial (hartmann6d, 64 starts, float64, `budget` cut) in
+    the eager loop (`_eager_loops`) and through its chunk programs with each
+    `steps_per_call` of `chunks`, in one process: the points and fitted
+    lengthscale bit for bit (the same kernels at the same shapes on one
+    card); the lane kernel launched once per BO iteration on every route
+    (none for Random), the warm-up runs of the captures taken off. Prints
+    the seconds per BO iteration of each route; the chunk programs that the
+    program route took, each captured once, with their capture seconds and
+    pool bytes."""
+    from rollout_bo_tpu_torch.models import decision_rules as dr
+    from rollout_bo_tpu_torch.ops import newton_lanes as nl
+    from rollout_bo_tpu_torch.rollout import bo
+    from rollout_bo_tpu_torch.utils import graphs
+
+    f, _ = _hartmann6d_state("cpu", 1, 1)
+    x_init = np.random.default_rng(1906).uniform(f.lbs, f.ubs, (5, f.dim))
+    want = 0 if rule_name == "Random" else budget
+    taken = []
+
+    def run(route, k):
+        with contextlib.ExitStack() as stack:
+            if route == "eager":
+                stack.enter_context(_eager_loops())
+            asked = stack.enter_context(_asked_programs())
+            torch.cuda.synchronize()
+            nl.LAUNCHES, warm0 = 0, graphs.WARMUP_LAUNCHES
+            t0 = time.perf_counter()
+            res = bo.run_myopic_bo(f, dr.RULES[rule_name](), budget=budget, num_starts=64,
+                                   x_init=x_init, device=dev, steps_per_call=k)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        launches = nl.LAUNCHES - (graphs.WARMUP_LAUNCHES - warm0)
+        if launches != want:
+            raise AssertionError(f"{label}, {rule_name}, {route} (steps per call {k}): "
+                                 f"{launches} kernel launches, not {want}")
+        if route == "program":
+            taken.extend(asked)
+        return res, seconds
+
+    eager, eager_s = run("eager", 0)
+    routes = []
+    for k in chunks:
+        res, s = run("program", k)
+        if not (np.array_equal(res.X, eager.X)
+                and torch.equal(res.state.kernel.theta, eager.state.kernel.theta)):
+            raise AssertionError(f"{label}, {rule_name}, steps per call {k}: the points "
+                                 f"{res.X[5:]} are not the eager loop's {eager.X[5:]}")
+        routes.append((k, s))
+    chunk_programs = _taken(taken, "myopic_chunk")
+    captures = sum(p.captures for p in chunk_programs)
+    if len(chunk_programs) != 1 or captures != 1:
+        raise AssertionError(f"{label}, {rule_name}: {captures} captures over "
+                             f"{len(chunk_programs)} chunk programs, not one program of "
+                             f"one graph for every chunk length")
+    capture_s = sum(p.capture_seconds for p in chunk_programs)
+    pool = sum(p.pool_bytes for p in chunk_programs)
+    print(f"{label}, {rule_name} (hartmann6d, 64 starts, float64, budget {budget}): eager "
+          f"loop {eager_s / budget:.4f} s per BO iteration; "
+          + ", ".join(f"steps per call {k}: {s / budget:.4f} s per BO iteration"
+                      for k, s in routes)
+          + f" (captures included); points bit for bit the eager loop's, {want} kernel "
+          f"launches per route; {captures} capture(s) {capture_s:.3f} s, memory pools "
+          f"{pool} B; on {card}")
+    return dict(eager_s=eager_s / budget, program_s={k: s / budget for k, s in routes},
+                capture_s=capture_s, pool_bytes=pool)
 
 
 @contextlib.contextmanager
@@ -790,7 +983,7 @@ def _lengthscale_in_bounds(res, label):
     return ell
 
 
-def phase_myopic_cli(card, budget=100):
+def phase_myopic_cli(dev, card, budget=100):
     from rollout_bo_tpu_torch.experiments import myopic
     from rollout_bo_tpu_torch.ops import newton_lanes as nl
 
@@ -813,28 +1006,36 @@ def phase_myopic_cli(card, budget=100):
                     gaps[acq] = row
     if len(rec["trials"]) != len(acqs):
         raise AssertionError(f"{len(rec['trials'])} trials ran, not {len(acqs)}")
-    before = 0
+    before = before_warm = 0
     for acq, trial in zip(acqs, rec["trials"]):
         res, launches = trial["res"], trial["launches"] - before
         before = trial["launches"]
         want = 0 if acq == "random" else budget
         if launches != want:
             raise AssertionError(f"myopic {acq}: {launches} kernel launches, not {want}")
-        line = (f"myopic BO, hartmann6d, {acq}: final gap {gaps[acq][-1]:.4f}, "
-                f"{launches} kernel launches, solve median "
-                f"{statistics.median(res.times):.4f} s (last {res.times[-1]:.4f} s), "
-                f"whole BO iteration {trial['seconds'] / budget:.4f} s")
+        line = (f"myopic BO, hartmann6d, {acq}, one chunk program of {budget} iterations: "
+                f"final gap {gaps[acq][-1]:.4f}, {launches} kernel launches (besides "
+                f"{trial['warmup'] - before_warm} in the warm-up runs), "
+                f"{res.times[0]:.4f} s per BO iteration (the chunk's time over {budget}: "
+                f"solve, observe, condition, MLE), whole trial over the budget "
+                f"{trial['seconds'] / budget:.4f} s")
+        before_warm = trial["warmup"]
         if acq != "random":
             ell = _lengthscale_in_bounds(res, f"myopic {acq}")
-            line += (f", MLE refit median {statistics.median(trial['mle_s']):.4f} s, "
-                     f"fitted lengthscale {ell:.4f}, solves whose winner left its "
-                     f"start {float(trial['moved'].mean()):.4f}")
+            line += (f", fitted lengthscale {ell:.4f}, solves whose winner left its start "
+                     f"{float(trial['moved'].mean()):.4f} (over the {len(trial['moved'])} "
+                     f"solves a replay does not hide: the warm-up runs)")
         print(line + f"; on {card}")
     if not gaps["ei"][-1] > 0.0:
         raise AssertionError("myopic EI made no progress: final gap 0")
+    # beside the CLI: the refit and the observe step timed apart from the
+    # trials (a replay hides them from the recorder), and one trial at a cut
+    # budget on both routes in this process
+    _observe_routes(dev, card, cap=105, label="the myopic width")
+    _myopic_routes(dev, card, budget=10, label="myopic trial, eager loop and program")
 
 
-def phase_nonmyopic_cli(card, budget=15, horizon=2):
+def phase_nonmyopic_cli(dev, card, budget=15, horizon=2):
     from rollout_bo_tpu_torch.experiments import nonmyopic
     from rollout_bo_tpu_torch.ops import newton_lanes as nl
 
@@ -861,14 +1062,17 @@ def phase_nonmyopic_cli(card, budget=15, horizon=2):
         raise AssertionError(f"non-myopic: {trial['launches']} kernel launches, not "
                              f"{want} = {horizon} x sum(SGA iterations + 1) + fallbacks")
     ell = _lengthscale_in_bounds(res, "non-myopic")
+    timing = _observe_routes(dev, card, cap=5 + budget, label="the non-myopic width")
     print(f"non-myopic BO, hartmann6d, h {horizon}, 10 restarts x 200 trajectories, "
-          f"budget {budget}: final gap {gaps[-1]:.4f}, {trial['launches']} kernel "
+          f"budget {budget}, acquisition, observe and fallback programs: final gap "
+          f"{gaps[-1]:.4f}, {trial['launches']} kernel "
           f"launches (besides {trial['warmup']} in the graphs' warm-up runs), acquisition "
           f"median {statistics.median(res.times):.4f} s "
           f"(min {res.times.min():.4f}, max {res.times.max():.4f}), whole BO iteration "
           f"{trial['seconds'] / budget:.4f} s, SGA iterations per acquisition "
           f"{res.sga_iterations.tolist()}, fallbacks {int(res.fallbacks.sum())}, MLE "
-          f"refit median {statistics.median(trial['mle_s']):.4f} s, fitted lengthscale "
+          f"refit {timing['refit_ms']:.2f} ms eager and observe {timing['replay_ms']:.2f} ms "
+          f"replayed (timed apart, above), fitted lengthscale "
           f"{ell:.4f}, solver lanes that left their start "
           f"{float(trial['moved'].mean()):.4f} (over the {trial['solver_calls']} solver "
           f"calls a replay does not hide: the graphs' warm-up runs and the fallbacks); on "
@@ -891,14 +1095,15 @@ def phase_nonmyopic_cli(card, budget=15, horizon=2):
     if odd or not 2 <= solves <= 51:
         raise AssertionError(f"deterministic solve: {trial['launches']} kernel launches are "
                              f"not {horizon} x (1..50 Adam iterations + 1) + fallbacks")
-    print(f"non-myopic BO, deterministic solve, hartmann6d, h {horizon}, 10 restarts x "
-          f"{8 ** (horizon + 1)} Gauss-Hermite trajectories, 1 BO iteration: acquisition "
+    print(f"non-myopic BO, deterministic solve through its program, hartmann6d, h {horizon}, "
+          f"10 restarts x {8 ** (horizon + 1)} Gauss-Hermite trajectories, 1 BO iteration "
+          f"(the capture of its two graphs included): acquisition "
           f"{res.times[0]:.4f} s, {solves - 1} Adam iterations, {trial['launches']} kernel "
           f"launches, fallbacks {int(res.fallbacks.sum())}, solver lanes that left their "
           f"start {float(trial['moved'].mean()):.4f}; on {card}")
 
 
-def phase_adaptive_cli(card, budget=15, horizon=2):
+def phase_adaptive_cli(dev, card, budget=15, horizon=2):
     from rollout_bo_tpu_torch.experiments import adaptive
     from rollout_bo_tpu_torch.ops import newton_lanes as nl
 
@@ -936,6 +1141,7 @@ def phase_adaptive_cli(card, budget=15, horizon=2):
              for h in (0, horizon)}
     peak = [int(res.allocations[b]) for b, a in enumerate(acqs) if a["h"] == horizon]
     ell = _lengthscale_in_bounds(res, "adaptive")
+    timing = _observe_routes(dev, card, cap=1 + budget, label="the adaptive width")
     print(f"adaptive BO, hartmann6d, h 0 / {horizon} alternating, 10 restarts x 100 "
           f"trajectories, budget {budget}: final gap {rows['gaps'][-1]:.4f}, "
           f"{trial['launches']} kernel launches (besides {trial['warmup']} in the graphs' "
@@ -944,10 +1150,56 @@ def phase_adaptive_cli(card, budget=15, horizon=2):
           f"{statistics.median(times[horizon]):.4f} s (min {min(times[horizon]):.4f}, max "
           f"{max(times[horizon]):.4f}), SGA iterations per acquisition "
           f"{[a['iterations'] for a in acqs]}, fallbacks {int(res.fallbacks.sum())}, whole "
-          f"BO iteration {trial['seconds'] / budget:.4f} s, MLE refit median "
-          f"{statistics.median(trial['mle_s']):.4f} s, fitted lengthscale {ell:.4f}, peak "
+          f"BO iteration {trial['seconds'] / budget:.4f} s, MLE refit "
+          f"{timing['refit_ms']:.2f} ms eager and observe {timing['replay_ms']:.2f} ms "
+          f"replayed (timed apart, above), fitted lengthscale {ell:.4f}, peak "
           f"device bytes per h {horizon} acquisition {peak}; on {card}")
+    _fallback_routes(dev, card, cap=1 + budget)
     return trial["launches"]
+
+
+def _fallback_routes(dev, card, *, cap, reps=3):
+    """The exploration fallback as a program (the `GraphProgram` of
+    `bo._make_exploration_fallback` that `bo._fallback_program` caches: the
+    lane kernel's LogEI solve, 16 + 2 starts, and the max-sigma explorer) on a
+    hartmann6d state of cap observations, float64, against its function run
+    eagerly: equal bit for bit on two states, one capture, one launch per
+    call besides the warm-up runs; the median of `reps` in turns."""
+    from rollout_bo_tpu_torch.models import decision_rules as dr
+    from rollout_bo_tpu_torch.models import surrogate as sg
+    from rollout_bo_tpu_torch.ops import newton_lanes as nl
+    from rollout_bo_tpu_torch.ops import qmc
+    from rollout_bo_tpu_torch.rollout import bo
+    from rollout_bo_tpu_torch.utils import graphs
+
+    f, state = _hartmann6d_state(dev, cap - 1, cap)
+    t = lambda a: torch.tensor(np.asarray(a), dtype=torch.float64, device=dev)  # noqa: E731
+    fn = bo._make_exploration_fallback(dr.EI(), t([0.0]), t(f.lbs), t(f.ubs),
+                                       t(qmc.generate_initial_guesses(16, f.lbs, f.ubs)), 12)
+    prog = graphs.GraphProgram(fn, device=dev)
+    states = (state, sg.condition(state, t(np.full(f.dim, 0.5)), t(-1.0)))
+    seconds = {"eager": [], "program": []}
+    for r, st in enumerate(states * reps):
+        out = {}
+        for name in ("eager", "program") if r % 2 == 0 else ("program", "eager"):
+            torch.cuda.synchronize()
+            nl.LAUNCHES, warm0 = 0, graphs.WARMUP_LAUNCHES
+            t0 = time.perf_counter()
+            out[name] = (fn if name == "eager" else prog)(st)
+            torch.cuda.synchronize()
+            seconds[name].append(time.perf_counter() - t0)
+            if nl.LAUNCHES - (graphs.WARMUP_LAUNCHES - warm0) != 1:
+                raise AssertionError(f"fallback, {name}: {nl.LAUNCHES} kernel launches")
+        if not _tree_equal(out["program"], out["eager"]):
+            raise AssertionError("fallback program: the replay is not the eager call bit for bit")
+    if prog.captures != 1:
+        raise AssertionError(f"fallback program: {prog.captures} captures, not 1")
+    med = {name: statistics.median(v[1:]) for name, v in seconds.items()}
+    print(f"fallback program (hartmann6d, n {cap}, 18 starts, float64): replay == eager bit "
+          f"for bit on {len(states) * reps} calls, 1 kernel launch each; eager "
+          f"{med['eager'] * 1e3:.2f} ms, replayed {med['program'] * 1e3:.2f} ms per call "
+          f"(medians after the first); capture {prog.capture_seconds:.3f} s, memory pools "
+          f"{prog.pool_bytes} B; on {card}")
 
 
 def phase_cost_aware_cli(dev, card, budget=1):
@@ -964,7 +1216,7 @@ def phase_cost_aware_cli(dev, card, budget=1):
     # newton_solve_batch's share of it, which a replay hides, come from
     # eager simulate calls at the same width (`_simulate_cost_against_kernel`)
     with tempfile.TemporaryDirectory() as out, _recording() as rec:
-        cached, captures = set(bo._PROGRAM_CACHE), graphs.CAPTURES
+        cached, captures, before = set(bo._PROGRAM_CACHE), graphs.CAPTURES, _cached_captures()
         nl.LAUNCHES = 0
         for mode in modes:
             cost_aware.main(["--function-name", "braninhoo", "--trials", "1", "--budget",
@@ -981,11 +1233,18 @@ def phase_cost_aware_cli(dev, card, budget=1):
             if not np.all((costs[mode] >= 1.0) & (costs[mode] <= 1.0 + amp)):
                 raise AssertionError(f"cost-aware {mode}: costs {costs[mode]} outside "
                                      f"[1, {1 + amp}]")
-    programs = [k for k in bo._PROGRAM_CACHE if k not in cached]
-    if len(programs) != len(modes) or graphs.CAPTURES - captures != 2 * len(modes):
-        raise AssertionError(f"cost-aware: {len(programs)} new programs and "
-                             f"{graphs.CAPTURES - captures} captures, not one program of "
-                             f"two graphs per mode")
+    new = {k: p for k, p in bo._PROGRAM_CACHE.items() if k not in cached}
+    acquisitions = [p for k, p in new.items() if k[0] == "nm_acquire"]
+    observes = [p for k, p in new.items() if k[0] == "nm_observe"]
+    counted = sum(n - before.get(k, 0) for k, n in _cached_captures().items())
+    if (len(acquisitions) != len(modes)
+            or any([g.captures for g in p.graphs] != [1, 1] for p in acquisitions)
+            or any(p.captures != 1 for p in observes)
+            or graphs.CAPTURES - captures != counted):
+        raise AssertionError(f"cost-aware: {len(acquisitions)} acquisition programs, "
+                             f"{graphs.CAPTURES - captures} captures ({counted} in the cached "
+                             "programs), not one acquisition program of two graphs per mode "
+                             "and one graph per observe program")
     simulate = _simulate_cost_against_kernel(dev, card, amp)
     before = 0
     for mode, trial in zip(modes, rec["trials"]):
@@ -1228,19 +1487,22 @@ def _rank_sharded(rank, world, init_method, backend, prefix, kw):
 def _cli_rank(rank, args, world, init_method):
     """One rank of the non-myopic CLI's `--nworkers` run, as the CLI starts
     it, recording per trial its kernel launches (from 0 at the trial's
-    start), SGA iterations and fallbacks to <output dir>/rank<i>.json."""
+    start, the warm-up runs of a capture taken off), SGA iterations and
+    fallbacks to <output dir>/rank<i>.json."""
     from rollout_bo_tpu_torch.experiments import nonmyopic
     from rollout_bo_tpu_torch.ops import newton_lanes as nl
     from rollout_bo_tpu_torch.rollout import bo
+    from rollout_bo_tpu_torch.utils import graphs
 
     trials, loop = [], bo.run_nonmyopic_bo
 
     def recorded(*a, **kw):
-        nl.LAUNCHES = 0
+        nl.LAUNCHES, warm0 = 0, graphs.WARMUP_LAUNCHES
         t0 = time.perf_counter()
         res = loop(*a, **kw)
         torch.cuda.synchronize()
-        trials.append(dict(launches=nl.LAUNCHES, seconds=time.perf_counter() - t0,
+        trials.append(dict(launches=nl.LAUNCHES - (graphs.WARMUP_LAUNCHES - warm0),
+                           seconds=time.perf_counter() - t0,
                            sga_iterations=res.sga_iterations.tolist(),
                            fallbacks=res.fallbacks.tolist(), times=res.times.tolist(),
                            X=res.X.tolist()))
@@ -1425,10 +1687,12 @@ def _fd_problems():
 
 def _run_example(mod, argv):
     """mod.main(argv) with its printed lines held back: (its result, wall
-    seconds to a synchronized end, kernel launches, simulate calls), the
-    two counts set to 0 just before the run and read just after."""
+    seconds to a synchronized end, kernel launches besides the warm-up runs
+    of the programs it captures, simulate calls), the counts set to 0 just
+    before the run and read just after."""
     from rollout_bo_tpu_torch.ops import newton_lanes as nl
     from rollout_bo_tpu_torch.rollout import mc
+    from rollout_bo_tpu_torch.utils import graphs
 
     simulate, calls = mc.simulate_trajectory_mc, []
 
@@ -1438,7 +1702,7 @@ def _run_example(mod, argv):
 
     torch.cuda.synchronize()
     mc.simulate_trajectory_mc = counted
-    nl.LAUNCHES = 0
+    nl.LAUNCHES, warm0 = 0, graphs.WARMUP_LAUNCHES
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(io.StringIO()):
@@ -1446,7 +1710,8 @@ def _run_example(mod, argv):
         torch.cuda.synchronize()
     finally:
         mc.simulate_trajectory_mc = simulate
-    return out, time.perf_counter() - t0, nl.LAUNCHES, len(calls)
+    launches = nl.LAUNCHES - (graphs.WARMUP_LAUNCHES - warm0)
+    return out, time.perf_counter() - t0, launches, len(calls)
 
 
 def phase_examples(dev, card):
@@ -1749,56 +2014,73 @@ def _routes_at_bench_width(dev, card, dtype, reps=3):
                 pool_bytes=pool)
 
 
-def _nonmyopic_cli_routes(card, budget=3, horizon=2):
-    """One non-myopic trial through the CLI at phase 6's widths, budget cut
-    to 3, through the program cache, then the same trial in the eager loop:
-    one program captured for the whole trial (its two graphs once each),
-    the same points within 1e-9, the launch identity on both routes."""
+def _nonmyopic_cli_routes(card, budget=3, horizon=2, extra=(), label="fused solver"):
+    """One non-myopic trial through the CLI at phase 6's widths (`extra`
+    arguments added), budget cut, through the program cache, then the same
+    trial in the eager loop (`_eager_loops`: every program run eagerly):
+    the program route takes one acquisition program, its two graphs
+    captured once each (in this trial or an earlier one with its key), and
+    one observe program, its MLE graph captured once; every capture of the
+    route is in a cached program and the eager route captures nothing; the
+    same points within 1e-9; the launch identity on both routes (for the
+    solvers that count SGA iterations)."""
     from rollout_bo_tpu_torch.experiments import nonmyopic
     from rollout_bo_tpu_torch.ops import newton_lanes as nl
-    from rollout_bo_tpu_torch.rollout import bo
     from rollout_bo_tpu_torch.utils import graphs
 
     argv = ["--function-name", "hartmann6d", "--horizon", str(horizon), "--trials", "1",
             "--budget", str(budget), "--mc-samples", "200", "--batch-size", "8",
             "--sgd-iterations", "50", "--starts", "16", "--optimize",
-            "--variance-reduction", "--seed", "1906"]
-    trials, cached = {}, set(bo._PROGRAM_CACHE)
+            "--variance-reduction", "--seed", "1906", *extra]
+    trials = {}
     for route in ("program", "eager"):
-        captures = graphs.CAPTURES
+        captures, before = graphs.CAPTURES, _cached_captures()
         with tempfile.TemporaryDirectory() as out, contextlib.ExitStack() as stack:
             if route == "eager":
                 stack.enter_context(_eager_loops())
+            asked = stack.enter_context(_asked_programs())
             rec = stack.enter_context(_recording())
             nl.LAUNCHES = 0
             nonmyopic.main(argv + ["--output-dir", out])
             torch.cuda.synchronize()
         (trial,) = rec["trials"]
-        res = trial["res"]
-        want = int(horizon * (res.sga_iterations + 1).sum() + res.fallbacks.sum())
-        if trial["launches"] != want:
-            raise AssertionError(f"non-myopic CLI, {route}: {trial['launches']} kernel "
-                                 f"launches, not {want}")
-        trials[route] = (trial, graphs.CAPTURES - captures)
-    new = [k for k in bo._PROGRAM_CACHE if k not in cached]
-    (prog_trial, captures), (eager_trial, eager_captures) = trials["program"], trials["eager"]
-    if len(new) != 1 or captures != 2 or eager_captures != 0:
-        raise AssertionError(f"non-myopic CLI: {len(new)} new programs, {captures} captures "
-                             f"(eager route {eager_captures}), not one program's 2 graphs")
+        res, acqs = trial["res"], trial["acquisitions"]
+        for a in acqs:
+            if a["iterations"] < 0:          # batch / Gauss-Hermite: no SGA count
+                continue
+            if a["launches"] != horizon * (a["iterations"] + 1) + a["fallback"]:
+                raise AssertionError(f"non-myopic CLI, {label}, {route}: {a['launches']} "
+                                     f"kernel launches for {a['iterations']} SGA iterations")
+        if trial["launches"] != sum(a["launches"] for a in acqs):
+            raise AssertionError(f"non-myopic CLI, {label}, {route}: kernel launches outside "
+                                 "the acquisitions")
+        counted = sum(n - before.get(k, 0) for k, n in _cached_captures().items())
+        trials[route] = (trial, graphs.CAPTURES - captures, counted, asked)
+    (prog_trial, captures, counted, asked), (eager_trial, eager_captures, *_) = (
+        trials["program"], trials["eager"])
+    acquisition, observe = _taken(asked, "nm_acquire"), _taken(asked, "nm_observe")
+    if (len(acquisition) != 1 or [g.captures for g in acquisition[0].graphs] != [1, 1]
+            or [p.captures for p in observe] != [1] or captures != counted
+            or eager_captures != 0):
+        raise AssertionError(f"non-myopic CLI, {label}: {len(acquisition)} acquisition "
+                             f"programs taken, {captures} captures ({counted} in the cached "
+                             f"programs; eager route {eager_captures}), not one acquisition "
+                             "program's 2 graphs and one observe graph")
     apart = float(np.abs(prog_trial["res"].X - eager_trial["res"].X).max())
     if apart > 1e-9:
-        raise AssertionError(f"non-myopic CLI: the program's points are {apart:.3e} from "
-                             "the eager loop's")
-    _, capture_s, pool = _graph_numbers(bo._PROGRAM_CACHE[new[0]])
+        raise AssertionError(f"non-myopic CLI, {label}: the program's points are {apart:.3e} "
+                             "from the eager loop's")
+    _, capture_s, pool = _graph_numbers(acquisition[0])
     line = ", ".join(
         f"{route} {t['seconds'] / budget:.4f} s per BO iteration (acquisitions "
         f"{', '.join(f'{x:.4f}' for x in t['res'].times)} s)"
-        for route, (t, _) in trials.items())
-    print(f"programs, non-myopic CLI trial (hartmann6d, h {horizon}, 10 restarts x 200 "
-          f"trajectories, float64, budget {budget}): {line}; one program captured "
-          f"({capture_s:.3f} s, memory pools {pool} B), points within {apart:.1e} of the "
-          f"eager loop's, SGA iterations {prog_trial['res'].sga_iterations.tolist()}; "
-          f"on {card}")
+        for route, (t, *_) in trials.items())
+    print(f"programs, non-myopic CLI trial, {label} (hartmann6d, h {horizon}, 10 restarts, "
+          f"float64, budget {budget}): {line}; acquisition program captured once "
+          f"({capture_s:.3f} s, memory pools {pool} B), observe program once "
+          f"({observe[0].capture_seconds:.3f} s, {observe[0].pool_bytes} B), points within "
+          f"{apart:.1e} of the eager loop's, SGA iterations "
+          f"{prog_trial['res'].sga_iterations.tolist()}; on {card}")
     return dict(capture_s=capture_s, pool_bytes=pool)
 
 
@@ -1807,6 +2089,14 @@ def phase_programs(dev, card):
     for dtype in (torch.float32, torch.float64):
         _routes_at_bench_width(dev, card, dtype)
     _nonmyopic_cli_routes(card)
+    _nonmyopic_cli_routes(card, budget=2, extra=("--outer-solver", "batch"),
+                          label="batch solver")
+    _nonmyopic_cli_routes(card, budget=1, extra=("--deterministic-solve", "--ghq-nodes", "8"),
+                          label="Gauss-Hermite solver")
+    for rule_name in ("EI", "Random"):
+        _myopic_routes(dev, card, budget=4, rule_name=rule_name, chunks=(1, 4),
+                       label="programs, myopic chunks of 1 and 4")
+    _observe_routes(dev, card, cap=20, label="programs, the non-myopic width")
     print(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -1828,13 +2118,13 @@ def main(argv=None):
     if 4 in phases:
         launches, _ = phase_main_path(dev, smi)
     if 5 in phases:
-        phase_myopic_cli(smi)
+        phase_myopic_cli(dev, smi)
     if 6 in phases:
-        phase_nonmyopic_cli(smi)
+        phase_nonmyopic_cli(dev, smi)
     if 7 in phases:
         phase_card_equals_cpu(dev)
     if 8 in phases:
-        phase_adaptive_cli(smi)
+        phase_adaptive_cli(dev, smi)
     if 9 in phases:
         phase_cost_aware_cli(dev, smi)
     if 10 in phases:

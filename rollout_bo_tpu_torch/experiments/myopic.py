@@ -7,9 +7,10 @@ acquisition in {EI, POI, LCB, Random}, run `--trials` BO trials of
 / simple-regret / minimum-observation CSVs per acquisition in the
 reference schema (plus allocations, which are always 0 here). Same flags,
 defaults, file names and initial-sample stream as the JAX package's CLI.
-Differences: `--device` (default `cuda`; without a card it raises, it
-never runs on the CPU unasked), and `--steps-per-call` is parsed and has
-no effect (the loop runs one BO iteration per pass).
+`--steps-per-call` sets the BO iterations per chunk, the host reading the
+points once per chunk (0, the default: the whole budget, or the snapshot
+cadence with `--checkpoint-every`). Difference: `--device` (default
+`cuda`; without a card it raises, it never runs on the CPU unasked).
 
 Usage:
     python -m rollout_bo_tpu_torch.experiments.myopic --function-name sixhump \
@@ -64,8 +65,8 @@ def parse_args(argv=None):
                    help="snapshot the trial every N iterations (0 = off); "
                         "a crashed run resumes from the last snapshot")
     p.add_argument("--steps-per-call", type=int, default=0,
-                   help="accepted for compatibility with the JAX CLI and "
-                        "ignored: the loop runs one BO iteration per pass")
+                   help="BO iterations per chunk, one host read each (0 = the "
+                        "whole budget, or the checkpoint cadence)")
     add_device_argument(p)
     return p.parse_args(argv)
 
@@ -137,6 +138,7 @@ def main(argv=None):
                 x_init=initial_samples[trial], dtype=dtype, device=device,
                 checkpoint_path=ckpt_path,
                 checkpoint_every=args.checkpoint_every or 10,
+                steps_per_call=args.steps_per_call,
             )
             if ckpt_path and os.path.exists(ckpt_path + ".npz"):
                 os.remove(ckpt_path + ".npz")

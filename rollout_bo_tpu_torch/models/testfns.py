@@ -82,9 +82,10 @@ class TestFunction:
 
     def hshift(self, s) -> "TestFunction":
         s = np.asarray(s, dtype=float)
+        shift = _tables(s)
         return TestFunction(self.dim, self.bounds,
                             tuple(np.asarray(x) + s for x in self.xopt),
-                            lambda x: self.f(x + _like(s, x)))
+                            lambda x: self.f(x + shift(x)[0]))
 
 
 def tplot(t: TestFunction, *, num_points: int = 200, ax=None, levels: int = 30):
@@ -132,9 +133,22 @@ def _box(d, lo, hi):
     return b
 
 
-def _like(a: np.ndarray, x):
-    """The numpy table `a` as a tensor of x's dtype on x's device."""
-    return torch.as_tensor(a, dtype=x.dtype, device=x.device)
+def _tables(*arrays: np.ndarray):
+    """tables(x) -> the numpy `arrays` as tensors of x's dtype on x's
+    device, made on the first call for that (dtype, device) and kept by the
+    function that holds `tables`: a later call copies nothing from the
+    host, so that the function evaluates inside a CUDA graph's capture,
+    which refuses such a copy."""
+    made: dict = {}
+
+    def tables(x):
+        key = (x.dtype, x.device)
+        if key not in made:
+            made[key] = tuple(torch.as_tensor(a, dtype=x.dtype, device=x.device)
+                              for a in arrays)
+        return made[key]
+
+    return tables
 
 
 _PI = math.pi
@@ -303,9 +317,12 @@ _H_ALPHA = np.array([1.0, 1.2, 3.0, 3.2])
 
 
 def _hartmann(A, P, d, xopt):
+    tables = _tables(A, P, _H_ALPHA)
+
     def f(x):
-        t = torch.sum(_like(A, x) * (x[..., None, :] - _like(P, x)) ** 2, dim=-1)
-        return -torch.sum(_like(_H_ALPHA, x) * torch.exp(-t), dim=-1)
+        a, p, alpha = tables(x)
+        t = torch.sum(a * (x[..., None, :] - p) ** 2, dim=-1)
+        return -torch.sum(alpha * torch.exp(-t), dim=-1)
     return TestFunction(d, _box(d, 0.0, 1.0), (np.asarray(xopt),), f)
 
 
@@ -343,9 +360,12 @@ _SHEKEL_B = np.array([0.1, 0.2, 0.2, 0.4, 0.4, 0.6, 0.3, 0.7, 0.5, 0.5])
 
 
 def shekel():  # :598
+    tables = _tables(_SHEKEL_C, _SHEKEL_B)
+
     def f(x):
-        t = torch.sum((x[..., :, None] - _like(_SHEKEL_C, x)) ** 2, dim=-2)
-        return -torch.sum(1.0 / (t + _like(_SHEKEL_B, x)), dim=-1)
+        c, b = tables(x)
+        t = torch.sum((x[..., :, None] - c) ** 2, dim=-2)
+        return -torch.sum(1.0 / (t + b), dim=-1)
     return TestFunction(4, _box(4, 0.0, 10.0), (np.full(4, 4.0),), f)
 
 
@@ -357,9 +377,9 @@ def dropwave():  # :638
 
 
 def griewank(d):  # :695 (last definition wins in the reference)
-    idx = np.sqrt(np.arange(1, d + 1, dtype=float))
+    idx = _tables(np.sqrt(np.arange(1, d + 1, dtype=float)))
     f = lambda x: (1.0 + torch.sum(x * x, dim=-1) / 4000.0
-                   - torch.prod(torch.cos(x / _like(idx, x)), dim=-1))
+                   - torch.prod(torch.cos(x / idx(x)[0]), dim=-1))
     return TestFunction(d, _box(d, -600.0, 600.0), (np.zeros(d),), f)
 
 

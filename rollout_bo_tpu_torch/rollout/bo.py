@@ -4,20 +4,36 @@ at a horizon that follows a schedule).
 
 Port of `rollout_bo_tpu/rollout/bo.py` (reference
 `experiments/myopic_bayesopt.jl:207-263`, `adaptive_bayesopt.jl:479-526`).
-Each loop is a plain Python loop, one BO iteration per pass: acquisition
-solve -> true-function evaluation -> rank-1 condition -> hyperparameter
-MLE. The non-myopic and adaptive loops take their stochastic acquisition
-program (`outer.make_fused_sga_program` or `make_scanned_sga_program`: CUDA
-graphs on the card) from `_cached_program`, as the JAX package does, so
-that one capture serves every BO iteration of a trial and every trial with
-the same key. The JAX package also fuses k myopic iterations into one
-scanned device program, and runs the observe step (condition and masked
-MLE), the exploration fallback and the Gauss-Hermite acquisition as jitted
-programs; here those run eagerly.
+Each loop is a Python loop over BO iterations: acquisition solve ->
+true-function evaluation -> rank-1 condition -> hyperparameter MLE. Every
+step that the JAX package runs as a jitted program is a program here
+(`utils.graphs.GraphProgram`: CUDA graphs on the card, the function run
+eagerly elsewhere), taken from `_cached_program` under the JAX package's
+key with the device added, so that one capture serves every BO iteration
+of a trial and every trial with the same key:
 
-Per iteration the host reads what the loop needs: the acquisition's best
+- "myopic_chunk": one myopic BO iteration (solve, observe, condition, MLE
+  when due, running minimum), called k times for a chunk of k, the carry
+  on the device and one host read per chunk (`run_myopic_bo`); its key is
+  the JAX package's without the chunk length, which the one iteration's
+  program does not depend on;
+- "nm_observe": the true function at the new point, the condition on it
+  and the MLE when due (`_observer`, `_observe_program`);
+- "nm_fallback": the exploration fallback;
+- "nm_acquire" / "ad_acquire": the rollout acquisition
+  (`outer.make_fused_sga_program` for "fused" and "batch",
+  `make_scanned_sga_program`, `make_deterministic_program`).
+
+The JAX package computes the MLE on every call and selects it with a
+traced mask. Whether it is due is known on the host, so here it is a
+constant of the program: a program has at most two graphs per signature,
+and a loop that never refits (the adaptive one) never captures a refit.
+On a mesh the acquisitions run the eager loop; the observe and fallback
+programs are rank-local and serve it too.
+
+The host reads what the loop needs: per iteration the acquisition's best
 value (non-myopic, to decide on the fallback) and the new point with its
-observation.
+observation; in the myopic loop, one chunk's points and observations.
 """
 
 from __future__ import annotations
@@ -43,6 +59,7 @@ from rollout_bo_tpu_torch.rollout import solvers
 from rollout_bo_tpu_torch.rollout.trajectory import TrajectoryParams
 from rollout_bo_tpu_torch.utils import checkpoint as ckpt
 from rollout_bo_tpu_torch.utils import metrics
+from rollout_bo_tpu_torch.utils.graphs import GraphProgram
 
 __all__ = ["MyopicBOResult", "run_myopic_bo", "run_nonmyopic_bo", "run_adaptive_bo",
            "alternating_horizon", "fixed_horizon", "truncated_horizon"]
@@ -78,7 +95,8 @@ class MyopicBOResult:
     gaps: np.ndarray             # (budget,) gap before each new sample
     simple_regrets: np.ndarray   # (budget,)
     minimum_observations: np.ndarray  # (budget,)
-    times: np.ndarray            # (budget,) acquisition-solve wall seconds
+    times: np.ndarray            # (budget,) acquisition wall seconds (myopic:
+    # of the whole BO iteration, uniform within a chunk)
     state: sg.SurrogateState = field(repr=False, default=None)
     # non-myopic and adaptive only: outer SGA iterations and whether the
     # exploration fallback was taken, per BO iteration run by this call
@@ -122,6 +140,8 @@ class _Trial:
         self.lbs, self.ubs = self.as_t(lbs), self.as_t(ubs)
         self.xstarts = self.as_t(qmc.generate_initial_guesses(num_starts, lbs, ubs))
         self.klbs, self.kubs = self.as_t(kernel_lbs), self.as_t(kernel_ubs)
+        self.bounds_key = (tuple(np.asarray(kernel_lbs, dtype=float).tolist()),
+                           tuple(np.asarray(kernel_ubs, dtype=float).tolist()))
         self.mle_every = mle_every
         self.true_minimum = testfn.fmin
         self.initial_best = float(y_init.min())
@@ -145,25 +165,42 @@ class _Trial:
             self.X_all = [np.asarray(x) for x in saved["X_all"]]
             self.y_all = list(map(float, saved["y_all"]))
 
-    def observe(self, b: int, xnext, *, mle: bool) -> None:
-        """Record the gap before the observation, evaluate the true
-        function at xnext, condition, refit the hyperparameters when due,
-        snapshot when due."""
+    def observe(self, b: int, observe, xnext) -> None:
+        """Record the gap before the observation; run `observe`, the observe
+        program (the true function at xnext, the condition on it and the
+        hyperparameter MLE when due); snapshot when due."""
         best = min(self.y_all)               # the incumbent BEFORE this observation
         self.gaps[b] = metrics.gap(self.initial_best, best, self.true_minimum)
         self.regrets[b] = metrics.simple_regret(self.true_minimum, best)
-        ynext = self.testfn.f(xnext)
-        self.state = sg.condition(self.state, xnext, ynext)
-        if mle and (b + 1) % self.mle_every == 0:
-            self.state = sg.optimize_hypers(self.state, self.klbs, self.kubs)
+        self.state, ynext = observe(self.state, xnext, (b + 1) % self.mle_every == 0)
         xy = torch.cat([xnext, ynext[None]]).cpu().numpy().astype(float)  # one read
         self.X_all.append(xy[:-1])
         self.y_all.append(float(xy[-1]))
         self.min_obs[b] = min(self.y_all)
-        if (self.lead and self.checkpoint_path is not None
-                and (b + 1) % self.checkpoint_every == 0):
+        if (b + 1) % self.checkpoint_every == 0:
+            self.snapshot(b + 1)
+
+    def record_chunk(self, b: int, rows: np.ndarray, seconds: float) -> None:
+        """Record the BO iterations b, b + 1, ... of one myopic chunk from its
+        rows (k, d + 3): x, y, the incumbent before it and after it; each
+        iteration's time is the chunk's over k."""
+        k, d = rows.shape[0], self.testfn.dim
+        basis = rows[:, d + 1]
+        self.gaps[b:b + k] = [metrics.gap(self.initial_best, float(v), self.true_minimum)
+                              for v in basis]
+        self.regrets[b:b + k] = [metrics.simple_regret(self.true_minimum, float(v))
+                                 for v in basis]
+        self.min_obs[b:b + k] = rows[:, d + 2]
+        self.times[b:b + k] = seconds / k
+        self.X_all.extend(rows[:, :d])
+        self.y_all.extend(map(float, rows[:, d]))
+
+    def snapshot(self, iteration: int) -> None:
+        """Save the trial after `iteration` BO iterations (a lead trial with
+        a checkpoint path only)."""
+        if self.lead and self.checkpoint_path is not None:
             ckpt.save_bo_checkpoint(
-                self.checkpoint_path, self.state, iteration=b + 1,
+                self.checkpoint_path, self.state, iteration=iteration,
                 metrics=dict(gaps=self.gaps, simple_regrets=self.regrets,
                              minimum_observations=self.min_obs, times=self.times,
                              X_all=np.stack(self.X_all), y_all=np.asarray(self.y_all)))
@@ -173,6 +210,52 @@ class _Trial:
             X=np.stack(self.X_all), y=np.asarray(self.y_all), gaps=self.gaps,
             simple_regrets=self.regrets, minimum_observations=self.min_obs,
             times=self.times, state=self.state, **extra)
+
+
+def _observer(testfn: TestFunction, klbs, kubs):
+    """observe(state, xnext, do_mle) -> (state, ynext): the true function at
+    xnext, the rank-1 condition on it and, with `do_mle`, the
+    hyperparameter MLE in [klbs, kubs] (the JAX package's observe program,
+    its traced MLE mask a constant here)."""
+
+    def observe(state, xnext, do_mle: bool):
+        ynext = testfn.f(xnext)
+        state = sg.condition(state, xnext, ynext)
+        if do_mle:
+            state = sg.optimize_hypers(state, klbs, kubs)
+        return state, ynext
+
+    return observe
+
+
+def _observe_program(t: _Trial):
+    """The observe step as a program, cached as the JAX package caches it
+    ("nm_observe")."""
+    return _cached_program(
+        ("nm_observe", id(t.testfn)) + t.bounds_key + (t.shape_key,),
+        lambda: GraphProgram(_observer(t.testfn, t.klbs, t.kubs), device=t.device))
+
+
+def _myopic_iteration(rule, theta, lbs, ubs, xstarts, solver_iterations, observe):
+    """iteration(state, best, u, do_mle) -> (state, best, row): one myopic BO
+    iteration (the body of the JAX package's `trial_chunk` scan). The solve
+    takes the next point, or with `u` (the Random rule's uniform draw, made
+    on the host) `solvers.random_point`; then observe; best is the running
+    minimum, float64 on the device. row (d + 3,) float64: x, y, best before
+    and after."""
+
+    def iteration(state, best, u, do_mle: bool):
+        if u is None:
+            x = solvers.multistart_maximize(state, rule, theta, lbs, ubs, xstarts,
+                                            iterations=solver_iterations).x
+        else:
+            x = solvers.random_point(lbs, ubs, u)
+        state, y = observe(state, x, do_mle)
+        y = y.to(torch.float64)
+        after = torch.minimum(best, y)
+        return state, after, torch.cat([x.to(torch.float64), torch.stack([y, best, after])])
+
+    return iteration
 
 
 def run_myopic_bo(
@@ -195,37 +278,75 @@ def run_myopic_bo(
     x_init: np.ndarray | None = None,
     checkpoint_path: str | None = None,
     checkpoint_every: int = 10,
+    steps_per_call: int = 0,
 ) -> MyopicBOResult:
     """One myopic BO trial (protocol of myopic_bayesopt.jl:94-263).
 
     5 uniform initial samples, Matern-5/2 + per-iteration MLE in [0.1, 5],
     `num_starts` Sobol multistarts + 2 near-boundary points per solve: one
-    lane-solver call per BO iteration. `times[b]` is the wall time of the
-    acquisition solve, synchronized with the device.
+    lane-solver call per BO iteration.
+
+    The BO iterations run in chunks of `steps_per_call` (the JAX package's
+    semantics): 0 = the whole budget, or `checkpoint_every` when
+    checkpointing; 1 = one iteration per chunk. A chunk of k calls the
+    "myopic_chunk" program of one BO iteration from `_cached_program` k
+    times (on the card k replays of its CUDA graph), the carry (state,
+    running minimum) passed on the device from one to the next, and the
+    host reads the chunk's points once, at its end. `times[b]` is the wall
+    time of b's chunk over its length: solve, observe, condition and MLE,
+    synchronized with the device. The points do not depend on the chunk
+    size.
+
+    The Random rule draws its uniforms on the host from a CPU
+    `torch.Generator` seeded with `seed`, a chunk's draws before the chunk
+    in the order the iterations take them; it runs no MLE.
 
     If `checkpoint_path` is given, the surrogate + metric arrays are
-    snapshotted every `checkpoint_every` iterations and a crashed trial
-    resumes from the last snapshot (the reference cannot resume a trial).
+    snapshotted every `checkpoint_every` iterations, at the end of a chunk,
+    and a crashed trial resumes from the last snapshot (the reference
+    cannot resume a trial).
     """
     t = _Trial(testfn, budget=budget, n_init=n_init, num_starts=num_starts, seed=seed,
                kernel=kernel, noise=noise, kernel_lbs=kernel_lbs, kernel_ubs=kernel_ubs,
                mle_every=mle_every, dtype=dtype, device=device, x_init=x_init,
                checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every)
+    theta_key = tuple(map(float, theta))
     theta = t.as_t(theta)
     is_random = rule.name == "Random"
     generator = torch.Generator().manual_seed(seed)
+    draw = lambda: torch.rand(testfn.dim, generator=generator, dtype=dtype)  # noqa: E731
     if is_random:
         for _ in range(t.start):         # a resumed trial continues the stream
-            torch.rand(testfn.dim, generator=generator, dtype=dtype)
+            draw()
+    if steps_per_call <= 0:
+        steps_per_call = checkpoint_every if checkpoint_path is not None else budget
+    steps_per_call = max(1, min(steps_per_call, budget))
 
-    for b in range(t.start, budget):
+    # the observe step's function is captured inside the iteration's graph
+    iteration = _cached_program(
+        ("myopic_chunk", rule, theta_key, num_starts, solver_iterations, mle_every,
+         id(testfn)) + t.bounds_key + (t.shape_key,),
+        lambda: GraphProgram(_myopic_iteration(
+            rule, theta, t.lbs, t.ubs, t.xstarts, solver_iterations,
+            _observer(testfn, t.klbs, t.kubs)), device=t.device))
+    best = torch.tensor(min(t.y_all), dtype=torch.float64, device=t.device)
+    b = t.start
+    while b < budget:
+        k = min(steps_per_call, budget - b)
+        us = torch.stack([draw() for _ in range(k)]).to(t.device) if is_random else None
         t0 = time.perf_counter()
-        res = solvers.multistart_maximize(
-            t.state, rule, theta, t.lbs, t.ubs, t.xstarts,
-            iterations=solver_iterations, generator=generator)
-        _synchronize(t.device)
-        t.times[b] = time.perf_counter() - t0
-        t.observe(b, res.x, mle=not is_random)
+        rows = []
+        for i in range(k):
+            # the MLE is a constant of the program: two graphs at most
+            do_mle = not is_random and (b + i + 1) % mle_every == 0
+            t.state, best, row = iteration(t.state, best, None if us is None else us[i],
+                                           do_mle)
+            rows.append(row)
+        rows = torch.stack(rows).cpu().numpy()   # the chunk's one host read
+        t.record_chunk(b, rows, time.perf_counter() - t0)
+        b += k
+        if b % checkpoint_every == 0:
+            t.snapshot(b)
     return t.result()
 
 
@@ -246,6 +367,10 @@ def _make_exploration_fallback(rule, theta, lbs, ubs, xstarts, solver_iterations
     LogEI never flattens: where EI underflows to an exact zero surface,
     log EI still has a finite value and gradient, so the analytic solve
     uses the log form whatever the rollout's base rule (same argmax as EI).
+
+    Returns fallback(state) -> (x, value of the analytic solve), a function
+    that copies nothing from the host: the loops run it as the program
+    `_fallback_program` caches.
     """
     log_rule = LogEI() if rule.name in ("EI", "LogEI", "Random") else rule
     scale = float(torch.max(ubs - lbs))
@@ -254,7 +379,8 @@ def _make_exploration_fallback(rule, theta, lbs, ubs, xstarts, solver_iterations
         res = solvers.multistart_maximize(state, log_rule, theta, lbs, ubs, xstarts,
                                           iterations=solver_iterations)
         with torch.no_grad():
-            x_explore = xstarts[torch.argmax(sg.posterior(state, xstarts).sigma)]
+            j = torch.argmax(sg.posterior(state, xstarts).sigma).reshape(1)
+            x_explore = xstarts.index_select(0, j)[0]      # no host read of j
             # LogEI is finite everywhere, so finiteness alone cannot gate
             # the escape; also require a genuinely NEW point: conditioning
             # on a (near-)duplicate row is the ill-conditioned rank-1 update
@@ -278,6 +404,15 @@ def _make_exploration_fallback(rule, theta, lbs, ubs, xstarts, solver_iterations
             return torch.where(ok, res.x, x_explore), res.value
 
     return fallback
+
+
+def _fallback_program(t: _Trial, rule, theta_key, theta, num_starts, solver_iterations):
+    """The exploration fallback as a program, cached as the JAX package
+    caches it ("nm_fallback")."""
+    return _cached_program(
+        ("nm_fallback", rule, theta_key, num_starts, solver_iterations, t.shape_key),
+        lambda: GraphProgram(_make_exploration_fallback(rule, theta, t.lbs, t.ubs, t.xstarts,
+                                                        solver_iterations), device=t.device))
 
 
 def _ghq_node_scale(log10_parity: bool) -> float:
@@ -344,9 +479,10 @@ def run_nonmyopic_bo(
     ends the loop) or "batch" (`outer.stochastic_solve_batch` and the
     argmax: fused's points; `sga_iterations` records -1). `times[b]` is the
     wall time of the acquisition (fallback included), synchronized with
-    the device. "fused" and "scanned" run their program
-    (`outer.make_fused_sga_program(select_best=True)`, `make_scanned_sga_program`)
-    from `_cached_program`, keyed as the JAX package keys it.
+    the device. Every solver runs its program from `_cached_program`, keyed
+    as the JAX package keys it (`_rollout_acquirer`), and so do the
+    exploration fallback and the observe step (true function, condition,
+    MLE every `mle_every` iterations).
 
     `mesh` (`parallel.mesh.Mesh`; every rank of it runs this call): the
     restarts are cut to `num_restarts` (the two near-boundary points are
@@ -366,10 +502,11 @@ def run_nonmyopic_bo(
                mle_every=mle_every, dtype=dtype, device=device, x_init=x_init,
                checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every,
                lead=mesh is None or mesh.rank == 0)
+    theta_key = tuple(map(float, theta))
     program_key = None
     if mesh is None:
-        program_key = ("nm_acquire", rule, tuple(map(float, theta)), mc_iters, num_starts,
-                       num_restarts, sgd_iters, lr, solver_iterations, draw_mode,
+        program_key = ("nm_acquire", rule, theta_key, mc_iters, num_starts, num_restarts,
+                       sgd_iters, lr, solver_iterations, draw_mode, deterministic, ghq_nodes,
                        log10_parity, outer_solver, steps_per_call, t.shape_key)
     theta = t.as_t(theta)
     make_rnstream = _rnstream_maker(t, mc_iters, use_low_discrepancy, log10_parity)
@@ -379,8 +516,8 @@ def run_nonmyopic_bo(
                                 log10_parity=log10_parity, mesh=mesh,
                                 outer_solver=outer_solver, steps_per_call=steps_per_call,
                                 program_key=program_key)
-    fallback = _make_exploration_fallback(rule, theta, t.lbs, t.ubs, t.xstarts,
-                                          solver_iterations)
+    fallback = _fallback_program(t, rule, theta_key, theta, num_starts, solver_iterations)
+    observe = _observe_program(t)
     if not use_low_discrepancy:
         # replay the normal draws consumed before the snapshot so that the
         # resumed stream continues where it left off (the QMC stream is
@@ -404,7 +541,7 @@ def run_nonmyopic_bo(
             xnext = mesh_mod.broadcast(xnext, mesh)
         _synchronize(t.device)
         t.times[b] = time.perf_counter() - t0
-        t.observe(b, xnext, mle=True)
+        t.observe(b, observe, xnext)
         if mesh is not None:
             t.state = mesh_mod.replicate(t.state, mesh)
     return t.result(sga_iterations=sga_iterations, fallbacks=fallbacks)
@@ -435,40 +572,54 @@ def _rollout_acquirer(t: _Trial, rule, theta, *, deterministic, ghq_nodes, sgd_i
     -1) of the h-step rollout acquisition: the stochastic solver named by
     `outer_solver` (see `run_nonmyopic_bo`), or the Gauss-Hermite one with
     `deterministic` (which ignores the stream); on the ranks of `mesh` if
-    one is given. With `program_key` the "fused" and "scanned" solves run
-    the program cached under program_key + (h,); without one (on a mesh)
-    they run the eager loop, the route the tests hold the programs to."""
+    one is given. With `program_key` every solve runs the program cached
+    under program_key + (h,) ("fused" and "batch":
+    `outer.make_fused_sga_program(select_best=True)`, whose points are the
+    batch solver's with its argmax; "scanned": `make_scanned_sga_program`;
+    Gauss-Hermite: `make_deterministic_program(select_best=True)`); without
+    one (on a mesh) they run the eager loop, the route the tests hold the
+    programs to."""
+    node_scale = _ghq_node_scale(log10_parity)
 
     def program(state, tp, h):
         def build():
-            kw = dict(lr=lr, inner_iterations=solver_iterations, draw_mode=draw_mode)
+            kw = dict(lr=lr, inner_iterations=solver_iterations)
+            if deterministic:
+                return outer_mod.make_deterministic_program(
+                    state, theta, t.lbs, t.ubs, t.xstarts, rule, horizon=h,
+                    num_nodes=ghq_nodes, max_iters=sgd_iters, node_scale=node_scale,
+                    select_best=True, **kw)
             if outer_solver == "scanned":
                 return outer_mod.make_scanned_sga_program(
-                    state, tp, rule, t.xstarts, steps_per_call=steps_per_call, **kw)
+                    state, tp, rule, t.xstarts, steps_per_call=steps_per_call,
+                    draw_mode=draw_mode, **kw)
             return outer_mod.make_fused_sga_program(state, tp, rule, t.xstarts,
-                                                    max_iters=sgd_iters, select_best=True, **kw)
+                                                    max_iters=sgd_iters, select_best=True,
+                                                    draw_mode=draw_mode, **kw)
 
         return _cached_program(program_key + (h,), build)
 
     def acquire(state, rnstream, restarts, h):
         if deterministic:
+            if program_key is not None:
+                x, value = program(state, None, h)(state, restarts)
+                return x, value, -1
             xs, vals = outer_mod.deterministic_solve_batch(
                 state, theta, t.lbs, t.ubs, t.xstarts, restarts, rule,
                 horizon=h, num_nodes=ghq_nodes, max_iters=sgd_iters, lr=lr,
-                inner_iterations=solver_iterations,
-                node_scale=_ghq_node_scale(log10_parity), mesh=mesh)
+                inner_iterations=solver_iterations, node_scale=node_scale, mesh=mesh)
             j = torch.argmax(vals)
             return xs[j], vals[j], -1
         tp = TrajectoryParams(x0=restarts, theta=theta, lbs=t.lbs, ubs=t.ubs,
                               rnstream=rnstream)
         kw = dict(max_iters=sgd_iters, lr=lr, inner_iterations=solver_iterations,
                   draw_mode=draw_mode, mesh=mesh)
-        if outer_solver == "batch":
-            xs, vals = outer_mod.stochastic_solve_batch(state, tp, rule, t.xstarts,
-                                                        restarts, **kw)
-            j = torch.argmax(vals)
-            return xs[j], vals[j], -1
         if program_key is None:
+            if outer_solver == "batch":
+                xs, vals = outer_mod.stochastic_solve_batch(state, tp, rule, t.xstarts,
+                                                            restarts, **kw)
+                j = torch.argmax(vals)
+                return xs[j], vals[j], -1
             res = outer_mod.stochastic_solve_fused(
                 state, tp, rule, t.xstarts, restarts, select_best=True,
                 steps_per_call=steps_per_call if outer_solver == "scanned" else 1, **kw)
@@ -481,7 +632,7 @@ def _rollout_acquirer(t: _Trial, rule, theta, *, deterministic, ghq_nodes, sgd_i
             return res.x[j], res.value[j], res.iterations
         res = outer_mod.stochastic_solve_fused(state, tp, rule, t.xstarts, restarts,
                                                select_best=True, program=prog)
-        return res.x, res.value, res.iterations
+        return res.x, res.value, -1 if outer_solver == "batch" else res.iterations
 
     return acquire
 
@@ -584,9 +735,10 @@ def run_adaptive_bo(
     `rollout_solver_saa`). The buffers hold len(x_init) + budget
     observations (n_init + budget without x_init), as in the JAX package.
 
-    The stochastic solve runs `outer.make_fused_sga_program(select_best=True)`,
-    one program per horizon from `_cached_program` (keyed as the JAX
-    package keys it).
+    The acquisition runs `outer.make_fused_sga_program(select_best=True)`
+    (or `make_deterministic_program`), one program per horizon from
+    `_cached_program` (keyed as the JAX package keys it), and so do the
+    exploration fallback and the observe step.
 
     The result carries `times` (acquisition wall seconds, synchronized),
     `allocations` (peak device bytes per acquisition above the level
@@ -600,17 +752,18 @@ def run_adaptive_bo(
                kernel=kernel, noise=noise, kernel_lbs=kernel_lbs, kernel_ubs=kernel_ubs,
                mle_every=mle_every, dtype=dtype, device=device, x_init=x_init,
                checkpoint_path=None, checkpoint_every=1)
-    program_key = ("ad_acquire", rule, tuple(map(float, theta)), mc_iters, num_starts,
-                   num_restarts, sgd_iters, lr, solver_iterations, draw_mode, log10_parity,
-                   t.shape_key)
+    theta_key = tuple(map(float, theta))
+    program_key = ("ad_acquire", rule, theta_key, mc_iters, num_starts, num_restarts,
+                   sgd_iters, lr, solver_iterations, draw_mode, deterministic, ghq_nodes,
+                   log10_parity, t.shape_key)
     theta = t.as_t(theta)
     make_rnstream = _rnstream_maker(t, mc_iters, use_low_discrepancy, log10_parity)
     acquire = _rollout_acquirer(t, rule, theta, deterministic=deterministic,
                                 ghq_nodes=ghq_nodes, sgd_iters=sgd_iters, lr=lr,
                                 solver_iterations=solver_iterations, draw_mode=draw_mode,
                                 log10_parity=log10_parity, program_key=program_key)
-    fallback = _make_exploration_fallback(rule, theta, t.lbs, t.ubs, t.xstarts,
-                                          solver_iterations)
+    fallback = _fallback_program(t, rule, theta_key, theta, num_starts, solver_iterations)
+    observe = _observe_program(t)
     sga_iterations = np.zeros(budget, dtype=int)
     fallbacks = np.zeros(budget, dtype=bool)
     allocations = np.zeros(budget)
@@ -625,6 +778,6 @@ def run_adaptive_bo(
         _synchronize(t.device)
         t.times[b] = time.perf_counter() - t0
         allocations[b] = _peak_bytes_since(t.device, mark)
-        t.observe(b, xnext, mle=True)
+        t.observe(b, observe, xnext)
     return t.result(sga_iterations=sga_iterations, fallbacks=fallbacks,
                     allocations=allocations)

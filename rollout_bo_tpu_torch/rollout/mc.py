@@ -37,6 +37,7 @@ __all__ = [
     "simulate_trajectory_mc",
     "simulate_trajectory_ghq",
     "simulate_trajectory_deterministic",
+    "ghq_tables",
 ]
 
 
@@ -142,11 +143,23 @@ def simulate_trajectory_mc(state: sg.SurrogateState, tp: TrajectoryParams,
                                     grad_theta=gthm, std_grad_theta=sgth)
 
 
+def ghq_tables(num_nodes: int, horizon: int, node_scale: float = 1.0, *, dtype, device):
+    """(nodes, weights), each (num_nodes^(h+1), h+1): the Gauss-Hermite node
+    and weight of every tensor-product index tuple, node_scale applied to
+    the nodes, as tensors on `device` copied from the host."""
+    nodes_np, weights_np = quadrature.gauss_hermite(num_nodes)
+    idx = torch.as_tensor(quadrature.tensor_product_indices(num_nodes, horizon + 1),
+                          device=device)
+    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return as_t(nodes_np * node_scale)[idx], as_t(weights_np)[idx]
+
+
 def simulate_trajectory_ghq(state: sg.SurrogateState, x0, theta, lbs, ubs, xstarts,
                             rule: DecisionRule, *, horizon: int, num_nodes: int = 8,
                             with_gradients: bool = True, iterations: int = 12,
                             resolve_mode: str = "quadrature",
-                            node_scale: float = 1.0) -> ExpectedTrajectoryOutput:
+                            node_scale: float = 1.0,
+                            tables=None) -> ExpectedTrajectoryOutput:
     """Gauss-Hermite (SAA / deterministic) rollout estimate at every x0
     (..., d): reference simulate_trajectory_ghq (rollout.jl:409-467) with
     tensor-product index sets (utils.jl:217-221). The num_nodes^(h+1) index
@@ -163,16 +176,18 @@ def simulate_trajectory_ghq(state: sg.SurrogateState, x0, theta, lbs, ubs, xstar
     integrates against the understated fantasy-noise distribution that the
     reference's log10 Box-Muller quirk (utils.jl:33-35) draws from in its
     stochastic runs, for comparisons against those archives.
+
+    `tables`: `ghq_tables(num_nodes, horizon, node_scale, ...)` made by the
+    caller, which it must be inside a CUDA graph's capture (making them
+    copies from the host).
     """
     if resolve_mode not in ("quadrature", "reference"):
         raise ValueError(f"unknown resolve mode {resolve_mode!r}")
     dt, dev = state.X.dtype, state.X.device
     as_t = lambda a: torch.as_tensor(a, dtype=dt, device=dev)
-    nodes_np, weights_np = quadrature.gauss_hermite(num_nodes)
-    idx = torch.as_tensor(quadrature.tensor_product_indices(num_nodes, horizon + 1),
-                          device=dev)                      # (S, h+1)
-    nodes = as_t(nodes_np * node_scale)[idx]
-    weights = as_t(weights_np)[idx]                        # (S, h+1)
+    if tables is None:
+        tables = ghq_tables(num_nodes, horizon, node_scale, dtype=dt, device=dev)
+    nodes, weights = tables                                # (S, h+1) each
     x0, theta = as_t(x0), as_t(theta)
 
     weigh = None
@@ -184,7 +199,7 @@ def simulate_trajectory_ghq(state: sg.SurrogateState, x0, theta, lbs, ubs, xstar
 
     r, gx, gth = _lane_rewards(
         state, x0, theta, as_t(lbs), as_t(ubs), as_t(xstarts), rule,
-        obs.gauss_hermite_observable(nodes), horizon, idx.shape[0],
+        obs.gauss_hermite_observable(nodes), horizon, nodes.shape[0],
         with_gradients=with_gradients, iterations=iterations, weigh=weigh)
 
     if resolve_mode == "reference":

@@ -27,6 +27,10 @@ between replays, then a graph of the value-only pass (and the argmax);
 the JAX program does that loop on the device (`lax.while_loop`). The
 solvers take a prebuilt program as the JAX ones do (`program=`,
 `sga_step=`); without one they run the eager loop.
+`make_deterministic_program` is the Gauss-Hermite solve that the JAX BO
+loops jit, as a callable of (state, restarts): a graph of one Adam step
+replayed until no restart is active (read on the host between replays),
+then a graph of the value pass.
 
 With a `mesh` (`parallel.mesh`), a solve splits its restarts over the
 ranks of the 'restarts' axis and, for `stochastic_solve_fused`, the
@@ -66,6 +70,7 @@ __all__ = [
     "stochastic_solve_stepped",
     "deterministic_solve",
     "deterministic_solve_batch",
+    "make_deterministic_program",
 ]
 
 
@@ -485,36 +490,54 @@ def stochastic_solve(state: sg.SurrogateState, tp: TrajectoryParams, rule: Decis
     return xs[0], simulate(xs[0], True)
 
 
-def _deterministic_ascent(simulate, xs, lbs, ubs, *, max_iters, lr, grad_tol):
-    """Adam ascent of the quadrature objective from every row of xs (R, d),
-    all restarts simulated together. A restart whose gradient norm falls
-    below grad_tol keeps the point it had and takes no further part (the
-    JAX package's per-restart `while_loop` under `vmap`)."""
-    opt = adam_init(xs)
-    active = torch.ones(xs.shape[:-1], dtype=torch.bool, device=xs.device)
+def _ghq_carry(xs):
+    """The ascent's carry (xs, AdamState, active) at the restarts xs (R, d)."""
+    return xs, adam_init(xs), torch.ones(xs.shape[:-1], dtype=torch.bool, device=xs.device)
+
+
+def _ghq_step(simulate, carry, lbs, ubs, *, lr, grad_tol):
+    """One Adam iteration of the quadrature objective over the carry (xs,
+    opt, active): a restart whose gradient norm falls below grad_tol keeps
+    the point it had and takes no further part (the JAX package's
+    per-restart `while_loop` under `vmap`)."""
+    xs, opt, active = carry
+    eto = simulate(xs, True)
+    stop = torch.linalg.vector_norm(eto.grad_x, dim=-1) < grad_tol
+    opt, xs_new = adam_update(opt, xs, eto.grad_x, lr=lr)
+    xs_new = torch.clamp(xs_new, lbs, ubs)
+    xs = torch.where((active & ~stop)[..., None], xs_new, xs)
+    return xs, opt, active & ~stop
+
+
+def _deterministic_ascent(step, xs, *, max_iters):
+    """carry = step(carry) from the carry at xs (R, d), all restarts together
+    (`_ghq_step` eagerly, or a replay of its graph), until none is active
+    (read on the host after each step) or after `max_iters`. Returns the
+    final points."""
+    carry = _ghq_carry(xs)
     for _ in range(max_iters):
-        eto = simulate(xs, True)
-        stop = torch.linalg.vector_norm(eto.grad_x, dim=-1) < grad_tol
-        opt, xs_new = adam_update(opt, xs, eto.grad_x, lr=lr)
-        xs_new = torch.clamp(xs_new, lbs, ubs)
-        xs = torch.where((active & ~stop)[..., None], xs_new, xs)
-        active = active & ~stop
-        if not bool(active.any()):
+        carry = step(carry)
+        if not bool(carry[2].any()):
             break
-    return xs
+    return carry[0]
 
 
 def _ghq_simulator(state, theta, lbs, ubs, xstarts, rule, *, horizon, num_nodes,
                    inner_iterations, node_scale):
+    """(simulate(x, with_gradients), as_t, lbs, ubs) of the quadrature
+    estimate on `state`, or on `st=` (a program's argument). The problem's
+    tensors and the quadrature tables are made here, once, outside any
+    capture."""
     dt, dev = state.X.dtype, state.X.device
     as_t = lambda a: torch.as_tensor(a, dtype=dt, device=dev)
     theta, lbs, ubs, xstarts = as_t(theta), as_t(lbs), as_t(ubs), as_t(xstarts)
+    tables = mc_mod.ghq_tables(num_nodes, horizon, node_scale, dtype=dt, device=dev)
 
-    def simulate(x, with_gradients):
+    def simulate(x, with_gradients, st=state):
         return mc_mod.simulate_trajectory_ghq(
-            state, x, theta, lbs, ubs, xstarts, rule, horizon=horizon,
+            st, x, theta, lbs, ubs, xstarts, rule, horizon=horizon,
             num_nodes=num_nodes, with_gradients=with_gradients,
-            iterations=inner_iterations, node_scale=node_scale)
+            iterations=inner_iterations, node_scale=node_scale, tables=tables)
 
     return simulate, as_t, lbs, ubs
 
@@ -530,8 +553,8 @@ def deterministic_solve(state: sg.SurrogateState, x0, theta, lbs, ubs, xstarts,
     simulate, as_t, lbs, ubs = _ghq_simulator(
         state, theta, lbs, ubs, xstarts, rule, horizon=horizon, num_nodes=num_nodes,
         inner_iterations=inner_iterations, node_scale=node_scale)
-    x = _deterministic_ascent(simulate, as_t(x0)[None], lbs, ubs, max_iters=max_iters,
-                              lr=lr, grad_tol=grad_tol)[0]
+    step = lambda c: _ghq_step(simulate, c, lbs, ubs, lr=lr, grad_tol=grad_tol)  # noqa: E731
+    x = _deterministic_ascent(step, as_t(x0)[None], max_iters=max_iters)[0]
     return x, simulate(x, True)
 
 
@@ -552,9 +575,51 @@ def deterministic_solve_batch(state: sg.SurrogateState, theta, lbs, ubs, xstarts
     starts = as_t(starts)
     if mesh is not None:
         starts = mesh_mod.shard_leading(starts, mesh, "restarts")
-    xs = _deterministic_ascent(simulate, starts, lbs, ubs, max_iters=max_iters,
-                               lr=lr, grad_tol=grad_tol)
+    step = lambda c: _ghq_step(simulate, c, lbs, ubs, lr=lr, grad_tol=grad_tol)  # noqa: E731
+    xs = _deterministic_ascent(step, starts, max_iters=max_iters)
     vals = simulate(xs, False).mu
     if mesh is not None:
         xs, vals = _gather_restarts(xs, vals, mesh)
     return xs, vals
+
+
+class _DeterministicProgram:
+    """The Gauss-Hermite solve from every restart (`make_deterministic_program`):
+    the step program through `_deterministic_ascent` (as `_FusedSGAProgram`
+    runs its step through `_sga`), then the final program."""
+
+    def __init__(self, step, final, max_iters: int):
+        self.step, self.final, self.max_iters = step, final, max_iters
+        self.graphs = (step, final)
+
+    def __call__(self, st, starts):
+        xs = _deterministic_ascent(lambda c: self.step(st, c), starts, max_iters=self.max_iters)
+        return self.final(st, xs)
+
+
+def make_deterministic_program(state: sg.SurrogateState, theta, lbs, ubs, xstarts,
+                               rule: DecisionRule, *, horizon: int, num_nodes: int = 8,
+                               max_iters: int = 50, lr: float = 0.01, grad_tol: float = 1e-4,
+                               inner_iterations: int = 12, node_scale: float = 1.0,
+                               select_best: bool = False):
+    """`program(st, starts)` -> (xs (R, d), vals (R,)): `deterministic_solve_batch`
+    from the restarts starts (R, d) on the state st, as a program (the JAX
+    package jits that solve with its argmax). With `select_best` the argmax
+    restart (the first of tied ones) is returned instead: (x_best (d,),
+    v_best ()). On the card one Adam step and the final value pass are CUDA
+    graphs; the quadrature tables are made here, outside their captures."""
+    simulate, _, lbs, ubs = _ghq_simulator(
+        state, theta, lbs, ubs, xstarts, rule, horizon=horizon, num_nodes=num_nodes,
+        inner_iterations=inner_iterations, node_scale=node_scale)
+    dev = state.X.device
+
+    def step(st, carry):
+        return _ghq_step(lambda x, g: simulate(x, g, st=st), carry, lbs, ubs, lr=lr,
+                         grad_tol=grad_tol)
+
+    def final(st, xs):
+        vals = simulate(xs, False, st=st).mu
+        return _best(xs, vals) if select_best else (xs, vals)
+
+    return _DeterministicProgram(GraphProgram(step, device=dev), GraphProgram(final, device=dev),
+                                 max_iters)

@@ -36,7 +36,7 @@ from rollout_bo_tpu_torch.models.decision_rules import DecisionRule
 from rollout_bo_tpu_torch.ops import newton_lanes, small_chol
 
 __all__ = ["supported", "newton_solve_batch", "maximize_hot", "multistart_maximize",
-           "SolveResult"]
+           "random_point", "SolveResult"]
 
 _BACKTRACK_STEPS = 9  # trial step sizes 1, 1/2, ..., 1/2^8 along each direction
 
@@ -225,6 +225,12 @@ def maximize_hot(state: sg.SurrogateState, rule: DecisionRule, theta, lbs, ubs,
     return xs.reshape(lead + (d,)), vs.reshape(lead)
 
 
+def random_point(lbs, ubs, u):
+    """The Random rule's point in the box [lbs, ubs] for the uniform draw
+    `u` (d,) in [0, 1)."""
+    return lbs + (ubs - lbs) * u
+
+
 def multistart_maximize(state: sg.SurrogateState, rule: DecisionRule, theta, lbs,
                         ubs, xstarts, *, iterations: int = 12,
                         generator: torch.Generator | None = None) -> SolveResult:
@@ -250,7 +256,7 @@ def multistart_maximize(state: sg.SurrogateState, rule: DecisionRule, theta, lbs
         if generator is None:
             raise ValueError("Random acquisition requires a torch.Generator")
         u = torch.rand(state.dim, generator=generator, dtype=dt).to(dev)
-        x, v = lbs + (ubs - lbs) * u, torch.zeros((), dtype=dt, device=dev)
+        x, v = random_point(lbs, ubs, u), torch.zeros((), dtype=dt, device=dev)
         return SolveResult(x, v, lambda: (x[None], v[None]))
     if state.X.dim() != 2:
         raise ValueError("multistart_maximize takes one surrogate; maximize_hot "
@@ -260,8 +266,11 @@ def multistart_maximize(state: sg.SurrogateState, rule: DecisionRule, theta, lbs
         with torch.no_grad():
             xs, vs = newton_solve_batch(state, rule, theta, lbs, ubs, xstarts,
                                         iterations=iterations)
-        j = torch.argmax(vs)                                   # first start wins a tie
-        return SolveResult(xs[j], vs[j], lambda: (xs, vs))
+        # first start wins a tie; selected on the device (indexing with the
+        # index tensor reads it on the host, which a capture refuses)
+        j = torch.argmax(vs).reshape(1)
+        return SolveResult(xs.index_select(0, j)[0], vs.index_select(0, j)[0],
+                           lambda: (xs, vs))
     x, v = maximize_hot(state, rule, theta, lbs, ubs, xstarts, iterations=iterations)
 
     def per_start():

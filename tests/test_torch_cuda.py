@@ -1,7 +1,10 @@
 """PyTorch port on the card: the CUDA Newton lane kernel vs its plain version,
 the sharded path (ranks of torch.distributed that each launch the kernel
-on their share of the lanes) vs the same solve with no mesh, and the SGA
-programs (CUDA graphs, `utils.graphs`) vs the eager route.
+on their share of the lanes) vs the same solve with no mesh, and the
+programs (CUDA graphs, `utils.graphs`: the SGA programs, and the BO
+loops' observe step, myopic chunk, fallback and batch and Gauss-Hermite
+acquisitions) vs the eager route; every test function and the MLE inside a
+capture.
 
 Every test here is marked `cuda` and skips without a CUDA device (the
 kernel has no CPU mode). This file imports no jax, so it also runs on a
@@ -28,6 +31,7 @@ import torch
 
 from rollout_bo_tpu_torch.models import decision_rules as dr
 from rollout_bo_tpu_torch.models import surrogate as sg
+from rollout_bo_tpu_torch.models import testfns
 from rollout_bo_tpu_torch.ops import kernels as K
 from rollout_bo_tpu_torch.ops import newton_lanes as nl
 from rollout_bo_tpu_torch.ops import qmc
@@ -237,14 +241,19 @@ def test_random_rule_draws_the_same_stream_on_the_card(dev):
 
 
 def test_myopic_bo_on_the_card_matches_cpu_route(dev):
+    """Through its chunk program (a CUDA graph of one BO iteration): one
+    lane-kernel launch per BO iteration besides the warm-up runs of the
+    capture, and the CPU route's points."""
     from rollout_bo_tpu_torch.models import testfns
     from rollout_bo_tpu_torch.rollout import bo
+    from rollout_bo_tpu_torch.utils import graphs
 
     f = testfns.get_function("hartmann3d")
     x_init = np.random.default_rng(3).uniform(f.lbs, f.ubs, (5, 3))
-    before = nl.LAUNCHES
+    before, warm = nl.LAUNCHES, graphs.WARMUP_LAUNCHES
     gpu = bo.run_myopic_bo(f, dr.EI(), budget=4, num_starts=8, x_init=x_init, device=dev)
-    assert nl.LAUNCHES == before + 4 and gpu.state.X.device.type == "cuda"
+    launches = nl.LAUNCHES - before - (graphs.WARMUP_LAUNCHES - warm)
+    assert launches == 4 and gpu.state.X.device.type == "cuda"
     cpu = bo.run_myopic_bo(f, dr.EI(), budget=4, num_starts=8, x_init=x_init, device="cpu")
     np.testing.assert_allclose(gpu.X, cpu.X, rtol=0.0, atol=1e-6)
     np.testing.assert_allclose(float(gpu.state.kernel.theta[0]),
@@ -555,7 +564,8 @@ def test_graph_program_raises_on_a_host_sync_and_never_runs_eagerly(dev):
 
 def test_bo_loop_takes_one_cached_program_on_the_card(dev, monkeypatch):
     """A small non-myopic trial on the card through the program cache: one
-    program for the trial, captured once, reused by a second trial; the
+    acquisition program for the trial, captured once, reused by a second
+    trial (and one observe program, the MLE's graph captured once); the
     points equal the eager loop's bit for bit."""
     from rollout_bo_tpu_torch.models import testfns
     from rollout_bo_tpu_torch.rollout import bo
@@ -566,13 +576,209 @@ def test_bo_loop_takes_one_cached_program_on_the_card(dev, monkeypatch):
               lr=0.05, solver_iterations=8, device=dev,
               x_init=np.random.default_rng(3).uniform(f.lbs, f.ubs, (5, f.dim)))
     res = bo.run_nonmyopic_bo(f, **kw)
-    (program,) = bo._PROGRAM_CACHE.values()
+    programs = {key[0]: p for key, p in bo._PROGRAM_CACHE.items()}
+    assert set(programs) == {"nm_acquire", "nm_observe", "nm_fallback"}
+    program = programs["nm_acquire"]
     assert [g.captures for g in program.graphs] == [1, 1]
     again = bo.run_nonmyopic_bo(f, **kw)
     assert [g.captures for g in program.graphs] == [1, 1]
+    assert programs["nm_observe"].captures == 1
     acquirer = bo._rollout_acquirer
     monkeypatch.setattr(bo, "_rollout_acquirer",      # the eager loop: no program key
                         lambda *a, **k: acquirer(*a, **dict(k, program_key=None)))
     eager = bo.run_nonmyopic_bo(f, **kw)
     np.testing.assert_array_equal(res.X, eager.X)
     np.testing.assert_array_equal(again.X, eager.X)
+
+
+# --------------------------------------------------------------------------
+# the BO loops' other programs: observe, myopic chunk, fallback, batch and
+# Gauss-Hermite acquisitions; the test functions and the MLE in a capture
+# --------------------------------------------------------------------------
+
+
+def _bo_state(dev, dtype=torch.float64, n=12, cap=16, noise=1e-6, name="hartmann6d"):
+    f = testfns.get_function(name)
+    X = np.random.default_rng(2).uniform(f.lbs, f.ubs, (n, f.dim))
+    st = sg.fit(K.matern52(device=dev, dtype=dtype), X, f.batch(torch.tensor(X)).numpy(),
+                capacity=cap, noise=noise, device=dev, dtype=dtype)
+    return f, st
+
+
+def _nan_equal(a, b):
+    """Equal bit for bit, NaN where the other is NaN."""
+    return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
+        torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0))
+
+
+@pytest.mark.parametrize("name", sorted(testfns.FUNCTION_REGISTRY))
+def test_every_test_function_evaluates_inside_a_capture(dev, name):
+    """After one eager call, the function captures in a CUDA graph with
+    host synchronization an error, and the replay equals the eager value."""
+    f = testfns.get_function(name)
+    x = torch.tensor(np.random.default_rng(1).uniform(f.lbs, f.ubs, (4, f.dim)),
+                     dtype=torch.float64, device=dev)
+    want = f.f(x)
+    static = x.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = f.f(static)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("pd", [True, False])
+def test_optimize_hypers_captures_and_keeps_the_nan_contract(dev, pd):
+    """The MLE (60 Adam steps of autograd through `cholesky_ex`) as a
+    program: it captures with host synchronization an error, and its
+    replays equal the eager refit bit for bit. With a negative noise K is
+    positive definite at no theta: every step's gradient is zeroed, theta
+    stays where it was and the returned factors are NaN, in the graph as
+    eagerly."""
+    from rollout_bo_tpu_torch.utils import graphs
+
+    t = lambda a: torch.tensor(a, dtype=torch.float64, device=dev)  # noqa: E731
+    _, st = _bo_state(dev)
+    if not pd:
+        st = st._replace(noise=t(-5.0))
+    klbs, kubs = t((0.1,)), t((5.0,))
+    prog = graphs.GraphProgram(lambda s: sg.optimize_hypers(s, klbs, kubs), device=dev)
+    for theta in (0.7, 1.3):
+        s = st._replace(kernel=st.kernel.replace_theta(t((theta,))))
+        got = prog(s)
+        want = sg.optimize_hypers(s, klbs, kubs)
+        torch.cuda.synchronize()
+        for name in ("L", "Li", "c"):
+            assert _nan_equal(getattr(got, name), getattr(want, name)), name
+        assert torch.equal(got.kernel.theta, want.kernel.theta)
+        if pd:
+            assert torch.isfinite(got.L).all() and float(got.kernel.theta[0]) != theta
+        else:
+            assert torch.isnan(got.L).all() and float(got.kernel.theta[0]) == theta
+    assert prog.captures == 1
+
+
+@pytest.mark.parametrize("do_mle", [True, False])
+def test_observe_program_replays_equal_the_eager_route(dev, do_mle):
+    """The observe program (true function, condition, MLE when due) on two
+    new points: each replay equals the function run eagerly, bit for bit;
+    one capture for the MLE constant."""
+    from rollout_bo_tpu_torch.rollout import bo
+    from rollout_bo_tpu_torch.utils import graphs
+
+    f, st = _bo_state(dev)
+    t = lambda a: torch.tensor(a, dtype=torch.float64, device=dev)  # noqa: E731
+    fn = bo._observer(f, t((0.1,)), t((5.0,)))
+    prog = graphs.GraphProgram(fn, device=dev)
+    for seed in (0, 1):
+        x = t(np.random.default_rng(seed).uniform(f.lbs, f.ubs))
+        got, want = prog(st, x, do_mle), fn(st, x, do_mle)
+        torch.cuda.synchronize()
+        assert _same(_tensors((got[0][1:], got[0].kernel.theta, got[1])),
+                     _tensors((want[0][1:], want[0].kernel.theta, want[1])))
+    assert prog.captures == 1
+
+
+@pytest.mark.parametrize("rule_name", ["EI", "Random"])
+def test_myopic_chunk_replays_equal_the_eager_route(dev, monkeypatch, rule_name):
+    """A myopic trial (hartmann3d, budget 4) in chunks of 1 and of the whole
+    budget: the points and fitted lengthscale of the eager route (every
+    program's function called eagerly), bit for bit; the lane kernel
+    launched k times per chunk of k for EI (none for Random), besides the
+    warm-up runs of the capture; one program for both chunk lengths."""
+    from rollout_bo_tpu_torch.rollout import bo
+    from rollout_bo_tpu_torch.utils import graphs
+
+    monkeypatch.setattr(bo, "_PROGRAM_CACHE", type(bo._PROGRAM_CACHE)())
+    f = testfns.get_function("hartmann3d")
+    kw = dict(budget=4, num_starts=8, device=dev,
+              x_init=np.random.default_rng(3).uniform(f.lbs, f.ubs, (5, f.dim)))
+    rule = dr.RULES[rule_name]()
+    with monkeypatch.context() as m:
+        m.setattr(graphs.GraphProgram, "__call__", lambda self, *a: self.fn(*a))
+        eager = bo.run_myopic_bo(f, rule, **kw)
+    for k in (1, 4):
+        before, warm = nl.LAUNCHES, graphs.WARMUP_LAUNCHES
+        res = bo.run_myopic_bo(f, rule, steps_per_call=k, **kw)
+        torch.cuda.synchronize()
+        launches = nl.LAUNCHES - before - (graphs.WARMUP_LAUNCHES - warm)
+        assert launches == (0 if rule_name == "Random" else 4), k
+        np.testing.assert_array_equal(res.X, eager.X)
+        assert torch.equal(res.state.kernel.theta, eager.state.kernel.theta)
+    (chunk,) = [p for key, p in bo._PROGRAM_CACHE.items() if key[0] == "myopic_chunk"]
+    # one graph per MLE constant: EI refits every iteration, Random never
+    assert chunk.captures == 1
+
+
+def test_fallback_program_replays_equal_the_eager_route(dev):
+    """The exploration fallback as a program (the lane kernel's LogEI solve
+    and the max-sigma explorer, selected on the device): equal to the
+    function run eagerly on two states, one capture."""
+    from rollout_bo_tpu_torch.ops import qmc as q
+    from rollout_bo_tpu_torch.rollout import bo
+    from rollout_bo_tpu_torch.utils import graphs
+
+    f, st = _bo_state(dev)
+    t = lambda a: torch.tensor(np.array(a), dtype=torch.float64, device=dev)  # noqa: E731
+    fn = bo._make_exploration_fallback(dr.EI(), t([0.0]), t(f.lbs), t(f.ubs),
+                                       t(q.generate_initial_guesses(16, f.lbs, f.ubs)), 12)
+    prog = graphs.GraphProgram(fn, device=dev)
+    for s in (st, sg.condition(st, t([0.5] * f.dim), t(-1.0))):
+        got, want = prog(s), fn(s)
+        torch.cuda.synchronize()
+        assert _same(got, want)
+    assert prog.captures == 1
+
+
+def test_deterministic_program_replays_equal_the_eager_route(dev):
+    """`make_deterministic_program(select_best=True)` against
+    `deterministic_solve_batch` and its argmax (trid2d, h 1, 4 nodes): the
+    same winner and value bit for bit, on two restart sets; one capture per
+    graph."""
+    from rollout_bo_tpu_torch.rollout import outer
+
+    st, tp, xstarts, restarts = _program_problem(dev, torch.float64)
+    kw = dict(horizon=1, num_nodes=4, max_iters=4, lr=0.05, inner_iterations=6)
+    prog = outer.make_deterministic_program(st, tp.theta, tp.lbs, tp.ubs, xstarts, dr.EI(),
+                                            select_best=True, **kw)
+    for starts in (restarts, restarts.flip(0).contiguous()):
+        x, v = prog(st, starts)
+        xs, vals = outer.deterministic_solve_batch(st, tp.theta, tp.lbs, tp.ubs, xstarts,
+                                                   starts, dr.EI(), **kw)
+        torch.cuda.synchronize()
+        j = int(torch.argmax(vals))
+        assert torch.equal(x, xs[j]) and torch.equal(v, vals[j])
+    assert [g.captures for g in prog.graphs] == [1, 1]
+
+
+@pytest.mark.parametrize("solver", ["batch", "ghq"])
+def test_nonmyopic_batch_and_ghq_trials_equal_the_eager_loop(dev, monkeypatch, solver):
+    """A small non-myopic trial with the batch or the Gauss-Hermite solver
+    through the program cache (acquisition, observe and fallback programs)
+    against the same trial in the eager loop with every program run
+    eagerly: the points bit for bit."""
+    from rollout_bo_tpu_torch.rollout import bo
+    from rollout_bo_tpu_torch.utils import graphs
+
+    monkeypatch.setattr(bo, "_PROGRAM_CACHE", type(bo._PROGRAM_CACHE)())
+    f = testfns.get_function("hartmann3d")
+    kw = dict(horizon=1, mc_iters=8, budget=2, num_starts=8, num_restarts=2, sgd_iters=3,
+              lr=0.05, solver_iterations=8, device=dev, ghq_nodes=3,
+              deterministic=solver == "ghq", outer_solver="batch",
+              x_init=np.random.default_rng(3).uniform(f.lbs, f.ubs, (5, f.dim)))
+    res = bo.run_nonmyopic_bo(f, **kw)
+    acquirer = bo._rollout_acquirer
+    with monkeypatch.context() as m:
+        m.setattr(graphs.GraphProgram, "__call__", lambda self, *a: self.fn(*a))
+        m.setattr(bo, "_rollout_acquirer",
+                  lambda *a, **k: acquirer(*a, **dict(k, program_key=None)))
+        eager = bo.run_nonmyopic_bo(f, **kw)
+    np.testing.assert_array_equal(res.X, eager.X)
+    assert torch.equal(res.state.kernel.theta, eager.state.kernel.theta)
+    (observe,) = [p for key, p in bo._PROGRAM_CACHE.items() if key[0] == "nm_observe"]
+    assert observe.captures == 1

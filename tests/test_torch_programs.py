@@ -251,7 +251,8 @@ def test_cached_program_is_an_lru_of_64(monkeypatch):
 def test_bo_trial_through_cached_programs_equals_the_eager_loop(monkeypatch, loop,
                                                                outer_solver):
     """A trial (h 1, budget 2) with its acquisitions from the program
-    cache equals the trial in the eager loop; a second trial reuses the
+    cache equals the trial in the eager loop; its observe step and
+    fallback come from the cache as well; a second trial reuses the
     programs (no new cache entry, no new build)."""
     monkeypatch.setattr(bo, "_PROGRAM_CACHE", type(bo._PROGRAM_CACHE)())
     f = tf.get_function("sixhump")
@@ -265,11 +266,14 @@ def test_bo_trial_through_cached_programs_equals_the_eager_loop(monkeypatch, loo
         run = lambda **k: bo.run_adaptive_bo(f, **kw, **k)  # noqa: E731
     res = run()
     programs = dict(bo._PROGRAM_CACHE)
+    acquire = "nm_acquire" if loop == "nonmyopic" else "ad_acquire"
+    acquisitions = {k: p for k, p in programs.items() if k[0] == acquire}
     # one program per horizon: the adaptive schedule alternates h 0 and 1
-    assert [k[-1] for k in programs] == ([1] if loop == "nonmyopic" else [0, 1])
-    assert {k[0] for k in programs} == {"nm_acquire" if loop == "nonmyopic" else "ad_acquire"}
+    assert [k[-1] for k in acquisitions] == ([1] if loop == "nonmyopic" else [0, 1])
+    # the observe step and the exploration fallback come from the cache too
+    assert {k[0] for k in programs} == {acquire, "nm_observe", "nm_fallback"}
     assert all(isinstance(p, outer._ScannedSGAProgram if outer_solver == "scanned"
-                          else outer._FusedSGAProgram) for p in programs.values())
+                          else outer._FusedSGAProgram) for p in acquisitions.values())
     with monkeypatch.context() as m:
         eager_acquisitions(m)
         eager = run()
