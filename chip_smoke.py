@@ -118,13 +118,29 @@ Run from the repository root on a machine with one NVIDIA Hopper card
    with `spawn`, each launching the kernel on its share of the lanes:
    `sharded_stochastic_solve_fused(select_best=True)` at the bench.py
    configuration on two gloo ranks sharing cuda:0 at meshes (2, 1) and
-   (1, 2), then on an NCCL group of one rank per card at (ranks, 1). Per
-   rank: the same finite winner inside the box and kernel launches = 3 x
-   (SGA iterations + 1), counted from 0 just before the timed solve;
-   prints each rank's lanes per launch and seconds per acquisition (on
-   the NCCL ranks beside the same solve with no mesh in the same process,
-   medians of 3 in turns). Two
-   ranks sharing one card give no scaling figure. Then a small float64
+   (1, 2), eagerly (no graph holds a gloo collective). Per rank: the same
+   finite winner inside the box and kernel launches = 3 x (SGA iterations
+   + 1), counted from 0 just before the timed solve; prints each rank's
+   lanes per launch and seconds per acquisition. On four or eight cards
+   the same solve through its program on that many NCCL ranks at mesh
+   (ranks, 1). Then the sharded programs
+   on an NCCL group of one rank per card (one rank at mesh (1, 1) on one
+   card, where the graphs hold the world all-reduces only; two at (2, 1)
+   and (1, 2) where there are two cards): at the bench width the fused
+   program (`program=`), the scanned one (windows of 10) and the batch
+   one, each against the eager mesh route in the same process bit for
+   bit with the same SGA iterations, launches 3 x (SGA iterations + 1)
+   per rank (scanned: 3 x 11 per window) with the warm-up runs off, their
+   captures, capture seconds and pool bytes, and the seconds per
+   acquisition beside the single-device program's; `sharded_simulate_mc`
+   at 4096 trajectories (h 3), the replay equal to the eager call, its
+   trajectories/s beside the single-device graph's; the non-myopic loop
+   at the CLI's widths on the mesh (budget 3) through `_cached_program`
+   and in the eager loop, the same points and fallbacks bit for bit,
+   every acquisition from the cache, the seconds per BO iteration of
+   each; with two ranks also the worker problem against the blocked
+   unsharded solve. Two ranks sharing one card give no scaling figure.
+   Then a small float64
    non-myopic trial on a 2-rank mesh, card == CPU route to 1e-6 of the
    box; the float64 worker problem's fused solve on the two gloo ranks at
    (2, 1) and (1, 2) against one rank with no mesh, to 1e-12 when its
@@ -769,17 +785,17 @@ def _asked_programs():
 
 def _taken(asked, name):
     """The cached programs under the keys in `asked` named `name`, once each."""
-    from rollout_bo_tpu_torch.rollout import bo
+    from rollout_bo_tpu_torch.utils import graphs
 
-    return [bo._PROGRAM_CACHE[k] for k in dict.fromkeys(asked) if k[0] == name]
+    return [graphs.PROGRAM_CACHE[k] for k in dict.fromkeys(asked) if k[0] == name]
 
 
 def _cached_captures():
     """{key: captures} of every program in the BO loops' program cache."""
-    from rollout_bo_tpu_torch.rollout import bo
+    from rollout_bo_tpu_torch.utils import graphs
 
     return {k: sum(g.captures for g in getattr(p, "graphs", (p,)))
-            for k, p in bo._PROGRAM_CACHE.items()}
+            for k, p in graphs.PROGRAM_CACHE.items()}
 
 
 def _tree_equal(a, b):
@@ -1206,7 +1222,6 @@ def phase_cost_aware_cli(dev, card, budget=1):
     from rollout_bo_tpu_torch.experiments import cost_aware
     from rollout_bo_tpu_torch.ops import newton_lanes as nl
 
-    from rollout_bo_tpu_torch.rollout import bo
     from rollout_bo_tpu_torch.utils import graphs
 
     modes = ("uniform", "nonuniform", "gp")
@@ -1216,7 +1231,7 @@ def phase_cost_aware_cli(dev, card, budget=1):
     # newton_solve_batch's share of it, which a replay hides, come from
     # eager simulate calls at the same width (`_simulate_cost_against_kernel`)
     with tempfile.TemporaryDirectory() as out, _recording() as rec:
-        cached, captures, before = set(bo._PROGRAM_CACHE), graphs.CAPTURES, _cached_captures()
+        cached, captures, before = set(graphs.PROGRAM_CACHE), graphs.CAPTURES, _cached_captures()
         nl.LAUNCHES = 0
         for mode in modes:
             cost_aware.main(["--function-name", "braninhoo", "--trials", "1", "--budget",
@@ -1233,7 +1248,7 @@ def phase_cost_aware_cli(dev, card, budget=1):
             if not np.all((costs[mode] >= 1.0) & (costs[mode] <= 1.0 + amp)):
                 raise AssertionError(f"cost-aware {mode}: costs {costs[mode]} outside "
                                      f"[1, {1 + amp}]")
-    new = {k: p for k, p in bo._PROGRAM_CACHE.items() if k not in cached}
+    new = {k: p for k, p in graphs.PROGRAM_CACHE.items() if k not in cached}
     acquisitions = [p for k, p in new.items() if k[0] == "nm_acquire"]
     observes = [p for k, p in new.items() if k[0] == "nm_observe"]
     counted = sum(n - before.get(k, 0) for k, n in _cached_captures().items())
@@ -1411,21 +1426,19 @@ def _start_ranks(fn, world, backend, tmp, **kw):
 
 def _rank_sharded(rank, world, init_method, backend, prefix, kw):
     """One rank: the bench configuration's sharded fused solve at each mesh
-    shape (launches counted from 0 just before the timed solve); with
-    kw["plain"] also the same solve with no mesh in this process, timed in
-    turns with the sharded one (3 each: the medians); with kw["small"] a
-    small float64 trial of the non-myopic loop on the mesh, on the card and
-    on the CPU route, and the float64 worker problem's sharded solves
-    (`_worker_problems`)."""
-    import torch.distributed as dist
-
-    from bench_torch import acquire, bench_problem
+    shape (launches counted from 0 just before the timed solve), through a
+    program built for the mesh on NCCL and on the eager mesh route on gloo
+    (by rule: no graph holds a gloo collective); with
+    kw["small"] a small float64 trial of the non-myopic loop on the mesh,
+    on the card and on the CPU route, and the float64 worker problem's
+    sharded solves (`_worker_problems`)."""
+    from bench_torch import bench_problem
     from rollout_bo_tpu_torch.models import decision_rules as dr
     from rollout_bo_tpu_torch.models import testfns
     from rollout_bo_tpu_torch.ops import newton_lanes as nl
     from rollout_bo_tpu_torch.parallel import mesh as mesh_mod
     from rollout_bo_tpu_torch.parallel import sharded
-    from rollout_bo_tpu_torch.rollout import bo
+    from rollout_bo_tpu_torch.rollout import bo, outer
 
     torch.set_num_threads(1)
     mesh_mod.initialize_distributed(init_method, world, rank, backend=backend)
@@ -1433,11 +1446,14 @@ def _rank_sharded(rank, world, init_method, backend, prefix, kw):
         dev = mesh_mod.rank_device("cuda")
         report = dict(rank=rank, device=str(dev), solves=[])
         state, tp, xstarts, restarts = bench_problem(dev, torch.float32)
+        solver = dict(max_iters=50, lr=0.01, inner_iterations=10, select_best=True)
         for r, m in kw["shapes"]:
             mesh = mesh_mod.make_mesh(restarts=r, mc=m)
+            program = (outer.make_fused_sga_program(state, tp, dr.EI(), xstarts, mesh=mesh,
+                                                    **solver)
+                       if mesh_mod.programs_run_on(mesh, dev) else None)
             solve = lambda: sharded.sharded_stochastic_solve_fused(
-                state, tp, dr.EI(), xstarts, restarts, mesh, max_iters=50, lr=0.01,
-                inner_iterations=10, select_best=True)
+                state, tp, dr.EI(), xstarts, restarts, mesh, program=program, **solver)
             solve()                                   # warm-up
             torch.cuda.synchronize()
             nl.LAUNCHES = 0
@@ -1445,26 +1461,9 @@ def _rank_sharded(rank, world, init_method, backend, prefix, kw):
             res = solve()
             torch.cuda.synchronize()
             seconds = [time.perf_counter() - t0]
-            launches = nl.LAUNCHES
-            x = res.x.cpu()
-            plain_s = []
-            if kw.get("plain"):
-                plain = lambda: acquire(state, tp, xstarts, restarts)
-                plain()                               # warm-up
-                for turn in ((plain, plain_s), (solve, seconds)) * 2 + ((plain, plain_s),):
-                    run, times = turn
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    run()
-                    torch.cuda.synchronize()
-                    times.append(time.perf_counter() - t0)
-            report["solves"].append(dict(
-                mesh=[r, m], iterations=res.iterations, launches=launches,
-                seconds=statistics.median(seconds),
-                plain_seconds=statistics.median(plain_s) if plain_s else None,
-                lanes=restarts.shape[0] // r * (tp.mc_iters // m), x=x.tolist(),
-                value=float(res.value),
-                inside=bool(torch.all((x >= tp.lbs.cpu()) & (x <= tp.ubs.cpu())))))
+            report["solves"].append(_solve_report(res, [r, m], nl.LAUNCHES, seconds, None,
+                                                  restarts.shape[0] // r * (tp.mc_iters // m),
+                                                  tp))
         if kw.get("small"):
             f = testfns.get_function("hartmann3d")
             x_init = np.random.default_rng(3).uniform(f.lbs, f.ubs, (5, f.dim))
@@ -1481,7 +1480,17 @@ def _rank_sharded(rank, world, init_method, backend, prefix, kw):
         with open(f"{prefix}-rank{rank}.json", "w") as fh:
             json.dump(report, fh)
     finally:
-        dist.destroy_process_group()
+        mesh_mod.finalize_distributed()
+
+
+def _solve_report(res, mesh, launches, seconds, plain_seconds, lanes, tp):
+    """One rank's sharded bench solve, as `_check_sharded_solves` reads it."""
+    x = res.x.cpu()
+    return dict(mesh=mesh, iterations=res.iterations, launches=launches,
+                seconds=statistics.median(seconds),
+                plain_seconds=statistics.median(plain_seconds) if plain_seconds else None,
+                lanes=lanes, x=x.tolist(), value=float(res.value),
+                inside=bool(torch.all((x >= tp.lbs.cpu()) & (x <= tp.ubs.cpu()))))
 
 
 def _cli_rank(rank, args, world, init_method):
@@ -1544,7 +1553,7 @@ def _check_sharded_solves(reports, label, card):
                           for rep_i, rep in enumerate(solves)) + f"; on {card}")
 
 
-def _check_worker_solves(out, card, dev):
+def _check_worker_solves(out, card, dev, ranks_label):
     """The worker problem's sharded solves on two gloo ranks against the same
     solve with no mesh on the card: with its simulate calls split into the
     ranks' blocks of restarts and trajectories (`blocked`), equal to 1e-12,
@@ -1577,12 +1586,267 @@ def _check_worker_solves(out, card, dev):
         blocked = (apart(xs, ref.x.cpu().numpy()), apart(vals, ref.value.cpu().numpy()))
         wx, wv = whole.x.cpu().numpy(), whole.value.cpu().numpy()
         print(f"sharded fused solve, worker problem (float64, h 1, 8 restarts x 16 "
-              f"trajectories), 2 gloo ranks at mesh (restarts {r}, mc {m}) against one rank "
+              f"trajectories), {ranks_label} at mesh (restarts {r}, mc {m}) against one rank "
               f"with no mesh: blocked as the ranks launch, points {blocked[0]:.2e} / values "
               f"{blocked[1]:.2e} relative apart (gate 1e-12); unblocked (one launch of "
               f"{whole.x.shape[0] * 16} lanes), points {float(np.max(np.abs(xs - wx))):.2e} "
               f"absolute / values {apart(vals, wv):.2e} relative apart, SGA iterations "
               f"{int(out[f'{name}_it'])} vs {whole.iterations}; on {card}")
+
+
+def _counted(run):
+    """(result, kernel launches, seconds) of run() on the card: the launches
+    counted from 0 just before it, those of the graphs' warm-up runs before
+    a capture taken off."""
+    from rollout_bo_tpu_torch.ops import newton_lanes as nl
+    from rollout_bo_tpu_torch.utils import graphs
+
+    torch.cuda.synchronize()
+    nl.LAUNCHES, warm0 = 0, graphs.WARMUP_LAUNCHES
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return out, nl.LAUNCHES - (graphs.WARMUP_LAUNCHES - warm0), time.perf_counter() - t0
+
+
+def _in_turns(routes, reps=3):
+    """Each route of {name: run} `reps` times in turns after one first call
+    each (a program's capture): {name: [(result, launches, seconds), ...]},
+    the first call first."""
+    out = {name: [_counted(run)] for name, run in routes.items()}
+    for r in range(reps):
+        for name in (list(routes) if r % 2 == 0 else list(routes)[::-1]):
+            out[name].append(_counted(routes[name]))
+    return out
+
+
+def _same(a, b):
+    """Two lists of tensors equal bit for bit."""
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _bench_programs(dev, mesh, label):
+    """bench.py's acquisition (trid10d, 8 restarts x 200 trajectories = 1600
+    lanes, h 3, float32, 50 SGA iterations at most) through the sharded
+    programs on `mesh`, each against the eager mesh route in the same
+    process: the fused program (`sharded_stochastic_solve_fused(program=)`),
+    the scanned one (windows of 10) and the batch one (kept per problem by
+    `sharded_stochastic_solve_batch`), beside the single-device program.
+    Bit for bit with the same SGA iterations; launches per rank 3 x (SGA
+    iterations + 1) (the scanned program: 3 x 11 per window of 10),
+    the warm-up runs off. Returns the report of the fused solves and the
+    lines to print."""
+    import bench_torch
+    from rollout_bo_tpu_torch.models.decision_rules import EI
+    from rollout_bo_tpu_torch.parallel import sharded
+    from rollout_bo_tpu_torch.rollout import outer
+    from rollout_bo_tpu_torch.utils import graphs
+
+    state, tp, xstarts, restarts = bench_torch.bench_problem(dev, torch.float32)
+    kw = dict(max_iters=50, lr=0.01, inner_iterations=10)
+    k = 10
+    fused = outer.make_fused_sga_program(state, tp, EI(), xstarts, mesh=mesh, select_best=True,
+                                         **kw)
+    scanned = outer.make_scanned_sga_program(state, tp, EI(), xstarts, mesh=mesh,
+                                             steps_per_call=k, lr=0.01, inner_iterations=10)
+    single = bench_torch.fused_program(state, tp, xstarts)
+    args = (state, tp, EI(), xstarts, restarts)
+    runs = _in_turns({
+        "fused program": lambda: sharded.sharded_stochastic_solve_fused(
+            *args, mesh, select_best=True, program=fused, **kw),
+        "fused eager": lambda: outer.stochastic_solve_fused(*args, mesh=mesh, select_best=True,
+                                                            **kw),
+        "scanned program": lambda: sharded.sharded_stochastic_solve_scanned(
+            *args, mesh, program=scanned, steps_per_call=k, **kw),
+        "scanned eager": lambda: outer.stochastic_solve_fused(*args, mesh=mesh,
+                                                              steps_per_call=k, **kw),
+        "batch program": lambda: sharded.sharded_stochastic_solve_batch(*args, mesh, **kw),
+        "batch eager": lambda: outer.stochastic_solve_batch(*args, mesh=mesh, **kw),
+        "single-device program": lambda: bench_torch.acquire(state, tp, xstarts, restarts,
+                                                             program=single),
+    })
+    (batch_program,) = [p for key, p in graphs.PROGRAM_CACHE.items() if key[0] == "sharded_batch"
+                        and key[2] == mesh]
+    lines = []
+    for (prog, eager), (a, b) in (
+            (("fused program", "fused eager"), (lambda r: [r.x, r.value], ) * 2),
+            (("scanned program", "scanned eager"), (list, lambda r: [r.x, r.value])),
+            (("batch program", "batch eager"), (list, list))):
+        for (res_p, launch_p, _), (res_e, launch_e, _) in zip(runs[prog], runs[eager]):
+            if not _same(a(res_p), b(res_e)):
+                raise AssertionError(f"{label}: the {prog} is not the {eager} route bit for bit")
+            it = runs["fused eager"][0][0].iterations
+            want_p = want_e = 3 * (it + 1)
+            if prog == "fused program":
+                if res_p.iterations != res_e.iterations:
+                    raise AssertionError(f"{label}: {res_p.iterations} SGA iterations on the "
+                                         f"fused program, {res_e.iterations} eager")
+                want_p = want_e = 3 * (res_e.iterations + 1)
+            elif prog == "scanned program":
+                want_p, want_e = 3 * (k + 1) * (res_e.iterations // k), 3 * (res_e.iterations + 1)
+            elif batch_program.iterations != it:
+                raise AssertionError(f"{label}: the batch program ran {batch_program.iterations} "
+                                     f"SGA iterations, the fused solve {it}")
+            if (launch_p, launch_e) != (want_p, want_e):
+                raise AssertionError(f"{label}: {prog} {launch_p} / eager {launch_e} kernel "
+                                     f"launches per rank, not {want_p} / {want_e}")
+    med = {name: statistics.median(t for _, _, t in r[1:]) for name, r in runs.items()}
+    for name, program in (("fused", fused), ("scanned", scanned), ("batch", batch_program)):
+        captures, capture_s, pool = _graph_numbers(program)
+        lines.append(f"{name}: program {med[name + ' program']:.4f} s, eager mesh route "
+                     f"{med[name + ' eager']:.4f} s per acquisition (medians of 3 in turns), "
+                     f"{captures} captures, {capture_s:.3f} s, memory pools {pool} B")
+    fs = runs["fused program"][1][0]
+    lines.append(f"single-device program {med['single-device program']:.4f} s; "
+                 f"{fs.iterations} SGA iterations, v_best {float(fs.value):.6g}; bit for bit "
+                 f"on every call, launches 3 x (SGA iterations + 1) per rank on both routes "
+                 f"(scanned: 3 x 11 per window)")
+    solve = _solve_report(fs, [mesh.restarts, mesh.mc], runs["fused program"][1][1],
+                          [t for _, _, t in runs["fused program"][1:]],
+                          [t for _, _, t in runs["single-device program"][1:]],
+                          restarts.shape[0] // mesh.restarts * (tp.mc_iters // mesh.mc), tp)
+    return solve, lines
+
+
+def _simulate_programs(dev, mesh, reps=5):
+    """`sharded_simulate_mc` at the throughput width (4096 trajectories in
+    all, h 3, float32, with gradients) through its cached program against
+    the eager call on the same blocks, bit for bit (every field); the
+    trajectories/s of its replays and of the single-device graph of the
+    unsharded call (`scripts/throughput_torch.py`'s), medians of `reps`."""
+    import bench_torch
+    from rollout_bo_tpu_torch.models.decision_rules import EI
+    from rollout_bo_tpu_torch.parallel import mesh as mesh_mod
+    from rollout_bo_tpu_torch.parallel import sharded
+    from rollout_bo_tpu_torch.rollout import mc as mc_mod
+    from rollout_bo_tpu_torch.utils.graphs import GraphProgram
+
+    state, tp, xstarts, _ = bench_torch.bench_problem(dev, torch.float32, mc=4096, horizon=3)
+    kw = dict(with_gradients=True, iterations=10)
+    group = mesh.group(mesh_mod.AXES)
+    block = tp._replace(rnstream=mesh_mod.shard_leading(tp.rnstream, mesh, mesh_mod.AXES))
+    single = GraphProgram(lambda st, t: mc_mod.simulate_trajectory_mc(st, t, EI(), xstarts, **kw),
+                          device=dev)
+    runs = _in_turns({
+        "program": lambda: sharded.sharded_simulate_mc(state, tp, EI(), xstarts, mesh, **kw),
+        "eager": lambda: mc_mod.simulate_trajectory_mc(state, block, EI(), xstarts, group=group,
+                                                       **kw),
+        "single": lambda: single(state, tp)}, reps)
+    for (p, launch_p, _), (e, launch_e, _) in zip(runs["program"], runs["eager"]):
+        if not _same(list(p), list(e)):
+            raise AssertionError("sharded_simulate_mc: the replay is not the eager call bit "
+                                 "for bit")
+        if (launch_p, launch_e) != (3, 3):
+            raise AssertionError(f"sharded_simulate_mc: {launch_p} / {launch_e} launches, not 3")
+    return {name: tp.mc_iters / statistics.median(t for _, _, t in r[1:])
+            for name, r in runs.items()}
+
+
+def _mesh_loop_routes(dev, mesh, budget=3, horizon=2):
+    """The non-myopic loop at the CLI's widths (hartmann6d, h 2, 200 QMC
+    trajectories, 8 restarts, 16 + 2 starts, 50 SGA iterations, MLE on,
+    float64, the CLI's first initial design; budget cut) on `mesh`,
+    through `bo._cached_program` and then in the eager loop
+    (`_eager_loops`): the same points bit for bit and the same fallbacks,
+    every acquisition of the program route from the cache under a key that
+    holds the mesh, the launch identity per acquisition on both routes.
+    Returns {route: seconds per BO iteration} and the SGA iterations."""
+    from rollout_bo_tpu_torch.models import testfns
+    from rollout_bo_tpu_torch.rollout import bo
+
+    f = testfns.get_function("hartmann6d")
+    rng = np.random.default_rng(1906)
+    x_init = np.asarray(f.lbs) + (np.asarray(f.ubs) - np.asarray(f.lbs)) * rng.uniform(
+        size=(5, f.dim))
+    kw = dict(horizon=horizon, mc_iters=200, budget=budget, n_init=5, num_starts=16,
+              num_restarts=8, sgd_iters=50, seed=1906, mle_every=1, use_low_discrepancy=True,
+              dtype=torch.float64, device=dev, mesh=mesh, x_init=x_init)
+    trials = {}
+    for route in ("program", "eager"):
+        with contextlib.ExitStack() as stack:
+            if route == "eager":
+                stack.enter_context(_eager_loops())
+            asked = stack.enter_context(_asked_programs())
+            rec = stack.enter_context(_recording())
+            bo.run_nonmyopic_bo(f, **kw)
+            torch.cuda.synchronize()
+        (trial,) = rec["trials"]
+        for a in trial["acquisitions"]:
+            if a["launches"] != horizon * (a["iterations"] + 1) + a["fallback"]:
+                raise AssertionError(f"mesh loop, {route}: {a['launches']} kernel launches for "
+                                     f"{a['iterations']} SGA iterations")
+        acquisitions = [k for k in asked if k[0] == "nm_acquire"]
+        want = budget if route == "program" else 0
+        if (len(acquisitions) != want or any(
+                k[-2] != ("mesh", mesh.restarts, mesh.mc, mesh.backend) for k in acquisitions)):
+            raise AssertionError(f"mesh loop, {route}: acquisitions asked of the program "
+                                 f"cache: {acquisitions}")
+        trials[route] = trial
+    p, e = trials["program"]["res"], trials["eager"]["res"]
+    if not (np.array_equal(p.X, e.X) and np.array_equal(p.fallbacks, e.fallbacks)):
+        raise AssertionError(f"mesh loop: the programs' points {p.X[-budget:]} are not the "
+                             f"eager loop's {e.X[-budget:]} bit for bit")
+    return ({route: t["seconds"] / budget for route, t in trials.items()},
+            p.sga_iterations.tolist(), int(p.fallbacks.sum()))
+
+
+def _rank_nccl_programs(rank, world, init_method, backend, prefix, kw):
+    """One NCCL rank, one card each: the sharded programs at each mesh shape
+    of kw["shapes"] (`_bench_programs`, `_simulate_programs`,
+    `_mesh_loop_routes`), and with two or more ranks the float64 worker
+    problem's sharded solves (`_worker_problems`). A failed check raises
+    here and fails the phase."""
+    from rollout_bo_tpu_torch.parallel import mesh as mesh_mod
+
+    torch.set_num_threads(1)
+    mesh_mod.initialize_distributed(init_method, world, rank, backend=backend)
+    try:
+        dev = mesh_mod.rank_device("cuda")
+        report = dict(rank=rank, device=str(dev), solves=[], shapes=[])
+        for r, m in kw["shapes"]:
+            mesh = mesh_mod.make_mesh(restarts=r, mc=m)
+            solve, lines = _bench_programs(dev, mesh, f"NCCL mesh ({r}, {m})")
+            report["solves"].append(solve)
+            rates = _simulate_programs(dev, mesh)
+            seconds, its, fallbacks = _mesh_loop_routes(dev, mesh)
+            report["shapes"].append(dict(mesh=[r, m], lines=lines, rates=rates,
+                                         loop_seconds=seconds, loop_iterations=its,
+                                         loop_fallbacks=fallbacks))
+        if world >= 2:
+            ranks, problems = _worker_problems()
+            report["worker"] = {k: np.asarray(v).tolist() for k, v in
+                                ranks.solve_case(problems, device="cuda").items()}
+        with open(f"{prefix}-rank{rank}.json", "w") as fh:
+            json.dump(report, fh)
+    finally:
+        mesh_mod.finalize_distributed()
+
+
+def _print_nccl_programs(reports, world, card):
+    """The NCCL ranks' program lines (rank 0's; every rank checked its own)."""
+    held = ("the graphs hold the world all-reduces (the active-restart count, the "
+            "simulate statistics); the 'mc' all-reduce and the 'restarts' gather are the "
+            "identity on a world of one and are captured only with two or more cards"
+            if world == 1 else "the graphs hold the 'mc' all-reduces, the world-summed "
+            "active-restart count and the 'restarts' gather")
+    for shape in reports[0]["shapes"]:
+        r, m = shape["mesh"]
+        print(f"sharded programs, NCCL, {world} rank(s), mesh (restarts {r}, mc {m}), bench "
+              f"width (trid10d, 8 restarts x 200 trajectories, h 3, float32): "
+              + "; ".join(shape["lines"]) + f"; {held}; on {card}")
+        rates = shape["rates"]
+        print(f"sharded programs, NCCL mesh ({r}, {m}): sharded_simulate_mc at 4096 "
+              f"trajectories (h 3, float32, with gradients), replay == eager call bit for "
+              f"bit, 3 launches per call: program {rates['program']:.0f} trajectories/s, "
+              f"eager {rates['eager']:.0f}/s, the single-device graph {rates['single']:.0f}/s "
+              f"(medians of 5 in turns); on {card}")
+        secs = shape["loop_seconds"]
+        print(f"sharded programs, NCCL mesh ({r}, {m}): non-myopic loop at the CLI's widths "
+              f"(hartmann6d, h 2, 8 restarts x 200 trajectories, 16 + 2 starts, float64, "
+              f"budget 3): program route {secs['program']:.4f} s, eager route "
+              f"{secs['eager']:.4f} s per BO iteration, points and fallbacks "
+              f"({shape['loop_fallbacks']}) bit for bit, every acquisition from "
+              f"_cached_program, SGA iterations {shape['loop_iterations']}; on {card}")
 
 
 def phase_sharded(card, budget=3, horizon=2):
@@ -1601,13 +1865,29 @@ def phase_sharded(card, budget=3, horizon=2):
             raise AssertionError(f"2-rank trial: card {gpu} vs CPU route {cpu}")
         print(f"sharded BO loop, small float64 (hartmann3d, h 1, 8 samples, 2 restarts on 2 "
               f"gloo ranks): card == CPU route (points within {apart:.2e})")
-        _check_worker_solves(reports[0]["worker"], card, torch.device("cuda", 0))
+        _check_worker_solves(reports[0]["worker"], card, torch.device("cuda", 0),
+                             "2 gloo ranks")
 
-        # NCCL: one rank per card, the restarts split over them
-        world = max(w for w in (1, 2, 4, 8) if w <= n_cards)
-        reports = _start_ranks(_rank_sharded, world, "nccl", tmp, shapes=[(world, 1)],
-                               plain=True)
-        _check_sharded_solves(reports, f"NCCL, {world} rank(s) on {world} card(s)", card)
+        # NCCL, one rank per card (NCCL refuses two ranks on one card): the
+        # fused solve's program on every card that a power of two of ranks
+        # fills, at (ranks, 1), where there are more than two (fewer are
+        # among the meshes below)
+        widest = max(w for w in (1, 2, 4, 8) if w <= n_cards)
+        if widest > 2:
+            reports = _start_ranks(_rank_sharded, widest, "nccl", tmp,
+                                   shapes=[(widest, 1)])
+            _check_sharded_solves(reports, f"NCCL program, {widest} ranks on {widest} cards",
+                                  card)
+        # the sharded programs, their graphs holding the collectives
+        world = min(n_cards, 2)
+        shapes = [(1, 1)] if world == 1 else [(2, 1), (1, 2)]
+        reports = _start_ranks(_rank_nccl_programs, world, "nccl", tmp, shapes=shapes)
+        _check_sharded_solves(reports, f"NCCL programs, {world} rank(s) on {world} card(s)",
+                              card)
+        _print_nccl_programs(reports, world, card)
+        if world >= 2:
+            _check_worker_solves(reports[0]["worker"], card, torch.device("cuda", 0),
+                                 "2 NCCL ranks")
 
         # the CLI at its widths on two ranks (budget cut to 3)
         out = os.path.join(tmp, "cli")

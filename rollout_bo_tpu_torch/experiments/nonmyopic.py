@@ -18,7 +18,11 @@ mesh of restarts = N, mc = 1, as the JAX CLI builds it: each rank solves
 its share of the restarts. The rendezvous is a `file://` store in the
 output directory unless `--init-method` names one. Rank 0 alone writes the
 metadata, the CSVs and the progress lines; a rank that fails ends the
-others. When N does not divide the batch, the run takes one device.
+others. When N does not divide the batch, the run takes one device. Over
+NCCL the acquisitions run as CUDA-graph programs that hold the ranks'
+collectives; gloo runs its collectives on the host, where no graph can
+hold them, so gloo ranks on the card run the acquisitions eagerly (the
+CLI says so once).
 """
 
 from __future__ import annotations
@@ -29,7 +33,6 @@ import time
 
 import numpy as np
 import torch
-import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from rollout_bo_tpu_torch.experiments.myopic import add_device_argument, resolve_device
@@ -118,6 +121,10 @@ def main(argv=None):
     n = args.nworkers or (torch.cuda.device_count() if device.type == "cuda" else 1)
     if n > 1 and args.batch_size % n == 0:
         mesh_mod.check_backend(args.backend, n, device.type)
+        if args.backend == "gloo" and device.type == "cuda":
+            print("--backend gloo on the card: the acquisitions run eagerly (a gloo "
+                  "collective runs on the host, and no CUDA graph can hold it); "
+                  "--backend nccl, one card per rank, runs them as programs")
         _spawn(args, n)
         return
     if n > 1:
@@ -147,7 +154,7 @@ def _rank_main(rank: int, args, world: int, init_method: str) -> None:
     try:
         _run(args, mesh_mod.rank_device(args.device), mesh_mod.make_mesh(restarts=world, mc=1))
     finally:
-        dist.destroy_process_group()
+        mesh_mod.finalize_distributed()
 
 
 def _run(args, device: torch.device, mesh) -> None:

@@ -18,7 +18,10 @@ that gloo supports on CUDA tensors, so one code path serves NCCL (one card
 per rank), gloo on the card (ranks that share one) and gloo on the CPU. A
 gather is an all-reduce (SUM) into a zero buffer in which each rank fills
 its own rows; a flag travels as a count, never as a bool (gloo does not
-reduce bools).
+reduce bools). None of them reads a tensor on the host, so a CUDA graph can
+hold them where the backend's collectives run on the card: NCCL's do,
+gloo's run on the host and cannot be captured (`Mesh.capturable`,
+`programs_run_on`).
 """
 
 from __future__ import annotations
@@ -30,13 +33,17 @@ import os
 import torch
 import torch.distributed as dist
 
+from rollout_bo_tpu_torch.utils import graphs
+
 __all__ = [
     "AXES",
     "Mesh",
     "check_backend",
     "initialize_distributed",
+    "finalize_distributed",
     "rank_device",
     "make_mesh",
+    "programs_run_on",
     "shard_leading",
     "gather_leading",
     "all_reduce_sum",
@@ -97,6 +104,18 @@ def initialize_distributed(init_method: str | None = None, world_size: int | Non
     return dist.get_world_size()
 
 
+def finalize_distributed() -> None:
+    """Leave the default process group, the counterpart of
+    `initialize_distributed`. The graphs that hold its collectives are
+    reset first (`utils.graphs.release_collectives`): NCCL does not
+    destroy a communicator while such a graph lives, so a rank that kept
+    one, in a cache, a caller's variable or a traceback, would wait here
+    for ever."""
+    graphs.release_collectives()
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
 def rank_device(device) -> torch.device:
     """`device` as this rank names it: "cuda" is the card that
     `initialize_distributed` made current; any other device is itself."""
@@ -111,15 +130,26 @@ class Mesh:
     """A (restarts, mc) grid of the ranks of the default process group;
     rank r sits at (r // mc, r % mc). Build it with `make_mesh`.
 
-    `groups` maps "mc" to the group of this rank's restarts-row, "restarts"
-    to that of its mc-column (each only where that axis has more than one
-    rank), and AXES to the whole world (whenever there is a process group).
+    `backend` is the group's ("nccl" or "gloo"; None with no process
+    group). `groups` maps "mc" to the group of this rank's restarts-row,
+    "restarts" to that of its mc-column (each only where that axis has more
+    than one rank), and AXES to the whole world (whenever there is a
+    process group). Two meshes are equal where shape, rank and backend are:
+    their groups join the same ranks the same way.
     """
 
     restarts: int
     mc: int
     rank: int
-    groups: dict = dataclasses.field(default_factory=dict, repr=False)
+    backend: str | None = None
+    groups: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
+
+    @property
+    def capturable(self) -> bool:
+        """Whether a CUDA graph can hold this mesh's collectives: NCCL runs
+        them on the card; gloo runs them on the host, which a capture does
+        not record. A mesh with no process group has none."""
+        return self.backend in (None, "nccl")
 
     @property
     def size(self) -> int:
@@ -151,6 +181,7 @@ def make_mesh(restarts: int = 1, mc: int | None = None) -> Mesh:
     same order as its other group creations: it creates one group per row
     and one per column."""
     distributed = dist.is_available() and dist.is_initialized()
+    backend = str(dist.get_backend()) if distributed else None
     n = dist.get_world_size() if distributed else 1
     rank = dist.get_rank() if distributed else 0
     if mc is None:
@@ -172,7 +203,16 @@ def make_mesh(restarts: int = 1, mc: int | None = None) -> Mesh:
                                                                             timeout=TIMEOUT)
                 if rank in ranks:
                     groups[axis] = g
-    return Mesh(restarts, mc, rank, groups)
+    return Mesh(restarts, mc, rank, backend, groups)
+
+
+def programs_run_on(mesh: Mesh | None, device) -> bool:
+    """Whether the solves' programs (`utils.graphs.GraphProgram`) can run on
+    `device` with `mesh`: off CUDA they call their functions eagerly, and on
+    CUDA a graph holds the mesh's collectives only where they are NCCL's.
+    On a gloo mesh with CUDA tensors the solves take the eager mesh route
+    instead, by this rule: a capture of a gloo collective is not possible."""
+    return mesh is None or torch.device(device).type != "cuda" or mesh.capturable
 
 
 def shard_leading(x: torch.Tensor, mesh: Mesh, axis) -> torch.Tensor:

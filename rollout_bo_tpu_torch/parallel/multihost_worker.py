@@ -8,11 +8,16 @@ out with `Distributed.addprocs` + `SharedArrays` on one machine
 one device, the ('restarts', 'mc') mesh is restarts = 2 by mc = world / 2,
 and the collectives (the per-restart MC reductions over 'mc', the
 all-stopped all-reduce, the winner gather over 'restarts') ride NCCL
-between cards, or gloo on the CPU.
+between cards, or gloo on the CPU. Over NCCL the solve and the timed
+estimate run as CUDA-graph programs that hold those collectives
+(`sharded_stochastic_solve_fused` builds its program; `sharded_simulate_mc`
+keeps one per problem, so the timed calls are replays); gloo ranks on the
+card run them eagerly (`parallel.mesh.programs_run_on`).
 
 The worker builds a deterministic problem (the JAX worker's numbers, so a
 test compares process 0's result with the JAX package's single-process
-solve); with `--bench-mc` it also times `sharded_simulate_mc`.
+solve); with `--bench-mc` it also times `sharded_simulate_mc` (its first
+call, the warm-up, captures).
 
 Launch (2 processes, here on the CPU):
 
@@ -32,7 +37,6 @@ import time
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from rollout_bo_tpu_torch.models import decision_rules as dr
 from rollout_bo_tpu_torch.models import surrogate as sg
@@ -95,7 +99,7 @@ def main(argv=None):
     try:
         _solve(args, nproc)
     finally:
-        dist.destroy_process_group()
+        mesh_mod.finalize_distributed()
 
 
 def _solve(args, nproc):

@@ -28,8 +28,12 @@ The JAX package computes the MLE on every call and selects it with a
 traced mask. Whether it is due is known on the host, so here it is a
 constant of the program: a program has at most two graphs per signature,
 and a loop that never refits (the adaptive one) never captures a refit.
-On a mesh the acquisitions run the eager loop; the observe and fallback
-programs are rank-local and serve it too.
+On a mesh the acquisitions are the same factories' mesh programs, under
+the key with the mesh's shape and backend added (their graphs hold the
+NCCL collectives); the observe and fallback programs are rank-local and
+serve it too. A gloo mesh on CUDA tensors runs the acquisitions in the
+eager loop: no graph can hold a gloo collective, which runs on the host
+(`parallel.mesh.programs_run_on`).
 
 The host reads what the loop needs: per iteration the acquisition's best
 value (non-myopic, to decide on the fallback) and the new point with its
@@ -41,7 +45,6 @@ from __future__ import annotations
 import math
 import os
 import time
-from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Callable
 
@@ -58,6 +61,7 @@ from rollout_bo_tpu_torch.rollout import outer as outer_mod
 from rollout_bo_tpu_torch.rollout import solvers
 from rollout_bo_tpu_torch.rollout.trajectory import TrajectoryParams
 from rollout_bo_tpu_torch.utils import checkpoint as ckpt
+from rollout_bo_tpu_torch.utils import graphs
 from rollout_bo_tpu_torch.utils import metrics
 from rollout_bo_tpu_torch.utils.graphs import GraphProgram
 
@@ -65,27 +69,9 @@ __all__ = ["MyopicBOResult", "run_myopic_bo", "run_nonmyopic_bo", "run_adaptive_
            "alternating_horizon", "fixed_horizon", "truncated_horizon"]
 
 
-_PROGRAM_CACHE: OrderedDict = OrderedDict()
-_PROGRAM_CACHE_MAX = 64  # LRU bound: entries pin CUDA graphs, their memory
-# pools and the tensors their closures hold
-
-
-def _cached_program(key, builder):
-    """The program under `key`, built by `builder()` on a miss (the JAX
-    package's cache of jitted programs across runner calls, e.g. the trials
-    of a CLI sweep). The key covers everything the program bakes in as a
-    constant: rule and theta, solver settings, shapes, dtype, kernel kind,
-    box and device. LRU-bounded, so that a long-lived process that sweeps
-    many configurations cannot pile up captured graphs without limit."""
-    fn = _PROGRAM_CACHE.get(key)
-    if fn is None:
-        fn = builder()
-        _PROGRAM_CACHE[key] = fn
-        while len(_PROGRAM_CACHE) > _PROGRAM_CACHE_MAX:
-            _PROGRAM_CACHE.popitem(last=False)
-    else:
-        _PROGRAM_CACHE.move_to_end(key)
-    return fn
+# the JAX package's name for its cache of jitted programs; the cache, which
+# the sharded functions share, is `utils.graphs.PROGRAM_CACHE`
+_cached_program = graphs.cached_program
 
 
 @dataclass
@@ -491,8 +477,13 @@ def run_nonmyopic_bo(
     axis; the Gauss-Hermite solve splits its restarts the same way. After
     every observation (and MLE) the surrogate is replicated from rank 0, so
     that rounding cannot part the ranks, and a fallback's point is rank 0's.
-    Every rank returns the trial; rank 0's is the one to record. The solves
-    on a mesh run in the eager loop.
+    Every rank returns the trial; rank 0's is the one to record. The
+    acquisitions take their programs from `_cached_program` as on one
+    device, built for the mesh (their graphs hold its NCCL collectives) and
+    keyed with its shape and backend, where the mesh's collectives can be
+    captured or the tensors are not on CUDA. On a gloo mesh with CUDA
+    tensors, by that rule, they run in the eager loop: a gloo collective
+    runs on the host, and no graph can hold it.
     """
     if outer_solver not in ("fused", "scanned", "batch"):
         raise ValueError(f"unknown outer solver {outer_solver!r}")
@@ -504,10 +495,12 @@ def run_nonmyopic_bo(
                lead=mesh is None or mesh.rank == 0)
     theta_key = tuple(map(float, theta))
     program_key = None
-    if mesh is None:
+    if mesh_mod.programs_run_on(mesh, t.device):
         program_key = ("nm_acquire", rule, theta_key, mc_iters, num_starts, num_restarts,
                        sgd_iters, lr, solver_iterations, draw_mode, deterministic, ghq_nodes,
                        log10_parity, outer_solver, steps_per_call, t.shape_key)
+        if mesh is not None:
+            program_key += (("mesh", mesh.restarts, mesh.mc, mesh.backend),)
     theta = t.as_t(theta)
     make_rnstream = _rnstream_maker(t, mc_iters, use_low_discrepancy, log10_parity)
     acquire = _rollout_acquirer(t, rule, theta, deterministic=deterministic,
@@ -577,8 +570,9 @@ def _rollout_acquirer(t: _Trial, rule, theta, *, deterministic, ghq_nodes, sgd_i
     `outer.make_fused_sga_program(select_best=True)`, whose points are the
     batch solver's with its argmax; "scanned": `make_scanned_sga_program`;
     Gauss-Hermite: `make_deterministic_program(select_best=True)`); without
-    one (on a mesh) they run the eager loop, the route the tests hold the
-    programs to."""
+    one they run the eager loop, the route the tests hold the programs to.
+    On `mesh` the programs are built for it (`outer`'s `mesh=`): they take
+    this rank's blocks of the restarts and the stream themselves."""
     node_scale = _ghq_node_scale(log10_parity)
 
     def program(state, tp, h):
@@ -588,14 +582,14 @@ def _rollout_acquirer(t: _Trial, rule, theta, *, deterministic, ghq_nodes, sgd_i
                 return outer_mod.make_deterministic_program(
                     state, theta, t.lbs, t.ubs, t.xstarts, rule, horizon=h,
                     num_nodes=ghq_nodes, max_iters=sgd_iters, node_scale=node_scale,
-                    select_best=True, **kw)
+                    select_best=True, mesh=mesh, **kw)
             if outer_solver == "scanned":
                 return outer_mod.make_scanned_sga_program(
                     state, tp, rule, t.xstarts, steps_per_call=steps_per_call,
-                    draw_mode=draw_mode, **kw)
+                    draw_mode=draw_mode, mesh=mesh, **kw)
             return outer_mod.make_fused_sga_program(state, tp, rule, t.xstarts,
                                                     max_iters=sgd_iters, select_best=True,
-                                                    draw_mode=draw_mode, **kw)
+                                                    draw_mode=draw_mode, mesh=mesh, **kw)
 
         return _cached_program(program_key + (h,), build)
 
@@ -631,7 +625,7 @@ def _rollout_acquirer(t: _Trial, rule, theta, *, deterministic, ghq_nodes, sgd_i
             j = torch.argmax(res.value)
             return res.x[j], res.value[j], res.iterations
         res = outer_mod.stochastic_solve_fused(state, tp, rule, t.xstarts, restarts,
-                                               select_best=True, program=prog)
+                                               select_best=True, program=prog, mesh=mesh)
         return res.x, res.value, -1 if outer_solver == "batch" else res.iterations
 
     return acquire

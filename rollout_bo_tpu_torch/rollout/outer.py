@@ -35,8 +35,15 @@ then a graph of the value pass.
 With a `mesh` (`parallel.mesh`), a solve splits its restarts over the
 ranks of the 'restarts' axis and, for `stochastic_solve_fused`, the
 trajectories over those of the 'mc' axis, and gathers the results: the
-placements of the JAX package's `parallel/sharded.py`. Those solves run
-eagerly: the factories take no mesh, as the JAX ones take none.
+placements of the JAX package's `parallel/sharded.py`. The factories take
+the mesh too (`mesh=`), where the JAX ones read the placements of their
+inputs: a program built for a mesh shards its inputs itself, and its graphs
+hold the collectives (the 'mc' statistics, the world-summed count of the
+restarts still active, the 'restarts' gather), which NCCL runs on the card.
+The eager mesh route (`mesh=` and no program) runs the same step functions.
+A gloo mesh runs its collectives on the host, so no graph can hold them: on
+CUDA tensors such a mesh takes the eager route, and a factory refuses it
+(`parallel.mesh.programs_run_on`).
 """
 
 from __future__ import annotations
@@ -137,42 +144,68 @@ def _sga_carry(xs):
             torch.zeros(xs.shape[:-1], dtype=xs.dtype, device=xs.device))
 
 
-def _sga_step(simulate, carry, lbs, ubs, sample_size, lr):
+def _active_count(active, mesh):
+    """The restarts still active (the bool mask `active`) summed over every
+    rank of `mesh`: a (1,) int64 device tensor, the same on every rank, from
+    one all-reduce (the JAX programs' all-reduced all-stopped predicate).
+    A step computes it, so that a program's graph holds the collective and
+    the host reads this one scalar between replays."""
+    return mesh_mod.all_reduce_sum(torch.count_nonzero(active).reshape(1), mesh)
+
+
+def _sga_step(simulate, carry, lbs, ubs, sample_size, lr, mesh=None):
     """One SGA iteration over the carry (xs, opt, done, vals): simulate every
     restart (gradients included), freeze those whose eswavs statistic
     fires, and take an Adam step clipped to the box for the others. The
     new carry's vals are the values at the points before the step (the JAX
-    package's `make_batched_sga_step`)."""
+    package's `make_batched_sga_step`). On a rank of `mesh` it returns
+    (carry, `_active_count` of the new carry)."""
     xs, opt, done, _ = carry
     eto = simulate(xs, True)
     done = done | eswavs(eto.grad_x, eto.std_grad_x**2, sample_size)
     opt, xs_new = adam_update(opt, xs, eto.grad_x, lr=lr)
     xs = torch.where(done[..., None], xs, torch.clamp(xs_new, lbs, ubs))
-    return xs, opt, done, eto.mu
+    carry = (xs, opt, done, eto.mu)
+    return carry if mesh is None else (carry, _active_count(~done, mesh))
 
 
-def _sga(step, carry, *, max_steps, check_every=1, mesh=None):
-    """The SGA loop of every route: carry = step(carry) over the SGA carry
-    (xs, opt, done, vals), `max_steps` times unless "every restart has
-    stopped" (done) ends it, tested after each window of `check_every`
-    steps: on every rank of `mesh`, which sums the active restarts over the
-    world (the JAX program's all-reduce(AND) of its all-stopped predicate).
-    A step is one SGA iteration (`_sga_step` eagerly, or a replay of
-    `make_batched_sga_step`'s graph) or a scanned program's window of
-    them. Returns (carry, steps run)."""
+def _sga(step, carry, *, max_steps, check_every=1, mesh=None,
+         stopped=lambda carry: bool(carry[2].all())):
+    """The loop of every route: carry = step(carry), `max_steps` times
+    unless `stopped` ends it, tested after each window of `check_every`
+    steps; by default "every restart has stopped" (the SGA carry's done). A
+    step is one SGA iteration (`_sga_step` eagerly, or a replay of its
+    graph), a scanned program's window of them, or a Gauss-Hermite Adam
+    step (`_ghq_step`). On a rank of `mesh` a step returns (carry, active),
+    the restarts still active over the world (`_active_count`), and the
+    loop ends when it reads 0: one replicated scalar, so every rank takes
+    as many steps as the others, as the JAX `while_loop` under its
+    all-reduced predicate does. Returns (carry, steps run)."""
     it = 0
     while it < max_steps:
         carry = step(carry)
+        if mesh is not None:
+            carry, active = carry
         it += 1
         if it % check_every:
             continue
-        done = carry[2]
-        if mesh is None:
-            if bool(done.all()):
-                break
-        elif int(mesh_mod.all_reduce_sum(torch.count_nonzero(~done).reshape(1), mesh)) == 0:
+        if int(active) == 0 if mesh is not None else stopped(carry):
             break
     return carry, it
+
+
+def _blocks(restarts, rnstream, mesh, shard_stream):
+    """(restarts, rnstream, group): this rank's block of the restarts along
+    the 'restarts' axis of `mesh` and, with `shard_stream`, its block of the
+    trajectories along 'mc' and the group whose ranks reduce their
+    statistics (the placements of the JAX package's `parallel/sharded.py`);
+    the inputs themselves and no group without a mesh."""
+    if mesh is None:
+        return restarts, rnstream, None
+    restarts = mesh_mod.shard_leading(restarts, mesh, "restarts")
+    if not shard_stream:
+        return restarts, rnstream, None
+    return restarts, mesh_mod.shard_leading(rnstream, mesh, "mc"), mesh.group("mc")
 
 
 def _gather_restarts(xs, vals, mesh):
@@ -182,20 +215,26 @@ def _gather_restarts(xs, vals, mesh):
     return both[:, :-1], both[:, -1]
 
 
-def _multi_restart(state, tp, rule, xstarts, restarts, *, max_iters, lr, inner_iterations,
-                   draw_mode, mesh, shard_stream, check_every=1):
-    """SGA from every restart, then a value-only evaluation at the final
-    points: (xs (R, d), values (R,), iterations). With `mesh`, this rank
-    takes its block of the restarts along 'restarts' and, with
-    `shard_stream`, its block of the trajectories along 'mc' (whose ranks
-    then reduce the statistics), and the results are gathered."""
-    sample_size = tp.mc_iters
-    group = None
+def _final(simulate, xs, mesh, select_best):
+    """The end of a solve at the final points xs: the values from a
+    value-only pass, the restarts gathered over the 'restarts' axis of
+    `mesh`, and with `select_best` the argmax restart (`_best`); a
+    program's final graph and the eager route run it alike."""
+    vals = simulate(xs, False).mu
     if mesh is not None:
-        restarts = mesh_mod.shard_leading(restarts, mesh, "restarts")
-        if shard_stream:
-            tp = tp._replace(rnstream=mesh_mod.shard_leading(tp.rnstream, mesh, "mc"))
-            group = mesh.group("mc")
+        xs, vals = _gather_restarts(xs, vals, mesh)
+    return _best(xs, vals) if select_best else (xs, vals)
+
+
+def _multi_restart(state, tp, rule, xstarts, restarts, *, max_iters, lr, inner_iterations,
+                   draw_mode, mesh, shard_stream, check_every=1, select_best=False):
+    """SGA from every restart, then `_final`: (xs (R, d), values (R,),
+    iterations), or the winner (x (d,), value ()) with `select_best`. With
+    `mesh`, this rank takes its blocks (`_blocks`) and the steps run on the
+    mesh: the eager mesh route, the same step functions as the programs'."""
+    sample_size = tp.mc_iters
+    restarts, rnstream, group = _blocks(restarts, tp.rnstream, mesh, shard_stream)
+    tp = tp._replace(rnstream=rnstream)
 
     def simulate(xs, with_gradients):
         return mc_mod.simulate_trajectory_mc(
@@ -203,32 +242,63 @@ def _multi_restart(state, tp, rule, xstarts, restarts, *, max_iters, lr, inner_i
             iterations=inner_iterations, draw_mode=draw_mode, group=group)
 
     (xs, *_), it = _sga(
-        lambda carry: _sga_step(simulate, carry, tp.lbs, tp.ubs, sample_size, lr),
+        lambda carry: _sga_step(simulate, carry, tp.lbs, tp.ubs, sample_size, lr, mesh),
         _sga_carry(restarts), max_steps=max_iters, check_every=check_every, mesh=mesh)
-    vals = simulate(xs, False).mu
-    if mesh is not None:
-        xs, vals = _gather_restarts(xs, vals, mesh)
-    return xs, vals, it
+    return (*_final(simulate, xs, mesh, select_best), it)
+
+
+class _Problem(NamedTuple):
+    """What a program reads of the problem besides the state and the
+    stream: tp's theta and box and the inner starts."""
+
+    theta: torch.Tensor
+    lbs: torch.Tensor
+    ubs: torch.Tensor
+    xstarts: torch.Tensor
 
 
 def _program_problem(state, tp, xstarts):
-    """What a program closes over: tp's theta and box and the inner starts
-    as tensors of the state's dtype on its device (made here, outside any
-    capture), and that device."""
+    """The `_Problem` of (tp, xstarts) as tensors of the state's dtype on its
+    device (made here, outside any capture), and that device."""
     dt, dev = state.X.dtype, state.X.device
-    as_t = lambda a: torch.as_tensor(a, dtype=dt, device=dev)
-    return tp._replace(theta=as_t(tp.theta), lbs=as_t(tp.lbs), ubs=as_t(tp.ubs)), as_t(xstarts), dev
+    as_t = lambda a: torch.as_tensor(a, dtype=dt, device=dev)  # noqa: E731
+    return _Problem(as_t(tp.theta), as_t(tp.lbs), as_t(tp.ubs), as_t(xstarts)), dev
 
 
-def _program_simulator(st, rnstream, tp, rule, xstarts, inner_iterations, draw_mode):
-    """simulate(xs, with_gradients) of every restart of xs on (st, rnstream)."""
+def _program_simulator(st, rnstream, prob, rule, inner_iterations, draw_mode, group=None):
+    """simulate(xs, with_gradients) of every restart of xs on (st, rnstream)
+    and the `_Problem` prob, the statistics reduced over the ranks of
+    `group`."""
 
     def simulate(xs, with_gradients):
+        tp = TrajectoryParams(xs, prob.theta, prob.lbs, prob.ubs, rnstream)
         return mc_mod.simulate_trajectory_mc(
-            st, tp._replace(x0=xs, rnstream=rnstream), rule, xstarts,
-            with_gradients=with_gradients, iterations=inner_iterations, draw_mode=draw_mode)
+            st, tp, rule, prob.xstarts, with_gradients=with_gradients,
+            iterations=inner_iterations, draw_mode=draw_mode, group=group)
 
     return simulate
+
+
+def _program_mesh(mesh, dev, shard_stream=True):
+    """(group, ranks) of a program built for `mesh` on `dev`: the group that
+    reduces the statistics of the stream's blocks and the number of ranks
+    along 'mc' whose blocks make the stream (None and 1 where the stream is
+    whole). Raises where no graph can hold the mesh's collectives."""
+    if not mesh_mod.programs_run_on(mesh, dev):
+        raise ValueError(
+            f"a program on {dev} cannot capture the collectives of a {mesh.backend} mesh "
+            "(gloo runs them on the host): run the ranks with --backend nccl, one card per "
+            "rank, or solve on the eager mesh route (no program)")
+    if mesh is None or not shard_stream:
+        return None, 1
+    return mesh.group("mc"), mesh.coordinate("mc")[1]
+
+
+def _graph(fn, dev, mesh):
+    """fn as a `GraphProgram` on dev, marked as holding collectives where
+    `mesh` has a process group (`utils.graphs.release_collectives`)."""
+    return GraphProgram(fn, device=dev,
+                        collectives=mesh is not None and mesh.group(mesh_mod.AXES) is not None)
 
 
 def make_batched_grad_step(state: sg.SurrogateState, tp: TrajectoryParams,
@@ -237,41 +307,60 @@ def make_batched_grad_step(state: sg.SurrogateState, tp: TrajectoryParams,
     """`step(st, rnstream, xs)` -> (values (R,), grads (R, d), stds (R, d)) of
     the MC rollout acquisition at the points xs (R, d), as one program: the
     JAX package's jitted building block of the stepped loop."""
-    tp, xstarts, dev = _program_problem(state, tp, xstarts)
+    prob, dev = _program_problem(state, tp, xstarts)
 
     def step(st, rnstream, xs):
-        eto = _program_simulator(st, rnstream, tp, rule, xstarts, inner_iterations,
-                                 draw_mode)(xs, True)
+        eto = _program_simulator(st, rnstream, prob, rule, inner_iterations, draw_mode)(xs, True)
         return eto.mu, eto.grad_x, eto.std_grad_x
 
     return GraphProgram(step, device=dev)
 
 
+def _sga_step_fn(rule, *, lr, inner_iterations, draw_mode, mesh, group, mc_ranks):
+    """step(st, rnstream, prob, carry): `_sga_step` on the `_Problem` prob,
+    the statistics of the stream's blocks reduced over `group`, whose
+    `mc_ranks` ranks make the stream."""
+
+    def step(st, rnstream, prob, carry):
+        simulate = _program_simulator(st, rnstream, prob, rule, inner_iterations, draw_mode,
+                                      group)
+        return _sga_step(simulate, carry, prob.lbs, prob.ubs, rnstream.shape[0] * mc_ranks,
+                         lr, mesh)
+
+    return step
+
+
 def make_batched_sga_step(state: sg.SurrogateState, tp: TrajectoryParams,
                           rule: DecisionRule, xstarts, *, lr: float = 0.01,
-                          inner_iterations: int = 12, draw_mode: str = "reparam"):
+                          inner_iterations: int = 12, draw_mode: str = "reparam",
+                          mesh=None):
     """`step(st, rnstream, carry)` -> carry: one SGA iteration (`_sga_step`:
     simulate, eswavs freeze, Adam, clamp) over the carry (xs, AdamState,
     done, vals) as one program. The sample size is the stream's length;
-    the new vals are the values at the points before the step."""
-    tp, xstarts, dev = _program_problem(state, tp, xstarts)
+    the new vals are the values at the points before the step.
 
-    def step(st, rnstream, carry):
-        simulate = _program_simulator(st, rnstream, tp, rule, xstarts, inner_iterations,
-                                      draw_mode)
-        return _sga_step(simulate, carry, tp.lbs, tp.ubs, rnstream.shape[0], lr)
-
-    return GraphProgram(step, device=dev)
+    `mesh`: the step of one rank of it, on that rank's blocks of rnstream
+    (along 'mc', whose ranks reduce the statistics) and of the carry's
+    restarts (along 'restarts'); it returns (carry, active), the restarts
+    still active summed over the world, and its graph holds both
+    collectives."""
+    prob, dev = _program_problem(state, tp, xstarts)
+    group, mc_ranks = _program_mesh(mesh, dev)
+    step = _sga_step_fn(rule, lr=lr, inner_iterations=inner_iterations, draw_mode=draw_mode,
+                        mesh=mesh, group=group, mc_ranks=mc_ranks)
+    return _graph(lambda st, rnstream, carry: step(st, rnstream, prob, carry), dev, mesh)
 
 
 class _ScannedSGAProgram:
     """A scanned-SGA program with the number of steps it holds, which
-    `stochastic_solve_scanned` reads in place of its own argument."""
+    `stochastic_solve_scanned` reads in place of its own argument, and on a
+    mesh the mesh and the graph that gathers the restarts."""
 
-    def __init__(self, fn, steps_per_call: int):
+    def __init__(self, fn, steps_per_call: int, mesh=None, gather=None):
         self._fn = fn
         self.steps_per_call = int(steps_per_call)
-        self.graphs = (fn,)
+        self.mesh, self.gather = mesh, gather
+        self.graphs = (fn,) if gather is None else (fn, gather)
 
     def __call__(self, st, rnstream, carry):
         return self._fn(st, rnstream, carry)
@@ -280,48 +369,87 @@ class _ScannedSGAProgram:
 def make_scanned_sga_program(state: sg.SurrogateState, tp: TrajectoryParams,
                              rule: DecisionRule, xstarts, *, steps_per_call: int = 10,
                              lr: float = 0.01, inner_iterations: int = 12,
-                             draw_mode: str = "reparam"):
+                             draw_mode: str = "reparam", mesh=None):
     """`program(st, rnstream, carry)` -> carry: `steps_per_call` k SGA
     iterations (`make_batched_sga_step`'s) and then the value-only pass at
     the final points, whose values are the new carry's vals, all as one
     program (one CUDA graph on the card). The JAX program scores the final
     points with a pass that also takes gradients; the values are the same.
-    The returned program carries `steps_per_call`."""
-    tp, xstarts, dev = _program_problem(state, tp, xstarts)
+    The returned program carries `steps_per_call`.
+
+    `mesh`: as `make_batched_sga_step`'s, the window on one rank's blocks,
+    returning (carry, active); the program's `gather` graph joins the
+    ranks' restarts after the last window (`stochastic_solve_scanned`)."""
+    prob, dev = _program_problem(state, tp, xstarts)
+    group, mc_ranks = _program_mesh(mesh, dev)
 
     def program(st, rnstream, carry):
-        simulate = _program_simulator(st, rnstream, tp, rule, xstarts, inner_iterations,
-                                      draw_mode)
+        simulate = _program_simulator(st, rnstream, prob, rule, inner_iterations, draw_mode,
+                                      group)
+        active = None
         for _ in range(steps_per_call):
-            carry = _sga_step(simulate, carry, tp.lbs, tp.ubs, rnstream.shape[0], lr)
+            carry = _sga_step(simulate, carry, prob.lbs, prob.ubs,
+                              rnstream.shape[0] * mc_ranks, lr, mesh)
+            if mesh is not None:
+                carry, active = carry
         xs, opt, done, _ = carry
-        return xs, opt, done, simulate(xs, False).mu
+        carry = (xs, opt, done, simulate(xs, False).mu)
+        return carry if mesh is None else (carry, active)
 
-    return _ScannedSGAProgram(GraphProgram(program, device=dev), steps_per_call)
+    gather = None
+    if mesh is not None:
+        gather = _graph(lambda xs, vals: _gather_restarts(xs, vals, mesh), dev, mesh)
+    return _ScannedSGAProgram(_graph(program, dev, mesh), steps_per_call, mesh, gather)
 
 
 class _FusedSGAProgram:
     """The whole multi-restart SGA solve (`make_fused_sga_program`): the
     step program replayed until every restart has stopped or `max_iters`
     is reached, "all stopped" read on the host after each step, then the
-    final program. `iterations` holds the SGA iterations of the last call."""
+    final program. `iterations` holds the SGA iterations of the last call.
+    On a mesh it takes this rank's blocks of its inputs first (`_blocks`).
+    Both graphs take the `_Problem` as an input: the one the program was
+    built for, or a call's `problem` of the same shapes."""
 
-    def __init__(self, step, final, max_iters: int, select_best: bool):
-        self.step, self.final = step, final
+    def __init__(self, step, final, problem, max_iters: int, select_best: bool, mesh=None,
+                 shard_stream=True):
+        self.step, self.final, self.problem = step, final, problem
         self.max_iters, self.select_best = max_iters, select_best
+        self.mesh, self.shard_stream = mesh, shard_stream
         self.graphs = (step, final)
         self.iterations = 0
 
-    def __call__(self, st, rnstream, xs0):
-        carry, self.iterations = _sga(lambda c: self.step(st, rnstream, c), _sga_carry(xs0),
-                                      max_steps=self.max_iters)
-        return self.final(st, rnstream, carry[0])
+    def __call__(self, st, rnstream, xs0, problem=None):
+        prob = self.problem if problem is None else problem
+        xs0, rnstream, _ = _blocks(xs0, rnstream, self.mesh, self.shard_stream)
+        carry, self.iterations = _sga(lambda c: self.step(st, rnstream, prob, c),
+                                      _sga_carry(xs0), max_steps=self.max_iters, mesh=self.mesh)
+        return self.final(st, rnstream, prob, carry[0])
+
+
+def _fused_program(state, tp, rule, xstarts, *, max_iters, lr, inner_iterations, draw_mode,
+                   select_best, mesh, shard_stream):
+    """`make_fused_sga_program`, with the stream's blocks split over 'mc'
+    (`shard_stream`) or whole on every rank (the batch solve's placement)."""
+    prob, dev = _program_problem(state, tp, xstarts)
+    group, mc_ranks = _program_mesh(mesh, dev, shard_stream)
+    step = _sga_step_fn(rule, lr=lr, inner_iterations=inner_iterations, draw_mode=draw_mode,
+                        mesh=mesh, group=group, mc_ranks=mc_ranks)
+
+    def final(st, rnstream, prob, xs):
+        simulate = _program_simulator(st, rnstream, prob, rule, inner_iterations, draw_mode,
+                                      group)
+        return _final(simulate, xs, mesh, select_best)
+
+    return _FusedSGAProgram(_graph(step, dev, mesh), _graph(final, dev, mesh), prob,
+                            max_iters, select_best, mesh, shard_stream)
 
 
 def make_fused_sga_program(state: sg.SurrogateState, tp: TrajectoryParams,
                            rule: DecisionRule, xstarts, *, max_iters: int = 50,
                            lr: float = 0.01, inner_iterations: int = 12,
-                           draw_mode: str = "reparam", select_best: bool = False):
+                           draw_mode: str = "reparam", select_best: bool = False,
+                           mesh=None):
     """`program(st, rnstream, xs0)` -> (xs (R, d), vals (R,)): the whole
     multi-restart SGA solve from xs0, with the semantics of
     `stochastic_solve_fused` (the all-stopped test after every iteration,
@@ -329,17 +457,19 @@ def make_fused_sga_program(state: sg.SurrogateState, tp: TrajectoryParams,
     at the final points. With `select_best` the argmax restart (the first
     of tied ones) is returned instead: (x_best (d,), v_best ()). The
     program's `iterations` attribute holds the SGA iterations of its last
-    call. On the card one SGA step and the final pass are CUDA graphs."""
-    tp, xstarts, dev = _program_problem(state, tp, xstarts)
-    step = make_batched_sga_step(state, tp, rule, xstarts, lr=lr,
-                                 inner_iterations=inner_iterations, draw_mode=draw_mode)
+    call. On the card one SGA step and the final pass are CUDA graphs.
 
-    def final(st, rnstream, xs):
-        vals = _program_simulator(st, rnstream, tp, rule, xstarts, inner_iterations,
-                                  draw_mode)(xs, False).mu
-        return _best(xs, vals) if select_best else (xs, vals)
-
-    return _FusedSGAProgram(step, GraphProgram(final, device=dev), max_iters, select_best)
+    `mesh`: the solve on one rank of it, called with the whole stream and
+    restarts as on one device: the program takes this rank's blocks (the
+    restarts along 'restarts', the trajectories along 'mc'), its step graph
+    holds the 'mc' statistics and the world-summed count of the restarts
+    still active (the one value the host reads between replays), and its
+    final graph the 'restarts' gather and the argmax; every rank returns
+    the same. Raises for a gloo mesh on CUDA tensors, whose collectives no
+    graph can hold."""
+    return _fused_program(state, tp, rule, xstarts, max_iters=max_iters, lr=lr,
+                          inner_iterations=inner_iterations, draw_mode=draw_mode,
+                          select_best=select_best, mesh=mesh, shard_stream=True)
 
 
 def stochastic_solve_fused(state: sg.SurrogateState, tp: TrajectoryParams,
@@ -371,25 +501,33 @@ def stochastic_solve_fused(state: sg.SurrogateState, tp: TrajectoryParams,
 
     `program`: a prebuilt `make_fused_sga_program`, run in place of the
     eager loop (its own max_iters, lr, inner iterations and draw mode hold,
-    as in the JAX package); it takes no mesh and no `steps_per_call`, and
-    its `select_best` must be this call's.
+    as in the JAX package); it must have been built for this call's `mesh`
+    (or for none without one), takes no `steps_per_call`, and its
+    `select_best` must be this call's.
     """
     if program is not None:
-        if mesh is not None or steps_per_call != 1 or program.select_best != select_best:
-            raise ValueError("a fused program runs on one device, tests 'all stopped' "
-                             "after every iteration and has its own select_best: "
-                             f"mesh {mesh}, steps_per_call {steps_per_call}, select_best "
-                             f"{select_best} (the program's {program.select_best})")
+        _check_program_mesh(program, mesh)
+        if steps_per_call != 1 or program.select_best != select_best:
+            raise ValueError("a fused program tests 'all stopped' after every iteration and "
+                             f"has its own select_best: steps_per_call {steps_per_call}, "
+                             f"select_best {select_best} (the program's "
+                             f"{program.select_best})")
         x, value = program(state, tp.rnstream, restarts)
         return FusedSolve(x, value, program.iterations)
-    xs, vals, it = _multi_restart(
+    return FusedSolve(*_multi_restart(
         state, tp, rule, xstarts, restarts,
         max_iters=-(-max_iters // steps_per_call) * steps_per_call, lr=lr,
         inner_iterations=inner_iterations, draw_mode=draw_mode, mesh=mesh,
-        shard_stream=True, check_every=steps_per_call)
-    if select_best:
-        return FusedSolve(*_best(xs, vals), it)
-    return FusedSolve(xs, vals, it)
+        shard_stream=True, check_every=steps_per_call, select_best=select_best))
+
+
+def _check_program_mesh(program, mesh) -> None:
+    """Raise unless `program` was built for `mesh` (or for none, without one;
+    a callable with no `mesh` stands for a one-device program)."""
+    built_for = getattr(program, "mesh", None)
+    if built_for != mesh:
+        raise ValueError(f"a program built for mesh {built_for} cannot solve on mesh "
+                         f"{mesh}: build it with this call's mesh")
 
 
 def stochastic_solve_scanned(state: sg.SurrogateState, tp: TrajectoryParams,
@@ -403,7 +541,8 @@ def stochastic_solve_scanned(state: sg.SurrogateState, tp: TrajectoryParams,
     ends the loop. Returns (xs (R, d), values (R,)), the values at the
     final points: `stochastic_solve_fused(steps_per_call=k)` without
     `select_best`. `program`: a prebuilt `make_scanned_sga_program`, one
-    call per window; its own `steps_per_call` overrides the argument."""
+    call per window; its own `steps_per_call` overrides the argument, and
+    a program built for a mesh solves on it (`_scanned_program_solve`)."""
     if program is None:
         fs = stochastic_solve_fused(state, tp, rule, xstarts, starts, max_iters=max_iters,
                                     lr=lr, inner_iterations=inner_iterations,
@@ -415,9 +554,15 @@ def stochastic_solve_scanned(state: sg.SurrogateState, tp: TrajectoryParams,
 
 def _scanned_program_solve(program, state, rnstream, starts, max_iters) -> FusedSolve:
     """`stochastic_solve_scanned` through a scanned program, one call per
-    window: (xs, values at them, SGA iterations run)."""
+    window: (xs, values at them, SGA iterations run). A program built for a
+    mesh runs on this rank's blocks and gathers the restarts at the end."""
+    mesh = program.mesh
+    starts, rnstream, _ = _blocks(starts, rnstream, mesh, True)
     (xs, _, _, vals), calls = _sga(lambda c: program(state, rnstream, c), _sga_carry(starts),
-                                   max_steps=-(-max_iters // program.steps_per_call))
+                                   max_steps=-(-max_iters // program.steps_per_call),
+                                   mesh=mesh)
+    if mesh is not None:
+        xs, vals = program.gather(xs, vals)
     return FusedSolve(xs, vals, calls * program.steps_per_call)
 
 
@@ -495,31 +640,32 @@ def _ghq_carry(xs):
     return xs, adam_init(xs), torch.ones(xs.shape[:-1], dtype=torch.bool, device=xs.device)
 
 
-def _ghq_step(simulate, carry, lbs, ubs, *, lr, grad_tol):
+def _ghq_step(simulate, carry, lbs, ubs, *, lr, grad_tol, mesh=None):
     """One Adam iteration of the quadrature objective over the carry (xs,
     opt, active): a restart whose gradient norm falls below grad_tol keeps
     the point it had and takes no further part (the JAX package's
-    per-restart `while_loop` under `vmap`)."""
+    per-restart `while_loop` under `vmap`). On a rank of `mesh` it returns
+    (carry, `_active_count` of the new carry)."""
     xs, opt, active = carry
     eto = simulate(xs, True)
     stop = torch.linalg.vector_norm(eto.grad_x, dim=-1) < grad_tol
     opt, xs_new = adam_update(opt, xs, eto.grad_x, lr=lr)
     xs_new = torch.clamp(xs_new, lbs, ubs)
     xs = torch.where((active & ~stop)[..., None], xs_new, xs)
-    return xs, opt, active & ~stop
+    carry = (xs, opt, active & ~stop)
+    return carry if mesh is None else (carry, _active_count(carry[2], mesh))
 
 
-def _deterministic_ascent(step, xs, *, max_iters):
+def _deterministic_ascent(step, xs, *, max_iters, mesh=None):
     """carry = step(carry) from the carry at xs (R, d), all restarts together
     (`_ghq_step` eagerly, or a replay of its graph), until none is active
-    (read on the host after each step) or after `max_iters`. Returns the
-    final points."""
-    carry = _ghq_carry(xs)
-    for _ in range(max_iters):
-        carry = step(carry)
-        if not bool(carry[2].any()):
-            break
-    return carry[0]
+    (read on the host after each step; on a mesh, none on any rank) or
+    after `max_iters`. Returns the final points. A restart that stopped
+    keeps its point, so the steps a rank runs after its own restarts have
+    stopped change none of them."""
+    (xs, *_), _ = _sga(step, _ghq_carry(xs), max_steps=max_iters, mesh=mesh,
+                       stopped=lambda carry: not bool(carry[2].any()))
+    return xs
 
 
 def _ghq_simulator(state, theta, lbs, ubs, xstarts, rule, *, horizon, num_nodes,
@@ -566,34 +712,34 @@ def deterministic_solve_batch(state: sg.SurrogateState, theta, lbs, ubs, xstarts
                               mesh=None):
     """`deterministic_solve` from every row of starts (R, d) in lock-step.
     Returns (xs (R, d), values (R,)), the values at the final points.
-    `mesh`: the restarts split over its 'restarts' axis, the results
-    gathered (no collective inside the ascent: its restarts are
-    independent)."""
+    `mesh`: the restarts split over its 'restarts' axis, the ascent run
+    until no restart is active on any rank (the world-summed count, as the
+    JAX loop's all-reduced predicate), the results gathered: the eager
+    mesh route of `make_deterministic_program(mesh=...)`."""
     simulate, as_t, lbs, ubs = _ghq_simulator(
         state, theta, lbs, ubs, xstarts, rule, horizon=horizon, num_nodes=num_nodes,
         inner_iterations=inner_iterations, node_scale=node_scale)
-    starts = as_t(starts)
-    if mesh is not None:
-        starts = mesh_mod.shard_leading(starts, mesh, "restarts")
-    step = lambda c: _ghq_step(simulate, c, lbs, ubs, lr=lr, grad_tol=grad_tol)  # noqa: E731
-    xs = _deterministic_ascent(step, starts, max_iters=max_iters)
-    vals = simulate(xs, False).mu
-    if mesh is not None:
-        xs, vals = _gather_restarts(xs, vals, mesh)
-    return xs, vals
+    starts, _, _ = _blocks(as_t(starts), None, mesh, False)
+    step = lambda c: _ghq_step(simulate, c, lbs, ubs, lr=lr, grad_tol=grad_tol,  # noqa: E731
+                               mesh=mesh)
+    xs = _deterministic_ascent(step, starts, max_iters=max_iters, mesh=mesh)
+    return _final(simulate, xs, mesh, False)
 
 
 class _DeterministicProgram:
     """The Gauss-Hermite solve from every restart (`make_deterministic_program`):
     the step program through `_deterministic_ascent` (as `_FusedSGAProgram`
-    runs its step through `_sga`), then the final program."""
+    runs its step through `_sga`), then the final program; on a mesh from
+    this rank's block of the restarts."""
 
-    def __init__(self, step, final, max_iters: int):
-        self.step, self.final, self.max_iters = step, final, max_iters
+    def __init__(self, step, final, max_iters: int, mesh=None):
+        self.step, self.final, self.max_iters, self.mesh = step, final, max_iters, mesh
         self.graphs = (step, final)
 
     def __call__(self, st, starts):
-        xs = _deterministic_ascent(lambda c: self.step(st, c), starts, max_iters=self.max_iters)
+        starts, _, _ = _blocks(starts, None, self.mesh, False)
+        xs = _deterministic_ascent(lambda c: self.step(st, c), starts, max_iters=self.max_iters,
+                                   mesh=self.mesh)
         return self.final(st, xs)
 
 
@@ -601,25 +747,28 @@ def make_deterministic_program(state: sg.SurrogateState, theta, lbs, ubs, xstart
                                rule: DecisionRule, *, horizon: int, num_nodes: int = 8,
                                max_iters: int = 50, lr: float = 0.01, grad_tol: float = 1e-4,
                                inner_iterations: int = 12, node_scale: float = 1.0,
-                               select_best: bool = False):
+                               select_best: bool = False, mesh=None):
     """`program(st, starts)` -> (xs (R, d), vals (R,)): `deterministic_solve_batch`
     from the restarts starts (R, d) on the state st, as a program (the JAX
     package jits that solve with its argmax). With `select_best` the argmax
     restart (the first of tied ones) is returned instead: (x_best (d,),
     v_best ()). On the card one Adam step and the final value pass are CUDA
-    graphs; the quadrature tables are made here, outside their captures."""
+    graphs; the quadrature tables are made here, outside their captures.
+    `mesh`: the solve on one rank of it (`deterministic_solve_batch(mesh=)`'s
+    placement), the step graph holding the world-summed count of the
+    restarts still active, the final graph the gather and the argmax."""
     simulate, _, lbs, ubs = _ghq_simulator(
         state, theta, lbs, ubs, xstarts, rule, horizon=horizon, num_nodes=num_nodes,
         inner_iterations=inner_iterations, node_scale=node_scale)
     dev = state.X.device
+    _program_mesh(mesh, dev, shard_stream=False)
 
     def step(st, carry):
         return _ghq_step(lambda x, g: simulate(x, g, st=st), carry, lbs, ubs, lr=lr,
-                         grad_tol=grad_tol)
+                         grad_tol=grad_tol, mesh=mesh)
 
     def final(st, xs):
-        vals = simulate(xs, False, st=st).mu
-        return _best(xs, vals) if select_best else (xs, vals)
+        return _final(lambda x, g: simulate(x, g, st=st), xs, mesh, select_best)
 
-    return _DeterministicProgram(GraphProgram(step, device=dev), GraphProgram(final, device=dev),
-                                 max_iters)
+    return _DeterministicProgram(_graph(step, dev, mesh), _graph(final, dev, mesh), max_iters,
+                                 mesh)

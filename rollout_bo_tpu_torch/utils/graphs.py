@@ -12,14 +12,32 @@ device:
   signature, copies the arguments into static buffers, runs fn on them
   `WARMUP` (3) times on a side stream (as `torch.cuda.graphs` documents
   for work that runs autograd) and captures one `torch.cuda.CUDAGraph` of
-  fn on them. The capture runs under
-  `torch.cuda.set_sync_debug_mode("error")`: a host synchronization in fn
-  raises there;
+  fn on them, on another side stream and without emptying the
+  allocator's cache first (`torch.cuda.graph` does: see `_capture`). The
+  capture runs under `torch.cuda.set_sync_debug_mode("error")`: a host
+  synchronization in fn raises there;
 - every call copies the arguments into that signature's static buffers
   (`copy_`), replays the graph and returns clones of its outputs, which
   the next replay would overwrite (JAX returns fresh arrays);
 - a capture or replay error raises: nothing runs fn eagerly in place of
   a replay after the warm-up.
+
+A program whose fn issues NCCL collectives (the mesh programs of
+`rollout.outer`, built with `collectives=True`) is captured like any
+other: the warm-up runs create the communicator, which NCCL makes at a
+group's first collective, and the graph records the collectives, which
+every rank then replays together. Every capture runs in the
+"thread_local" mode of `cudaStreamBeginCapture`: it checks the capturing
+thread only, so the process group's watchdog thread can query the events
+of earlier collectives meanwhile (two NCCL ranks on two cards were
+captured in this mode). A communicator is not destroyed while a graph
+that holds its collectives lives, so `release_collectives()` resets every
+such graph (`parallel.mesh.finalize_distributed` calls it before it
+destroys the group), whoever still holds the program.
+
+`cached_program(key, builder)` keeps the programs of the BO loops and the
+sharded functions across calls (`PROGRAM_CACHE`, an LRU of
+`PROGRAM_CACHE_MAX`), as the JAX package keeps its jitted programs.
 
 On any other device the program calls fn eagerly: the CPU tests' route,
 as the kernels' plain versions are.
@@ -41,16 +59,23 @@ from __future__ import annotations
 import dataclasses
 import gc
 import time
+import weakref
+from collections import OrderedDict
 
 import torch
 
 from rollout_bo_tpu_torch.ops import newton_lanes
 
-__all__ = ["GraphProgram", "CAPTURES", "WARMUP", "WARMUP_LAUNCHES"]
+__all__ = ["GraphProgram", "CAPTURES", "WARMUP", "WARMUP_LAUNCHES", "PROGRAM_CACHE",
+           "PROGRAM_CACHE_MAX", "cached_program", "release_collectives"]
 
 WARMUP = 3              # eager runs on a side stream before a capture
 CAPTURES = 0
 WARMUP_LAUNCHES = 0
+PROGRAM_CACHE: OrderedDict = OrderedDict()
+PROGRAM_CACHE_MAX = 64  # LRU bound: entries pin CUDA graphs, their memory
+# pools and the tensors their closures hold
+_COLLECTIVE_GRAPHS: weakref.WeakSet = weakref.WeakSet()   # graphs that hold collectives
 
 
 def _flatten(tree, leaves: list):
@@ -97,9 +122,10 @@ class GraphProgram:
     """fn(*args) as CUDA graphs on `device`, one per signature of args;
     eager off CUDA. See the module docstring."""
 
-    def __init__(self, fn, *, device):
+    def __init__(self, fn, *, device, collectives: bool = False):
         self.fn = fn
         self.device = torch.device(device)
+        self.collectives = collectives
         self.captures = 0
         self.capture_seconds = 0.0
         self.pool_bytes = 0
@@ -142,16 +168,20 @@ class GraphProgram:
         recorded = newton_lanes.RECORDED
         torch.cuda.synchronize(dev)
         gc.collect()
-        torch.cuda.empty_cache()            # what torch.cuda.graph does first
         reserved = torch.cuda.memory_reserved(dev)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(dev), torch.cuda.graph(graph):
+        # `torch.cuda.graph` is not used: it first empties the allocator's
+        # cache, and cudaFree waits for the peers of an NCCL group, one of
+        # which may be replaying a graph whose collective waits for this rank
+        with torch.cuda.device(dev), torch.cuda.stream(torch.cuda.Stream(dev)):
             mode = torch.cuda.get_sync_debug_mode()
+            graph.capture_begin(capture_error_mode="thread_local")
             torch.cuda.set_sync_debug_mode("error")
             try:
                 out = self.fn(*args)
             finally:
                 torch.cuda.set_sync_debug_mode(mode)
+                graph.capture_end()
         outputs: list = []
         out_spec = _flatten(out, outputs)
         launches = newton_lanes.RECORDED - recorded
@@ -160,4 +190,37 @@ class GraphProgram:
         self.captures += 1
         CAPTURES += 1
         self.capture_seconds += time.perf_counter() - t0
+        if self.collectives:
+            _COLLECTIVE_GRAPHS.add(graph)
         return _Captured(graph, inputs, out_spec, outputs, launches)
+
+
+def cached_program(key, builder):
+    """The program under `key`, built by `builder()` on a miss (the JAX
+    package's cache of jitted programs across runner calls, e.g. the trials
+    of a CLI sweep). The key covers everything the program bakes in as a
+    constant: rule and theta, solver settings, shapes, dtype, kernel kind,
+    box, mesh and device. LRU-bounded, so that a long-lived process that
+    sweeps many configurations cannot pile up captured graphs without
+    limit."""
+    fn = PROGRAM_CACHE.get(key)
+    if fn is None:
+        fn = builder()
+        PROGRAM_CACHE[key] = fn
+        while len(PROGRAM_CACHE) > PROGRAM_CACHE_MAX:
+            PROGRAM_CACHE.popitem(last=False)
+    else:
+        PROGRAM_CACHE.move_to_end(key)
+    return fn
+
+
+def release_collectives() -> None:
+    """Reset every live graph that holds a process group's collectives (the
+    programs built with `collectives=True`), so that the group can be
+    destroyed: NCCL keeps a communicator while a graph that launches its
+    kernels lives. No wait for the card: CUDA frees a graph that is still
+    running when it ends. A program whose graphs were reset raises if
+    called again. The graphs of programs without collectives are kept."""
+    for graph in list(_COLLECTIVE_GRAPHS):
+        graph.reset()
+    _COLLECTIVE_GRAPHS.clear()

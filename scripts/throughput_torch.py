@@ -206,7 +206,7 @@ def _rank(rank, world, init_method, args, out):
         with open(f"{out}-rank{rank}.json", "w") as fh:
             json.dump(seconds, fh)
     finally:
-        dist.destroy_process_group()
+        mesh_mod.finalize_distributed()
 
 
 def rank_scaling(args, device):

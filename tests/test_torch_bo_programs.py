@@ -53,7 +53,7 @@ MYOPIC = dict(num_starts=4, solver_iterations=4, seed=5)
 
 @pytest.fixture(autouse=True)
 def empty_cache(monkeypatch):
-    monkeypatch.setattr(bo, "_PROGRAM_CACHE", type(bo._PROGRAM_CACHE)())
+    monkeypatch.setattr(graphs, "PROGRAM_CACHE", type(graphs.PROGRAM_CACHE)())
 
 
 def _per_iteration(f, rule, theta, *, budget, dtype, x_init, num_starts, solver_iterations,
@@ -117,11 +117,11 @@ def test_myopic_chunks_equal_the_per_iteration_loop(monkeypatch, rule_name, dtyp
             assert torch.equal(getattr(res.state, name), getattr(st, name)), (k, name)
         assert torch.equal(res.state.kernel.theta, st.kernel.theta)
         assert seen == chunks
-        assert [key[0] for key in bo._PROGRAM_CACHE] == ["myopic_chunk"]
+        assert [key[0] for key in graphs.PROGRAM_CACHE] == ["myopic_chunk"]
         starts = np.cumsum([0] + chunks)
         for a, b in zip(starts[:-1], starts[1:]):
             assert np.all(res.times[a:b] == res.times[a]) and res.times[a] > 0.0
-        bo._PROGRAM_CACHE.clear()
+        graphs.PROGRAM_CACHE.clear()
     if rule_name == "Random":
         assert float(st.kernel.theta[0]) == 1.0          # no MLE for the random baseline
 
@@ -350,7 +350,7 @@ def test_acquisition_observe_and_fallback_programs_equal_the_eager_loop(monkeypa
     with monkeypatch.context() as m:
         called = _calls(m)
         res = run()
-    programs = dict(bo._PROGRAM_CACHE)
+    programs = dict(graphs.PROGRAM_CACHE)
     acquire = "nm_acquire" if loop == "nonmyopic" else "ad_acquire"
     assert {k[0] for k in programs} == {acquire, "nm_observe", "nm_fallback"}
     kind = outer._FusedSGAProgram if solver == "batch" else outer._DeterministicProgram
@@ -363,12 +363,12 @@ def test_acquisition_observe_and_fallback_programs_equal_the_eager_loop(monkeypa
     with monkeypatch.context() as m:
         _eager(m)
         eager = run()
-    assert dict(bo._PROGRAM_CACHE) == programs
+    assert dict(graphs.PROGRAM_CACHE) == programs
     np.testing.assert_array_equal(res.X, eager.X)
     np.testing.assert_array_equal(res.fallbacks, eager.fallbacks)
     assert torch.equal(res.state.kernel.theta, eager.state.kernel.theta)
     again = run()
-    assert dict(bo._PROGRAM_CACHE) == programs
+    assert dict(graphs.PROGRAM_CACHE) == programs
     np.testing.assert_array_equal(again.X, res.X)
 
     flat = lambda state, rnstream, restarts, h: (  # noqa: E731
@@ -376,5 +376,5 @@ def test_acquisition_observe_and_fallback_programs_equal_the_eager_loop(monkeypa
     monkeypatch.setattr(bo, "_rollout_acquirer", lambda *a, **k: flat)
     called = _calls(monkeypatch)
     forced = run()
-    (fallback,) = [p for k, p in bo._PROGRAM_CACHE.items() if k[0] == "nm_fallback"]
+    (fallback,) = [p for k, p in graphs.PROGRAM_CACHE.items() if k[0] == "nm_fallback"]
     assert forced.fallbacks.all() and called.count(fallback) == 2

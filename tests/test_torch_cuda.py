@@ -3,8 +3,8 @@ the sharded path (ranks of torch.distributed that each launch the kernel
 on their share of the lanes) vs the same solve with no mesh, and the
 programs (CUDA graphs, `utils.graphs`: the SGA programs, and the BO
 loops' observe step, myopic chunk, fallback and batch and Gauss-Hermite
-acquisitions) vs the eager route; every test function and the MLE inside a
-capture.
+acquisitions, and the sharded programs on an NCCL group) vs the eager
+route; every test function and the MLE inside a capture.
 
 Every test here is marked `cuda` and skips without a CUDA device (the
 kernel has no CPU mode). This file imports no jax, so it also runs on a
@@ -348,12 +348,17 @@ def test_maximize_hot_never_launches_the_kernel_for_a_cost_aware_rule(dev):
 # --------------------------------------------------------------------------
 
 
-def _sharded_vs_unsharded(dev, tmp_path, monkeypatch, world, backend, shapes):
-    """The fused solve of the worker's problem (float64, h 1) on `world`
+def _sharded_vs_unsharded(dev, tmp_path, monkeypatch, world, backend, shapes,
+                          kinds=("fused",)):
+    """The sharded solves of the worker's problem (float64, h 1; the fused
+    one, and the batch and scanned ones where `kinds` names them) on `world`
     ranks at each mesh shape, against the same solve with no mesh on the
     card, its simulate calls split into the blocks of restarts and
-    trajectories that the ranks launch (`torch_parallel_ranks.blocked`):
-    equal to 1e-12, and per rank h x (SGA iterations + 1) launches.
+    trajectories that the ranks launch (`torch_parallel_ranks.blocked`; the
+    batch solve splits its restarts only):
+    equal to 1e-12, and for the fused solve per rank h x (SGA iterations +
+    1) launches (on an NCCL mesh the solves run as CUDA graphs, whose
+    warm-up runs are taken off).
 
     The blocks are needed on the card: cuBLAS picks its batched-GEMM
     kernel by the batch, so the trajectory's dense products round
@@ -371,22 +376,31 @@ def _sharded_vs_unsharded(dev, tmp_path, monkeypatch, world, backend, shapes):
 
     from rollout_bo_tpu_torch.rollout import mc as mc_mod
 
-    p, kw = ranks.worker_fields(), dict(max_iters=4, inner_iterations=10)
-    problems = {f"m{r}x{m}": ("fused", (r, m), p, kw) for r, m in shapes}
+    p = ranks.worker_fields()
+    kws = dict(fused=dict(max_iters=4, inner_iterations=10),
+               batch=dict(max_iters=4, inner_iterations=10),
+               scanned=dict(max_iters=3, steps_per_call=2, inner_iterations=10))
+    problems = {f"{kind}_m{r}x{m}": (kind, (r, m), p, kws[kind])
+                for kind in kinds for r, m in shapes}
     out = ranks.Ranks(ranks.solve_case, world, str(tmp_path), backend=backend,
                       problems=problems, device="cuda").result()
     simulate = mc_mod.simulate_trajectory_mc
-    for name, (_, (r, m), _, _) in problems.items():
-        monkeypatch.setattr(mc_mod, "simulate_trajectory_mc", ranks.blocked(simulate, r, m))
+    for name, (kind, (r, m), _, kw) in problems.items():
+        # the batch solve keeps the stream whole on every rank (its restarts
+        # alone are split), so its launches are blocked by restarts only
+        blocks = (r, 1) if kind == "batch" else (r, m)
+        monkeypatch.setattr(mc_mod, "simulate_trajectory_mc", ranks.blocked(simulate, *blocks))
         before = nl.LAUNCHES
-        ref = ranks.unsharded_solve("fused", p, kw, device=dev)
-        assert nl.LAUNCHES - before == r * m * (ref.iterations + 1)
-        np.testing.assert_allclose(out[f"{name}_xs"], ref.x.cpu().numpy(), rtol=1e-12,
+        ref = ranks.unsharded_solve(kind, p, kw, device=dev)
+        xs, vals = (ref.x, ref.value) if kind == "fused" else ref
+        np.testing.assert_allclose(out[f"{name}_xs"], xs.cpu().numpy(), rtol=1e-12,
                                    atol=1e-14, err_msg=name)
-        np.testing.assert_allclose(out[f"{name}_vals"], ref.value.cpu().numpy(), rtol=1e-12,
+        np.testing.assert_allclose(out[f"{name}_vals"], vals.cpu().numpy(), rtol=1e-12,
                                    atol=1e-14, err_msg=name)
-        assert int(out[f"{name}_it"]) == ref.iterations
-        assert out[f"{name}_launches"].tolist() == [ref.iterations + 1] * world, name
+        if kind == "fused":
+            assert nl.LAUNCHES - before == r * m * (ref.iterations + 1)
+            assert int(out[f"{name}_it"]) == ref.iterations
+            assert out[f"{name}_launches"].tolist() == [ref.iterations + 1] * world, name
 
 
 def test_sharded_fused_solve_on_an_nccl_group_of_one(dev, tmp_path, monkeypatch):
@@ -400,7 +414,117 @@ def test_sharded_fused_solve_on_two_gloo_ranks_sharing_the_card(dev, tmp_path, m
 def test_sharded_fused_solve_on_two_nccl_ranks_on_two_cards(dev, tmp_path, monkeypatch):
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA devices: NCCL runs one rank per card")
-    _sharded_vs_unsharded(dev, tmp_path, monkeypatch, 2, "nccl", [(2, 1), (1, 2)])
+    _sharded_vs_unsharded(dev, tmp_path, monkeypatch, 2, "nccl", [(2, 1), (1, 2)],
+                          kinds=("fused", "batch", "scanned"))
+
+
+_SHARDED_KW = dict(simulate=dict(iterations=10), batch=dict(max_iters=4, inner_iterations=10),
+                   fused=dict(max_iters=4, inner_iterations=10),
+                   scanned=dict(max_iters=3, steps_per_call=2, inner_iterations=10),
+                   ghq=dict(horizon=1, num_nodes=4, max_iters=3, inner_iterations=10))
+
+
+def test_sharded_programs_replay_the_eager_mesh_route_on_an_nccl_group_of_one(dev, tmp_path):
+    """Every sharded program (the simulate call, the batch, fused, scanned
+    and Gauss-Hermite solves) on an NCCL group of one rank, its graphs
+    holding the world all-reduces: the replays equal the eager mesh route
+    bit for bit, and the launches (warm-up runs off) are 1 per simulate
+    call and h x (SGA iterations + 1) per fused solve (h 1)."""
+    import torch_parallel_ranks as ranks
+
+    p = ranks.worker_fields()
+    problems = {kind: (kind, (1, 1), p, kw) for kind, kw in _SHARDED_KW.items()}
+    out = ranks.Ranks(ranks.sharded_programs_case, 1, str(tmp_path), backend="nccl",
+                      problems=problems, device="cuda").result()
+    for kind in problems:
+        outputs = [k for k in out if k.startswith(f"{kind}_prog")]
+        assert outputs, kind
+        for key in outputs:
+            assert np.array_equal(out[key], out[key.replace("_prog", "_eager")],
+                                  equal_nan=True), key
+        assert int(out[f"{kind}_it"]) == int(out[f"{kind}_eager_it"]), kind
+    assert out["simulate_launches"].tolist() == [1]
+    assert out["fused_launches"].tolist() == [int(out["fused_it"]) + 1]
+
+
+def test_a_program_on_a_gloo_mesh_on_the_card_raises(dev, tmp_path):
+    """A gloo collective runs on the host, so no graph holds it: a program
+    asked for on a gloo mesh with CUDA tensors raises, naming --backend
+    nccl, and the BO loop on such a mesh takes no acquisition program."""
+    import torch_parallel_ranks as ranks
+
+    from rollout_bo_tpu_torch.parallel import mesh as mesh_mod
+    from rollout_bo_tpu_torch.rollout import bo, outer
+    from rollout_bo_tpu_torch.utils import graphs
+
+    mesh_mod.initialize_distributed(f"file://{tmp_path / 'store'}", 1, 0, backend="gloo")
+    try:
+        mesh = mesh_mod.make_mesh()
+        assert mesh.backend == "gloo" and not mesh.capturable
+        st, tp, xstarts, _ = ranks.port_problem(ranks.worker_fields(), dev)
+        with pytest.raises(ValueError, match="--backend nccl"):
+            outer.make_fused_sga_program(st, tp, dr.EI(), xstarts, mesh=mesh)
+        with pytest.raises(ValueError, match="--backend nccl"):
+            outer.make_deterministic_program(st, tp.theta, tp.lbs, tp.ubs, xstarts, dr.EI(),
+                                             horizon=1, mesh=mesh)
+        keys = set(graphs.PROGRAM_CACHE)
+        f = testfns.get_function("gramacylee")
+        bo.run_nonmyopic_bo(f, horizon=1, mc_iters=4, budget=1, num_starts=4, num_restarts=2,
+                            sgd_iters=2, device=dev, mesh=mesh)
+        assert not [k for k in set(graphs.PROGRAM_CACHE) - keys if k[0] == "nm_acquire"]
+    finally:
+        mesh_mod.finalize_distributed()
+
+
+def test_mesh_collectives_issue_no_host_sync(dev, tmp_path):
+    """`all_reduce_sum`, `gather_leading` and `broadcast` on an NCCL group of
+    one under `set_sync_debug_mode("error")`: no host read."""
+    from rollout_bo_tpu_torch.parallel import mesh as mesh_mod
+
+    mesh_mod.initialize_distributed(f"file://{tmp_path / 'store'}", 1, 0, backend="nccl")
+    try:
+        mesh = mesh_mod.make_mesh()
+        x = torch.arange(6.0, device=dev).reshape(3, 2)
+        mesh_mod.all_reduce_sum(x, mesh)       # NCCL makes its communicator here
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            s = mesh_mod.all_reduce_sum(x, mesh)
+            g = mesh_mod.gather_leading(x, mesh, mesh_mod.AXES)
+            b = mesh_mod.broadcast(x, mesh)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert torch.equal(s, x) and torch.equal(g, x) and torch.equal(b, x)
+    finally:
+        mesh_mod.finalize_distributed()
+
+
+def test_finalize_resets_the_collective_graphs_a_rank_still_holds(dev, tmp_path):
+    """A rank that still holds a mesh program leaves its NCCL group: NCCL
+    keeps a communicator while a graph that holds its collectives lives,
+    so `finalize_distributed` resets those graphs before the destroy. The
+    rank ends within the deadline, and the held program raises when called
+    after it."""
+    import time
+
+    import torch.multiprocessing as mp
+
+    import torch_parallel_ranks as ranks
+
+    out = tmp_path / "held.npz"
+    ctx = mp.start_processes(ranks.held_program_rank,
+                             args=(f"file://{tmp_path / 'store'}", str(out)), nprocs=1,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + 240
+    try:
+        while not ctx.join(timeout=5):
+            assert time.monotonic() < deadline, "the rank did not leave its NCCL group"
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+    with np.load(out) as z:
+        assert str(z["raised"]), "the held program replayed after the group was destroyed"
 
 
 def test_nccl_refuses_two_ranks_on_one_card(dev):
@@ -569,14 +693,15 @@ def test_bo_loop_takes_one_cached_program_on_the_card(dev, monkeypatch):
     points equal the eager loop's bit for bit."""
     from rollout_bo_tpu_torch.models import testfns
     from rollout_bo_tpu_torch.rollout import bo
+    from rollout_bo_tpu_torch.utils import graphs
 
-    monkeypatch.setattr(bo, "_PROGRAM_CACHE", type(bo._PROGRAM_CACHE)())
+    monkeypatch.setattr(graphs, "PROGRAM_CACHE", type(graphs.PROGRAM_CACHE)())
     f = testfns.get_function("hartmann3d")
     kw = dict(horizon=1, mc_iters=8, budget=2, num_starts=8, num_restarts=2, sgd_iters=3,
               lr=0.05, solver_iterations=8, device=dev,
               x_init=np.random.default_rng(3).uniform(f.lbs, f.ubs, (5, f.dim)))
     res = bo.run_nonmyopic_bo(f, **kw)
-    programs = {key[0]: p for key, p in bo._PROGRAM_CACHE.items()}
+    programs = {key[0]: p for key, p in graphs.PROGRAM_CACHE.items()}
     assert set(programs) == {"nm_acquire", "nm_observe", "nm_fallback"}
     program = programs["nm_acquire"]
     assert [g.captures for g in program.graphs] == [1, 1]
@@ -694,7 +819,7 @@ def test_myopic_chunk_replays_equal_the_eager_route(dev, monkeypatch, rule_name)
     from rollout_bo_tpu_torch.rollout import bo
     from rollout_bo_tpu_torch.utils import graphs
 
-    monkeypatch.setattr(bo, "_PROGRAM_CACHE", type(bo._PROGRAM_CACHE)())
+    monkeypatch.setattr(graphs, "PROGRAM_CACHE", type(graphs.PROGRAM_CACHE)())
     f = testfns.get_function("hartmann3d")
     kw = dict(budget=4, num_starts=8, device=dev,
               x_init=np.random.default_rng(3).uniform(f.lbs, f.ubs, (5, f.dim)))
@@ -710,7 +835,7 @@ def test_myopic_chunk_replays_equal_the_eager_route(dev, monkeypatch, rule_name)
         assert launches == (0 if rule_name == "Random" else 4), k
         np.testing.assert_array_equal(res.X, eager.X)
         assert torch.equal(res.state.kernel.theta, eager.state.kernel.theta)
-    (chunk,) = [p for key, p in bo._PROGRAM_CACHE.items() if key[0] == "myopic_chunk"]
+    (chunk,) = [p for key, p in graphs.PROGRAM_CACHE.items() if key[0] == "myopic_chunk"]
     # one graph per MLE constant: EI refits every iteration, Random never
     assert chunk.captures == 1
 
@@ -765,7 +890,7 @@ def test_nonmyopic_batch_and_ghq_trials_equal_the_eager_loop(dev, monkeypatch, s
     from rollout_bo_tpu_torch.rollout import bo
     from rollout_bo_tpu_torch.utils import graphs
 
-    monkeypatch.setattr(bo, "_PROGRAM_CACHE", type(bo._PROGRAM_CACHE)())
+    monkeypatch.setattr(graphs, "PROGRAM_CACHE", type(graphs.PROGRAM_CACHE)())
     f = testfns.get_function("hartmann3d")
     kw = dict(horizon=1, mc_iters=8, budget=2, num_starts=8, num_restarts=2, sgd_iters=3,
               lr=0.05, solver_iterations=8, device=dev, ghq_nodes=3,
@@ -780,5 +905,5 @@ def test_nonmyopic_batch_and_ghq_trials_equal_the_eager_loop(dev, monkeypatch, s
         eager = bo.run_nonmyopic_bo(f, **kw)
     np.testing.assert_array_equal(res.X, eager.X)
     assert torch.equal(res.state.kernel.theta, eager.state.kernel.theta)
-    (observe,) = [p for key, p in bo._PROGRAM_CACHE.items() if key[0] == "nm_observe"]
+    (observe,) = [p for key, p in graphs.PROGRAM_CACHE.items() if key[0] == "nm_observe"]
     assert observe.captures == 1

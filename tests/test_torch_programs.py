@@ -228,7 +228,7 @@ def eager_acquisitions(monkeypatch):
 
 
 def test_cached_program_is_an_lru_of_64(monkeypatch):
-    monkeypatch.setattr(bo, "_PROGRAM_CACHE", type(bo._PROGRAM_CACHE)())
+    monkeypatch.setattr(graphs, "PROGRAM_CACHE", type(graphs.PROGRAM_CACHE)())
     built = []
 
     def builder(i):
@@ -237,11 +237,11 @@ def test_cached_program_is_an_lru_of_64(monkeypatch):
     first = bo._cached_program(0, builder(0))
     bo._cached_program(1, builder(1))
     assert bo._cached_program(0, builder(-1)) is first and built == [0, 1]
-    assert list(bo._PROGRAM_CACHE) == [1, 0]            # a hit moves to the end
-    for i in range(2, bo._PROGRAM_CACHE_MAX + 1):
+    assert list(graphs.PROGRAM_CACHE) == [1, 0]            # a hit moves to the end
+    for i in range(2, graphs.PROGRAM_CACHE_MAX + 1):
         bo._cached_program(i, builder(i))
-    assert len(bo._PROGRAM_CACHE) == bo._PROGRAM_CACHE_MAX == 64
-    assert 1 not in bo._PROGRAM_CACHE and 0 in bo._PROGRAM_CACHE   # least recent went
+    assert len(graphs.PROGRAM_CACHE) == graphs.PROGRAM_CACHE_MAX == 64
+    assert 1 not in graphs.PROGRAM_CACHE and 0 in graphs.PROGRAM_CACHE   # least recent went
     assert bo._cached_program(0, builder(-1)) is first
 
 
@@ -254,7 +254,7 @@ def test_bo_trial_through_cached_programs_equals_the_eager_loop(monkeypatch, loo
     cache equals the trial in the eager loop; its observe step and
     fallback come from the cache as well; a second trial reuses the
     programs (no new cache entry, no new build)."""
-    monkeypatch.setattr(bo, "_PROGRAM_CACHE", type(bo._PROGRAM_CACHE)())
+    monkeypatch.setattr(graphs, "PROGRAM_CACHE", type(graphs.PROGRAM_CACHE)())
     f = tf.get_function("sixhump")
     kw = dict(horizon=1, mc_iters=6, budget=2, num_starts=4, num_restarts=2, sgd_iters=3,
               lr=0.05, solver_iterations=4, device="cpu",
@@ -265,7 +265,7 @@ def test_bo_trial_through_cached_programs_equals_the_eager_loop(monkeypatch, loo
     else:
         run = lambda **k: bo.run_adaptive_bo(f, **kw, **k)  # noqa: E731
     res = run()
-    programs = dict(bo._PROGRAM_CACHE)
+    programs = dict(graphs.PROGRAM_CACHE)
     acquire = "nm_acquire" if loop == "nonmyopic" else "ad_acquire"
     acquisitions = {k: p for k, p in programs.items() if k[0] == acquire}
     # one program per horizon: the adaptive schedule alternates h 0 and 1
@@ -277,12 +277,12 @@ def test_bo_trial_through_cached_programs_equals_the_eager_loop(monkeypatch, loo
     with monkeypatch.context() as m:
         eager_acquisitions(m)
         eager = run()
-    assert dict(bo._PROGRAM_CACHE) == programs
+    assert dict(graphs.PROGRAM_CACHE) == programs
     np.testing.assert_array_equal(res.X, eager.X)
     np.testing.assert_array_equal(res.sga_iterations, eager.sga_iterations)
     np.testing.assert_array_equal(res.fallbacks, eager.fallbacks)
     again = run()
-    assert dict(bo._PROGRAM_CACHE) == programs
+    assert dict(graphs.PROGRAM_CACHE) == programs
     np.testing.assert_array_equal(again.X, res.X)
 
 

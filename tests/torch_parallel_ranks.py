@@ -63,7 +63,28 @@ def _rank(rank, case, world, init_method, backend, out, kw):
         if rank == 0:
             np.savez(out, **{k: np.asarray(v) for k, v in results.items()})
     finally:
-        dist.destroy_process_group()
+        mesh_mod.finalize_distributed()
+
+
+def held_program_rank(rank, init_method, out):
+    """One NCCL rank that leaves its group while it still holds a mesh
+    program, whose graphs hold the group's collectives: saves to `out` what
+    calling the program after `finalize_distributed` raised ("" if
+    nothing). The test that starts it waits for it with a deadline: a
+    destroy that waits for the live graphs would hang here."""
+    mesh_mod.initialize_distributed(init_method, 1, rank, backend="nccl")
+    dev = mesh_mod.rank_device("cuda")
+    st, tp, xstarts, starts = port_problem(worker_fields(), dev)
+    program = outer.make_fused_sga_program(st, tp, dr.EI(), xstarts, mesh=mesh_mod.make_mesh(),
+                                           max_iters=2, inner_iterations=10)
+    program(st, tp.rnstream, starts)
+    mesh_mod.finalize_distributed()
+    try:
+        program(st, tp.rnstream, starts)
+        raised = ""
+    except RuntimeError as e:
+        raised = str(e) or type(e).__name__
+    np.savez(out, raised=raised)
 
 
 def port_state(fields, device="cpu", dtype=f64):
@@ -110,14 +131,17 @@ def simulate_case(problem, meshes, iterations):
 
 def solve_case(problems, device="cpu", dtype="float64"):
     """Each named problem: (kind, mesh shape, solver keywords); the sharded
-    batch, fused or scanned solve, its kernel launches and its SGA
-    iterations (-1 where the solver does not report them)."""
+    batch, fused or scanned solve, its kernel launches (those of the
+    warm-up runs before a capture taken off) and its SGA iterations (-1
+    where the solver does not report them)."""
+    from rollout_bo_tpu_torch.utils import graphs
+
     dev, dt = mesh_mod.rank_device(device), getattr(torch, dtype)
     out = {}
     for name, (kind, (restarts, mc), p, kw) in problems.items():
         mesh = mesh_mod.make_mesh(restarts=restarts, mc=mc)
         st, tp, xstarts, starts = port_problem(p, dev, dt)
-        before = nl.LAUNCHES
+        before, warm = nl.LAUNCHES, graphs.WARMUP_LAUNCHES
         if kind == "batch":
             xs, vals = sharded.sharded_stochastic_solve_batch(st, tp, dr.EI(), xstarts,
                                                               starts, mesh, **kw)
@@ -131,7 +155,8 @@ def solve_case(problems, device="cpu", dtype="float64"):
                                                                   starts, mesh, **kw)
         out[f"{name}_xs"], out[f"{name}_vals"] = xs.cpu().numpy(), vals.cpu().numpy()
         out[f"{name}_it"] = it
-        launches = torch.tensor([nl.LAUNCHES - before], device=dev)
+        launches = torch.tensor([nl.LAUNCHES - before - (graphs.WARMUP_LAUNCHES - warm)],
+                                device=dev)
         out[f"{name}_launches"] = mesh_mod.gather_leading(launches, mesh, mesh_mod.AXES
                                                           ).cpu().numpy()
     return out
@@ -144,6 +169,158 @@ def bo_case(name, kw, restarts, mc=1, device="cpu"):
                               mesh=mesh, **kw)
     return dict(X=res.X, y=res.y, theta=res.state.kernel.theta.cpu().numpy(),
                 sga_iterations=res.sga_iterations, fallbacks=res.fallbacks)
+
+
+def _program_route(kind, mesh, problem, kw):
+    """One sharded solve or simulate call on `mesh` through its program: the
+    `parallel.sharded` function (for "ghq", `outer.make_deterministic_program(mesh=)`).
+    Returns (outputs, SGA iterations or -1)."""
+    st, tp, xstarts, starts = problem
+    rule = dr.EI()
+    if kind == "simulate":
+        eto = sharded.sharded_simulate_mc(st, tp, rule, xstarts, mesh, **kw)
+        return [getattr(eto, f) for f in _SIMULATED], -1
+    if kind == "ghq":
+        program = outer.make_deterministic_program(st, tp.theta, tp.lbs, tp.ubs, xstarts, rule,
+                                                   mesh=mesh, **kw)
+        return list(program(st, starts)), -1
+    if kind == "batch":
+        return list(sharded.sharded_stochastic_solve_batch(st, tp, rule, xstarts, starts, mesh,
+                                                           **kw)), -1
+    if kind == "scanned":
+        program = outer.make_scanned_sga_program(
+            st, tp, rule, xstarts, mesh=mesh, **{k: v for k, v in kw.items() if k != "max_iters"})
+        return list(sharded.sharded_stochastic_solve_scanned(
+            st, tp, rule, xstarts, starts, mesh, program=program, **kw)), -1
+    program = outer.make_fused_sga_program(st, tp, rule, xstarts, mesh=mesh, **kw)
+    fs = sharded.sharded_stochastic_solve_fused(st, tp, rule, xstarts, starts, mesh,
+                                                program=program, **kw)
+    return [fs.x, fs.value], fs.iterations
+
+
+def _eager_route(kind, mesh, problem, kw):
+    """The same call on the eager mesh route: the same placement through
+    the eager functions, with no program. Returns (outputs, SGA iterations
+    or -1)."""
+    from rollout_bo_tpu_torch.rollout import mc
+
+    st, tp, xstarts, starts = problem
+    rule = dr.EI()
+    if kind == "simulate":
+        rn = mesh_mod.shard_leading(tp.rnstream, mesh, mesh_mod.AXES)
+        eto = mc.simulate_trajectory_mc(st, tp._replace(rnstream=rn), rule, xstarts,
+                                        group=mesh.group(mesh_mod.AXES), **kw)
+        return [getattr(eto, f) for f in _SIMULATED], -1
+    if kind == "ghq":
+        return list(outer.deterministic_solve_batch(st, tp.theta, tp.lbs, tp.ubs, xstarts,
+                                                    starts, rule, mesh=mesh, **kw)), -1
+    if kind == "batch":
+        return list(outer.stochastic_solve_batch(st, tp, rule, xstarts, starts, mesh=mesh,
+                                                 **kw)), -1
+    fs = outer.stochastic_solve_fused(st, tp, rule, xstarts, starts, mesh=mesh, **kw)
+    return [fs.x, fs.value], -1 if kind == "scanned" else fs.iterations
+
+
+_SIMULATED = ("mu", "std_mu", "grad_x", "std_grad_x", "grad_theta", "std_grad_theta")
+
+
+def sharded_programs_case(problems, device="cpu", dtype="float64"):
+    """Each named problem: (kind, mesh shape, numpy problem, keywords), with
+    kind "simulate", "batch", "scanned", "fused" or "ghq": the program
+    route's outputs (`{name}_prog{i}`), the eager mesh route's
+    (`{name}_eager{i}`), the SGA iterations of each (-1 where not
+    reported) and, per rank, the lane-kernel launches of the program route
+    with its graphs' warm-up runs taken off."""
+    from rollout_bo_tpu_torch.utils import graphs
+
+    dev, dt = mesh_mod.rank_device(device), getattr(torch, dtype)
+    out = {}
+    for name, (kind, (restarts, mc), p, kw) in problems.items():
+        mesh = mesh_mod.make_mesh(restarts=restarts, mc=mc)
+        problem = port_problem(p, dev, dt)
+        before, warm = nl.LAUNCHES, graphs.WARMUP_LAUNCHES
+        prog, it = _program_route(kind, mesh, problem, kw)
+        launches = nl.LAUNCHES - before - (graphs.WARMUP_LAUNCHES - warm)
+        eager, eager_it = _eager_route(kind, mesh, problem, kw)
+        for i, (a, b) in enumerate(zip(prog, eager)):
+            out[f"{name}_prog{i}"], out[f"{name}_eager{i}"] = a.cpu().numpy(), b.cpu().numpy()
+        out[f"{name}_it"], out[f"{name}_eager_it"] = it, eager_it
+        out[f"{name}_launches"] = mesh_mod.gather_leading(
+            torch.tensor([launches], device=dev), mesh, mesh_mod.AXES).cpu().numpy()
+    return out
+
+
+def batch_problems_case(problem, kw):
+    """`sharded_stochastic_solve_batch` on a (world, 1) mesh for two
+    problems that differ in the rule's theta, the box and the inner starts
+    only: the outputs of each through the program route and the eager mesh
+    route, and how many batch programs of this mesh the cache holds after
+    both (the problem is an input of the program's graphs, not part of its
+    key)."""
+    from rollout_bo_tpu_torch.utils import graphs
+
+    mesh = mesh_mod.make_mesh(restarts=dist.get_world_size())
+    st, tp, xstarts, starts = port_problem(problem)
+    other = tp._replace(theta=tp.theta * 0.5, lbs=tp.lbs - 0.25, ubs=tp.ubs + 0.25)
+    out = {}
+    for name, (t, xs) in dict(first=(tp, xstarts), second=(other, xstarts.flip(0))).items():
+        prog = sharded.sharded_stochastic_solve_batch(st, t, dr.EI(), xs, starts, mesh, **kw)
+        eager = outer.stochastic_solve_batch(st, t, dr.EI(), xs, starts, mesh=mesh, **kw)
+        for i, (a, b) in enumerate(zip(prog, eager)):
+            out[f"batch_{name}_prog{i}"], out[f"batch_{name}_eager{i}"] = a.numpy(), b.numpy()
+    out["batch_programs"] = len([k for k in graphs.PROGRAM_CACHE
+                                 if k[0] == "sharded_batch" and k[2] == mesh])
+    return out
+
+
+def program_mesh_error_case(problem):
+    """What a mesh solve refuses: a fused or scanned program built without a
+    mesh, and a mesh's program on one device. Returns the messages."""
+    mesh = mesh_mod.make_mesh(restarts=dist.get_world_size())
+    st, tp, xstarts, starts = port_problem(problem)
+    msgs = {}
+    calls = {
+        "fused_no_mesh": lambda: sharded.sharded_stochastic_solve_fused(
+            st, tp, dr.EI(), xstarts, starts, mesh,
+            program=outer.make_fused_sga_program(st, tp, dr.EI(), xstarts)),
+        "scanned_no_mesh": lambda: sharded.sharded_stochastic_solve_scanned(
+            st, tp, dr.EI(), xstarts, starts, mesh,
+            program=outer.make_scanned_sga_program(st, tp, dr.EI(), xstarts)),
+        "fused_one_device": lambda: outer.stochastic_solve_fused(
+            st, tp, dr.EI(), xstarts, starts,
+            program=outer.make_fused_sga_program(st, tp, dr.EI(), xstarts, mesh=mesh)),
+    }
+    for key, call in calls.items():
+        try:
+            call()
+            msgs[key] = ""
+        except ValueError as e:
+            msgs[key] = str(e)
+    return msgs
+
+
+def bo_program_case(name, kw, restarts, mc=1, device="cpu"):
+    """`bo_case` with the program keys the loop asked `bo._cached_program`
+    for (as text) and the acquisitions that ran a cached program."""
+    asked, cached = [], bo._cached_program
+    acquisitions = {"count": 0}
+    call = outer._FusedSGAProgram.__call__
+
+    def asking(key, builder):
+        asked.append(repr(key))
+        return cached(key, builder)
+
+    def counted(self, *a):
+        acquisitions["count"] += 1
+        return call(self, *a)
+
+    bo._cached_program, outer._FusedSGAProgram.__call__ = asking, counted
+    try:
+        out = bo_case(name, kw, restarts, mc, device)
+    finally:
+        bo._cached_program, outer._FusedSGAProgram.__call__ = cached, call
+    out.update(keys=np.asarray(asked), programs_run=acquisitions["count"])
+    return out
 
 
 def mesh_error_case():
