@@ -200,7 +200,18 @@ Run from the repository root on a machine with one NVIDIA Hopper card
    trials (hartmann6d, budget 4, EI and Random) in chunks of 1 and of 4
    against the eager loop, bit for bit, one launch per EI iteration; and
    the observe program at the non-myopic width against the eager observe,
-   bit for bit.
+   bit for bit;
+14. the regret-parity sweep (`scripts/parity_sweep_torch.py`), as its
+   plan runs cells, each in a process of its own: the myopic cell sixhump
+   / EI (budget 100, 64 starts, float64; 2 trials) and the ladder cell
+   gramacylee / h 1 (budget 15, 200 QMC trajectories, 8 restarts, 8
+   starts, 50 SGA iterations, MLE, 1 initial observation, float32; 1
+   trial), then `scripts/parity_report_torch.py` on their output. Checks
+   every CSV (header, sentinel, a row of finite numbers per trial; gaps in
+   [0, 1], non-decreasing) and that each cell launched the lane kernel;
+   prints per cell the seconds and launches per BO iteration (on the
+   ladder cell the SGA iterations per acquisition they give) and the
+   report's lines.
 
 `--phases 3 11` runs only the phases named (1 and 2 always run); a partial
 run prints neither of the two closing lines.
@@ -219,6 +230,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import csv
+import dataclasses
 import io
 import json
 import math
@@ -975,20 +987,22 @@ def _simulate_timing():
         mc.simulate_trajectory_mc, solvers.newton_solve_batch = simulate, solve
 
 
-def _check_csv(path, budget, *, gaps=False):
-    """Header, sentinel row and one row of `budget` finite numbers."""
+def _check_csv(path, budget, *, gaps=False, trials=1):
+    """Header, sentinel row and `trials` rows of `budget` finite numbers;
+    returns the last row."""
     with open(path) as fh:
         rows = list(csv.reader(fh))
-    if (len(rows) != 3 or rows[0] != ["trial"] + [str(i) for i in range(1, budget + 1)]
+    if (len(rows) != 2 + trials or rows[0] != ["trial"] + [str(i) for i in range(1, budget + 1)]
             or [float(v) for v in rows[1]] != [-1.0] * (budget + 1)):
-        raise AssertionError(f"{path}: not header + sentinel + one trial row")
-    row = np.asarray([float(v) for v in rows[2]])
-    if row.shape != (budget,) or not np.all(np.isfinite(row)):
-        raise AssertionError(f"{path}: trial row is not {budget} finite numbers")
-    # the optimizer locations are rounded, so a found optimum may pass 1 by a hair
-    if gaps and not (np.all(row >= 0.0) and np.all(row <= 1.0 + 1e-3)
-                     and np.all(np.diff(row) >= 0.0)):
-        raise AssertionError(f"{path}: gaps outside [0, 1] or decreasing: {row}")
+        raise AssertionError(f"{path}: not header + sentinel + {trials} trial row(s)")
+    for r in rows[2:]:
+        row = np.asarray([float(v) for v in r])
+        if row.shape != (budget,) or not np.all(np.isfinite(row)):
+            raise AssertionError(f"{path}: a trial row is not {budget} finite numbers")
+        # the optimizer locations are rounded, so a found optimum may pass 1 by a hair
+        if gaps and not (np.all(row >= 0.0) and np.all(row <= 1.0 + 1e-3)
+                         and np.all(np.diff(row) >= 0.0)):
+            raise AssertionError(f"{path}: gaps outside [0, 1] or decreasing: {row}")
     return row
 
 
@@ -2380,7 +2394,58 @@ def phase_programs(dev, card):
     print(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
 
 
-_PHASES = (3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13)
+# --------------------------------------------------------------------------
+# phase 14: the regret-parity sweep and its report
+# --------------------------------------------------------------------------
+
+
+def phase_parity_sweep(card):
+    """scripts/parity_sweep_torch.py on two cells of its parity plan, each
+    in a process of its own as the sweep runs them, then
+    scripts/parity_report_torch.py on their output."""
+    t_phase = time.perf_counter()
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    import parity_report_torch as report
+    import parity_sweep_torch as sweep
+
+    from rollout_bo_tpu_torch.experiments import myopic
+
+    plan = sweep.plan_cells("parity")
+    cells = [dataclasses.replace(sweep.select(plan, ["sixhump:ei"])[0], trials=2),
+             dataclasses.replace(sweep.select(plan, ["gramacylee:h1"])[0], trials=1)]
+    with tempfile.TemporaryDirectory(prefix="parity_sweep_torch-") as out:
+        if sweep.run(cells, out, "cuda") != 0:
+            raise AssertionError("the parity sweep failed a cell (its output is above)")
+        metrics = {"myopic": myopic.METRICS, "nonmyopic": ["times", "gaps", "observations"]}
+        for cell in cells:
+            for metric in metrics[cell.cli]:
+                _check_csv(os.path.join(cell.directory(out), f"{cell.prefix}_{metric}.csv"),
+                           cell.budget, gaps=metric == "gaps", trials=cell.trials)
+        rows, text = report.report(out, os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "results"))
+        timing = {(r["function"], r["cell"]): r for r in report.timing_table(out)[0]}
+    if len(rows) != 2 or len(timing) != 2:
+        raise AssertionError(f"the report holds {len(rows)} gap rows and {len(timing)} "
+                             "timing rows, not 2 and 2")
+    for cell in cells:
+        t = timing[cell.function, cell.label]
+        if not t["launches_per_iter"] > 0:
+            raise AssertionError(f"sweep cell {cell.function} {cell.label} launched no lane "
+                                 "kernel")
+        sga = (f", {t['sga_per_acq']:.2f} SGA iterations per acquisition (launches / h - 1)"
+               if cell.cli == "nonmyopic" else "")
+        print(f"parity sweep cell {cell.cli} {cell.function} {cell.label} ({cell.trials} "
+              f"trial(s), budget {cell.budget}): {t['s_per_iter']:.4f} s per BO iteration "
+              f"(median over iterations 2.. of each trial), {t['launches_per_iter']:.2f} "
+              f"lane-kernel launches per BO iteration{sga}; the cell's process "
+              f"{t['cell_seconds']:.1f} s; on {card}")
+    for line in text.splitlines():
+        if line and not line.startswith("card:"):
+            print(f"  report: {line}")
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+
+
+_PHASES = (3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14)
 
 
 def main(argv=None):
@@ -2415,6 +2480,8 @@ def main(argv=None):
         phase_measurement(smi)
     if 13 in phases:
         phase_programs(dev, smi)
+    if 14 in phases:
+        phase_parity_sweep(smi)
     torch.cuda.synchronize()
     if phases != set(_PHASES):
         print(f"partial run (phases {sorted(phases)}): no closing lines")

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import gc
 import os
 
 import torch
@@ -110,8 +111,14 @@ def finalize_distributed() -> None:
     reset first (`utils.graphs.release_collectives`): NCCL does not
     destroy a communicator while such a graph lives, so a rank that kept
     one, in a cache, a caller's variable or a traceback, would wait here
-    for ever."""
+    for ever. The cached programs are dropped too: a mesh program holds
+    its `Mesh`, and so the mesh's groups, whose gloo threads
+    `destroy_process_group` leaves running while the group lives; a rank
+    that exits with them running can abort in the interpreter's teardown
+    ("terminate called without an active exception")."""
     graphs.release_collectives()
+    graphs.PROGRAM_CACHE.clear()
+    gc.collect()
     if dist.is_initialized():
         dist.destroy_process_group()
 

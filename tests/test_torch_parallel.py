@@ -30,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.multiprocessing as mp
 
 import torch_parallel_ranks as ranks
 from rollout_bo_tpu.models import decision_rules as jdr
@@ -247,6 +248,20 @@ def test_nonmyopic_cli_on_two_ranks(tmp_path, capfd, jax_bo):
         assert rows.shape == (1, 3)                           # one writer, one row
     obs = log.read_rows(os.path.join(out, "gramacylee", "rollout_h1_observations"))[0]
     np.testing.assert_allclose(obs, jax_bo.y[-3:], rtol=1e-6, atol=1e-8)
+
+
+def test_finalize_stops_the_gloo_threads_of_a_cached_mesh(tmp_path):
+    """A rank whose program cache still holds a mesh program (a CLI rank
+    after its trials) leaves no gloo thread running once it has left its
+    group. With them running, a rank could abort in its interpreter's
+    teardown (SIGABRT, "terminate called without an active exception"),
+    which failed test_nonmyopic_cli_on_two_ranks once in tens of runs."""
+    out = str(tmp_path / "threads")
+    mp.start_processes(ranks.cached_mesh_rank, args=(2, f"file://{tmp_path / 'store'}", out),
+                       nprocs=2, start_method="spawn")
+    for rank in range(2):
+        with np.load(f"{out}-{rank}.npz") as z:
+            assert z["threads"].tolist() == [], rank
 
 
 def test_two_process_worker_matches_jax(launched, jax_refs):

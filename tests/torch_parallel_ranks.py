@@ -25,6 +25,7 @@ from rollout_bo_tpu_torch.parallel import mesh as mesh_mod
 from rollout_bo_tpu_torch.parallel import sharded
 from rollout_bo_tpu_torch.rollout import bo, outer
 from rollout_bo_tpu_torch.rollout.trajectory import TrajectoryParams
+from rollout_bo_tpu_torch.utils import graphs
 
 f64 = torch.float64
 
@@ -85,6 +86,27 @@ def held_program_rank(rank, init_method, out):
     except RuntimeError as e:
         raised = str(e) or type(e).__name__
     np.savez(out, raised=raised)
+
+
+def _mesh_program(world):
+    mesh = mesh_mod.make_mesh(restarts=world, mc=1)
+    return lambda: mesh
+
+
+def cached_mesh_rank(rank, world, init_method, out):
+    """A gloo rank that leaves its group while the program cache holds a
+    program that holds its mesh, as a CLI rank's cache does after its
+    trials: saves to `<out>-<rank>.npz` the names of the gloo threads still
+    running once `finalize_distributed` has returned."""
+    torch.set_num_threads(1)
+    mesh_mod.initialize_distributed(init_method, world, rank, backend="gloo")
+    graphs.cached_program(("a mesh program", rank), lambda: _mesh_program(world))
+    mesh_mod.finalize_distributed()
+    names = []
+    for task in os.listdir("/proc/self/task"):
+        with open(f"/proc/self/task/{task}/comm") as fh:
+            names.append(fh.read().strip())
+    np.savez(f"{out}-{rank}.npz", threads=np.asarray([n for n in names if "gloo" in n], str))
 
 
 def port_state(fields, device="cpu", dtype=f64):
