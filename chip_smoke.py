@@ -235,6 +235,7 @@ import io
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -268,7 +269,6 @@ def phase_device():
 
 def phase_build():
     from rollout_bo_tpu_torch.ops import _build
-    from rollout_bo_tpu_torch.ops import newton_lanes as nl
 
     t0 = time.perf_counter()
     _build.load("newton_lanes")
@@ -279,19 +279,41 @@ def phase_build():
     inst = ()
     for line in _build.build_log("newton_lanes").splitlines():
         if "Compiling entry" in line:
-            f64 = "kernelId" in line
-            inst = ("float64, Li form" if f64 else "float32, W form",
-                    ("Li" if f64 else "W") + (" staged" if "Lb1E" in line
-                                              else " in device memory"))
+            li = re.search(r"newton_li_kernel_d(\d+)ILb(\d)E", line)
+            if li:
+                inst = (f"float64, Li form, factor unrolled to {li[1]}",
+                        "Li staged" if li[2] == "1" else "Li in device memory")
+            elif "newton_lanes_kernel" in line:
+                inst = ("float32, W form",
+                        "W staged" if "Lb1E" in line else "W in device memory")
+            else:
+                inst = ("float64, best start over the start blocks",)
         if "registers" in line or "spill" in line:
             print(f"  ptxas ({', '.join(inst)}):", line.strip())
-    lanes, groups, stage_m, smem = nl._block_shape(24, 10, 10, 4)
-    threads = lanes * groups * nl._GROUP
-    blocks = nl._library().newton_lanes_blocks_per_sm(4, int(stage_m), threads, smem)
-    print(f"  bench shape (cap 24, d 10, S 10, float32): blocks of {lanes} lane x {groups} "
-          f"warps = {threads} threads, {smem} B of shared memory, {blocks} blocks "
-          f"({blocks * threads // 32} warps) resident per SM")
+    lay = kernel_layout(torch.empty((1600, 24, 10), dtype=torch.float32, device="cuda"), 10)
+    print(f"  bench shape (cap 24, d 10, S 10, float32): blocks of {lay['lanes_per_block']} "
+          f"lane x {lay['groups_per_lane']} warps = {lay['threads']} threads, "
+          f"{lay['shared_bytes']} B of shared memory, {lay['blocks_per_sm']} blocks "
+          f"({lay['warps_per_sm']} warps) resident per SM")
     return seconds
+
+
+def kernel_layout(X, S):
+    """The lane kernel's blocks for lanes shaped like X and S starts on this
+    card: blocks in the launch, their threads, lanes, groups (of 32
+    threads) and start blocks, shared bytes, cluster size (no clusters: 1)
+    and what an SM holds (`newton_lanes_blocks_per_sm`)."""
+    from rollout_bo_tpu_torch.ops import newton_lanes as nl
+
+    L, cap, d = X.shape
+    lay = nl._block_shape(cap, d, S, X.element_size(), L, sms=nl._sm_count(X.device.index))
+    per_sm = nl._library().newton_lanes_blocks_per_sm(X.element_size(), d, int(lay.stage_m),
+                                                      lay.threads, lay.smem)
+    return dict(blocks=-(-L // lay.lanes) * lay.start_blocks, threads=lay.threads,
+                lanes_per_block=lay.lanes, groups_per_lane=lay.groups,
+                start_blocks=lay.start_blocks, shared_bytes=lay.smem, cluster=1,
+                stage_m=lay.stage_m, blocks_per_sm=per_sm,
+                warps_per_sm=per_sm * -(-lay.threads // 32))
 
 
 # --------------------------------------------------------------------------
@@ -367,14 +389,19 @@ def _compare(st, rule, th, lbs, ubs, xstarts, iterations, label, timing=False):
     kernel = lambda: nl.newton_solve_lanes(*args, **kw)
     plain = lambda: nl.newton_solve_lanes_ref(*args, **kw)
     if timing:
-        kernel(), plain()                       # warm up both
+        x0, v0 = kernel()                       # warm up both
+        plain()
         torch.cuda.synchronize()
         ms, (xk, vk) = _events_ms(kernel, 5)
         plain_ms, (xr, vr) = _events_ms(plain, 2)
     else:
-        (xk, vk), (xr, vr) = kernel(), plain()
+        (x0, v0), (xk, vk), (xr, vr) = kernel(), kernel(), plain()
         ms = plain_ms = float("nan")
     torch.cuda.synchronize()
+    repeats = torch.equal(x0, xk) and torch.equal(v0, vk)
+    # the iterations the starts ran: the float64 kernel stops a start at a
+    # fixed point, and the bound counts the work these lanes need
+    runs = nl._iterations_run(*args, **kw) if timing and dt == torch.float64 else None
     assert xk.shape == xr.shape and vk.shape == vr.shape and xk.dtype == dt
     vk_cross = sg.acquisition(st, rule, xk, th)
     vr_cross = sg.acquisition(st, rule, xr, th)
@@ -418,27 +445,33 @@ def _compare(st, rule, th, lbs, ubs, xstarts, iterations, label, timing=False):
             f"{float((vk_cross - vr_cross).min()):.3e})")
     return dict(max_abs_err=float(vs_plain.max()), max_err_reeval=float(err.max()),
                 agree=agree, apart=int(far.sum()), sided=sided, void=void, moved=moved,
-                ms=ms, plain_ms=plain_ms,
+                ms=ms, plain_ms=plain_ms, repeats=repeats,
+                runs=None if runs is None else float(runs.double().mean()),
                 **lane_bound(st.n.tolist(), st.X.shape[1], st.X.shape[2], xstarts.shape[0],
-                             iterations, dt))
+                             iterations, dt, runs))
 
 
-def lane_bound(n, cap, d, S, iterations, dtype):
+def lane_bound(n, cap, d, S, iterations, dtype, runs=None):
     """The least time the card could take for one `newton_solve_lanes` call
     on lanes of active counts n: the larger of its operations over the peak
-    rate of `dtype` and its bytes over the memory rate (`lane_solve_work`).
-    Returns dict(flops, bytes, bound_ms, bound_by)."""
+    rate of `dtype` and its bytes over the memory rate (`lane_solve_work`;
+    `runs`, the iterations each start needs, where measured). Returns
+    dict(flops, bytes, bound_ms, bound_by)."""
     from rollout_bo_tpu_torch.ops import newton_lanes as nl
 
     itemsize = torch.tensor([], dtype=dtype).element_size()
-    flops, nbytes = nl.lane_solve_work(n, cap, d, S, iterations, itemsize)
+    flops, nbytes = nl.lane_solve_work(n, cap, d, S, iterations, itemsize,
+                                       None if runs is None else runs.cpu())
     bound_ops, bound_bytes = flops / _PEAK_FLOPS[dtype] * 1e3, nbytes / _PEAK_BYTES * 1e3
     return dict(flops=flops, bytes=nbytes, bound_ms=max(bound_ops, bound_bytes),
                 bound_by="operations" if bound_ops >= bound_bytes else "bytes")
 
 
 def _work_line(r, card):
-    return (f"  work {r['flops'] / 1e9:.3f} GFLOP, {r['bytes']} B; bound {r['bound_ms']:.4f} ms "
+    ran = ("" if r.get("runs") is None
+           else f" (the starts ran {r['runs']:.2f} iterations on average)")
+    return (f"  work {r['flops'] / 1e9:.3f} GFLOP{ran}, {r['bytes']} B; "
+            f"bound {r['bound_ms']:.4f} ms "
             f"(by {r['bound_by']}); kernel {r['ms']:.3f} ms, {r['bound_ms'] / r['ms']:.4f} of "
             f"the bound reached; plain {r['plain_ms']:.3f} ms; on {card}")
 
@@ -531,29 +564,89 @@ def phase_kernel_checks(dev, card):
         print(f"kernel vs plain, edge of the block layout: {label} passed; lanes void "
               f"for (b): {void}")
 
+    print(f"kernel vs plain, {_cross_block_tie(dev)} passed")
+
     # the shapes the BO loops give the kernel (phases 5 and 6): hartmann6d in
     # float64, the solver's default 12 iterations
     f = testfns.get_function("hartmann6d")
     t64 = lambda a: torch.tensor(np.asarray(a), dtype=torch.float64, device=dev)
-    for label, sizes, cap, starts in (
-            ("myopic loop (1 lane, n 104 of capacity 105, S 66)", {104: 1}, 105, 64),
-            ("non-myopic loop (2000 lanes, n 6..21 of capacity 23, S 18)",
+    for key, label, sizes, cap, starts in (
+            ("myopic", "myopic loop (1 lane, n 104 of capacity 105, S 66)", {104: 1}, 105, 64),
+            ("non-myopic", "non-myopic loop (2000 lanes, n 6..21 of capacity 23, S 18)",
              {6: 500, 12: 500, 17: 500, 21: 500}, 23, 16)):
         st = _lane_state(sizes, f.dim, cap, "matern52", (0.6,), f.lbs, f.ubs,
                          torch.float64, dev, 17, f=f)
         th = torch.zeros((st.X.shape[0], 1), dtype=torch.float64, device=dev)
         xs = t64(qmc.generate_initial_guesses(starts, f.lbs, f.ubs))
-        lanes, groups, stage_m, smem = nl._block_shape(cap, f.dim, xs.shape[0], 8)
+        lay = kernel_layout(st.X, xs.shape[0])
         r = _compare(st, dr.EI(), th, t64(f.lbs), t64(f.ubs), xs, 12, label, timing=True)
-        print(f"kernel vs plain, {label}, d 6, matern52/EI, float64: blocks of {lanes} "
-              f"lane x {groups} warps, Li {'staged' if stage_m else 'in device memory'}, "
-              f"{smem} B of shared memory; argmax agreement {r['agree']:.4f}, "
-              f"max |v_kernel - v_plain| {r['max_abs_err']:.3e}, max |v - acq(x)| "
-              f"{r['max_err_reeval']:.3e}, lanes that left their start {r['moved']:.4f}")
+        print(f"kernel vs plain, {label}, d 6, matern52/EI, float64: {lay['blocks']} blocks "
+              f"of {lay['lanes_per_block']} lane x {lay['groups_per_lane']} warps, "
+              f"{lay['start_blocks']} start blocks per lane, cluster "
+              f"size {lay['cluster']}, Li {'staged' if lay['stage_m'] else 'in device memory'}, "
+              f"{lay['shared_bytes']} B of shared memory, {lay['blocks_per_sm']} blocks "
+              f"({lay['warps_per_sm']} warps) resident per SM; argmax agreement "
+              f"{r['agree']:.4f}, max |v_kernel - v_plain| {r['max_abs_err']:.3e}, max "
+              f"|v - acq(x)| {r['max_err_reeval']:.3e}, lanes that left their start "
+              f"{r['moved']:.4f}, two launches bit for bit {r['repeats']}")
         print(_work_line(r, card))
         if r["agree"] != 1.0:
             raise AssertionError(f"{label}: argmax agreement {r['agree']} != 1 in float64")
+        if not r["repeats"]:
+            raise AssertionError(f"{label}: two launches on the same inputs differ")
+        KERNEL_MS[key] = r["ms"]
     return bench
+
+
+# the lane kernel's ms at the BO loops' shapes (phase 3), beside phases 5 and 6
+KERNEL_MS = {}
+
+
+def _kernel_ms(key):
+    ms = KERNEL_MS.get(key)
+    return "not measured in this run (phase 3)" if ms is None else f"{ms:.3f} ms (phase 3)"
+
+
+def _cross_block_tie(dev):
+    """One lane, 66 starts, one per block (the construction of
+    tests/test_torch_kernel_emulation.py): four data points in a corner at
+    lengthscale 0.001; starts 0-23 on them, starts 24-65 where every k(x,
+    X_j) underflows to 0, so that their EI values tie exactly and none
+    moves. Start 24 must win across the blocks, as in the plain version;
+    criteria (a) and (b) hold. Returns the label."""
+    from rollout_bo_tpu_torch.models import decision_rules as dr
+    from rollout_bo_tpu_torch.models import surrogate as sg
+    from rollout_bo_tpu_torch.ops import kernels as K
+    from rollout_bo_tpu_torch.ops import newton_lanes as nl
+    from rollout_bo_tpu_torch.ops import qmc
+
+    dt, d = torch.float64, 2
+    X = np.array([[-0.9, -0.9], [-0.9, -0.8], [-0.8, -0.9], [-0.8, -0.8]])
+    kern = K.RBFKernel(torch.tensor([0.001], dtype=dt, device=dev), "matern52")
+    st = sg.fit(kern, X[None], np.array([[1.0, 1.5, 2.0, 2.5]]), capacity=8, noise=1e-4,
+                device=dev, dtype=dt)
+    st = st._replace(Li=st.Li.contiguous())
+    t = lambda a: torch.tensor(np.asarray(a), dtype=dt, device=dev)
+    hi = np.ones(d)
+    xs = t(np.concatenate([np.repeat(X, 6, axis=0),
+                           qmc.generate_initial_guesses(40, np.zeros(d), hi)]))
+    th = torch.zeros((1, 1), dtype=dt, device=dev)
+    lay = kernel_layout(st.X, xs.shape[0])
+    label = (f"cross-block tie (1 lane, 66 starts in {lay['start_blocks']} start blocks, "
+             f"starts 24-65 tied)")
+    _compare(st, dr.EI(), th, t(-hi), t(hi), xs, 5, label)
+    args = (st.X, st.Li, st.c, st.n, sg.get_active_minimum(st), th[:, 0].contiguous(),
+            kern.theta[0], t(-hi), t(hi), xs, 1.0)
+    kw = dict(kind="matern52", rule="EI", iterations=5)
+    (xk, vk), (xr, vr) = (nl.newton_solve_lanes(*args, **kw),
+                          nl.newton_solve_lanes_ref(*args, **kw))
+    torch.cuda.synchronize()
+    if not (torch.equal(xk[0], xs[24]) and torch.equal(xr[0], xs[24])):
+        raise AssertionError(f"{label}: x {xk[0].tolist()} (plain {xr[0].tolist()}), "
+                             f"not start 24 {xs[24].tolist()}")
+    if abs(float(vk[0] - vr[0])) > 1e-12 * abs(float(vr[0])):
+        raise AssertionError(f"{label}: value {float(vk[0])} vs plain {float(vr[0])}")
+    return label
 
 
 def _edge_cases(dev):
@@ -1047,7 +1140,8 @@ def phase_myopic_cli(dev, card, budget=100):
                 f"final gap {gaps[acq][-1]:.4f}, {launches} kernel launches (besides "
                 f"{trial['warmup'] - before_warm} in the warm-up runs), "
                 f"{res.times[0]:.4f} s per BO iteration (the chunk's time over {budget}: "
-                f"solve, observe, condition, MLE), whole trial over the budget "
+                f"solve, observe, condition, MLE; the lane kernel at this shape "
+                f"{_kernel_ms('myopic')}), whole trial over the budget "
                 f"{trial['seconds'] / budget:.4f} s")
         before_warm = trial["warmup"]
         if acq != "random":
@@ -1099,7 +1193,9 @@ def phase_nonmyopic_cli(dev, card, budget=15, horizon=2):
           f"launches (besides {trial['warmup']} in the graphs' warm-up runs), acquisition "
           f"median {statistics.median(res.times):.4f} s "
           f"(min {res.times.min():.4f}, max {res.times.max():.4f}), whole BO iteration "
-          f"{trial['seconds'] / budget:.4f} s, SGA iterations per acquisition "
+          f"{trial['seconds'] / budget:.4f} s (the lane kernel at this shape "
+          f"{_kernel_ms('non-myopic')}, {trial['launches'] / budget:.2f} launches per BO "
+          f"iteration), SGA iterations per acquisition "
           f"{res.sga_iterations.tolist()}, fallbacks {int(res.fallbacks.sum())}, MLE "
           f"refit {timing['refit_ms']:.2f} ms eager and observe {timing['replay_ms']:.2f} ms "
           f"replayed (timed apart, above), fitted lengthscale "

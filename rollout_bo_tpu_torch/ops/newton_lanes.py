@@ -9,8 +9,9 @@ has 8 x 200 = 1600 lanes per call.
 
 - `newton_solve_lanes` is the entry point. For CUDA tensors it launches the
   hand-written kernel `csrc/newton_lanes.cu` (one warp per (lane, start),
-  the lane's GP staged in shared memory); it raises rather than fall
-  back. For CPU tensors it runs the plain version.
+  the lane's GP staged in shared memory; in float64 a lane's starts spread
+  over several blocks when the lanes alone would leave SMs idle); it raises
+  rather than fall back. For CPU tensors it runs the plain version.
 - `newton_solve_lanes_ref` is the plain PyTorch version: the same math,
   batch-first over (lane, start). The CPU tests hold it against the JAX
   package, and `chip_smoke.py` holds the CUDA kernel against it on the card.
@@ -32,7 +33,9 @@ never through the solver.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -57,9 +60,10 @@ SUPPORTED_RULES = ("EI", "POI", "LCB", "LogEI", "LogPOI")
 MAX_D = 16                     # must match csrc/newton_lanes.cu
 MAX_STARTS = 1024
 _GROUP = 32                    # threads per (lane, start): kG in csrc/newton_lanes.cu
-_MAX_THREADS = 512             # per block: kMaxThreads in csrc/newton_lanes.cu
+_MAX_THREADS = 512             # per block: kMaxThreads (kLiMaxThreads) in the .cu
 _SMEM_LIMIT = 227 * 1024       # Hopper: dynamic shared memory per block
 _GROUPS_TARGET = 8             # groups per block when one lane has fewer starts
+_SMS = 132                     # H100 SXM: streaming multiprocessors
 _BACKTRACK_STEPS = 9
 _CANDIDATES = 2 * _BACKTRACK_STEPS
 _EPS = 1e-14                   # must match kEps in csrc/newton_lanes.cu
@@ -342,7 +346,7 @@ _ENTRY = {torch.float32: "newton_lanes_f32", torch.float64: "newton_lanes_f64"}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
-_ARGTYPES = [_P] * 12 + [_I] * 10 + [_D] * 5 + [_I, _P]
+_ARGTYPES = [_P] * 14 + [_I] * 11 + [_D] * 5 + [_I, _P]
 
 
 def _library():
@@ -357,53 +361,96 @@ def _library():
     return lib
 
 
-def _block_shape(cap: int, d: int, S: int, itemsize: int):
-    """(lanes per block, groups per lane, lane matrix staged?, dynamic shared bytes).
+class Layout(NamedTuple):
+    """A launch's blocks (`_block_shape`)."""
+    lanes: int              # lanes per block
+    groups: int             # groups per lane in a block
+    stage_m: bool           # the lane matrix in shared memory
+    smem: int               # dynamic shared bytes per block
+    start_blocks: int = 1   # blocks over one lane's starts
 
-    Must match the layout in csrc/newton_lanes.cu. A group of 32 threads
-    (a warp) owns one (lane, start); a block holds `lanes` lanes x
-    `groups` groups, and a group loops over the starts g, g + groups, ...
-    In words of the lane dtype, with dp = d | 1 and wst = cap | 1 (odd
-    strides keep rows on different banks): per lane X (cap, dp), the lane
-    matrix (cap, wst) when staged (W in float32; Li in float64, of which
-    only the lower triangle is copied and read) and c (cap,); per block the
-    box (2, dp); per group (`GroupScratch`) 5 cap-long rows, 2 cap x
-    max(dp, 18) for the Hessian strips and the candidates' columns, A and
-    its factor (d, dp) each, 18 candidates and 7 vectors of dp, and a
-    (dp + 2)-long result. When one lane with one group does not fit, the
-    lane matrix stays in device memory. Raises ValueError when even that
-    exceeds the block's shared memory."""
+    @property
+    def threads(self) -> int:
+        return self.lanes * self.groups * _GROUP
+
+
+def _block_shape(cap: int, d: int, S: int, itemsize: int, num_lanes: int | None = None, *,
+                 sms: int = _SMS) -> Layout:
+    """The blocks of a launch; must match the layout in csrc/newton_lanes.cu.
+
+    A group of 32 threads (a warp) owns one (lane, start); a block holds
+    `lanes` lanes x `groups` groups over the starts of one of
+    `start_blocks` contiguous ranges, and a group loops over the starts g,
+    g + groups, ... of its range. In words of the lane dtype, dp = d | 1:
+    - float32 (the W form; one start block): per lane X (cap, dp), W (cap,
+      cap | 1) when staged (odd strides keep rows on different banks) and
+      c (cap,); per block the box (2, dp); per group
+      (`GroupScratch`) 5 cap-long rows, 2 cap x max(dp, 18) for the Hessian
+      strips and the candidates' columns, A and its factor (d, dp) each, 18
+      candidates and 7 vectors of dp, and a (dp + 2)-long result.
+    - float64 (the Li form): per lane X, Li's lower triangle packed by rows
+      (cap (cap + 1) / 2) when staged, and c; per group (`LiScratch`) cap x
+      max(5 + 2 dp, 18) (5 cap-long rows, G and P = Li G; then the
+      candidates' k(x_c, X)), A and its factor, 18 candidates, 7 vectors and
+      the result. With `num_lanes`, a launch whose lanes fill fewer blocks
+      than `sms` takes one lane per block and spreads its starts over
+      blocks, as many as make `sms` blocks (each start its own block at the
+      most).
+    When one lane with one group does not fit, the lane matrix stays in
+    device memory. Raises ValueError when even that exceeds the block's
+    shared memory."""
     if not 1 <= d <= MAX_D:
         raise ValueError(f"newton_lanes kernel: d = {d} outside 1..{MAX_D}")
     if not 1 <= S <= MAX_STARTS:
         raise ValueError(f"newton_lanes kernel: {S} starts outside 1..{MAX_STARTS}")
-    dp, wst = d | 1, cap | 1
-    per_group = (5 * cap + 2 * cap * max(dp, _CANDIDATES) + 2 * d * dp
-                 + (_CANDIDATES + 7) * dp + dp + 2)
-    max_groups = _MAX_THREADS // _GROUP
-    chunks = -(-S // max_groups)          # starts per group
-    groups = -(-S // chunks)
-    lanes = max(1, _GROUPS_TARGET // groups)
+    li = itemsize == 8
+    dp = d | 1
+    if li:
+        matrix = cap * (cap + 1) // 2
+        per_group = (cap * max(5 + 2 * dp, _CANDIDATES) + 2 * d * dp
+                     + (_CANDIDATES + 7) * dp + dp + 2)
+    else:
+        matrix = cap * (cap | 1)
+        per_group = (5 * cap + 2 * cap * max(dp, _CANDIDATES) + 2 * d * dp
+                     + (_CANDIDATES + 7) * dp + dp + 2)
 
-    def nbytes(lanes, groups, stage_w):
-        per_lane = cap * dp + cap + (cap * wst if stage_w else 0)
+    def nbytes(lanes, groups, stage_m):
+        per_lane = cap * dp + cap + (matrix if stage_m else 0)
         return (lanes * (per_lane + groups * per_group) + 2 * dp) * itemsize
 
-    for stage_w in (True, False):
+    slots = _MAX_THREADS // _GROUP        # groups per block
+    chunks = -(-S // slots)               # starts per group
+    groups = -(-S // chunks)
+    lanes = max(1, _GROUPS_TARGET // groups)
+    start_blocks = 1
+    if li and num_lanes and -(-num_lanes // lanes) < sms:
+        lanes = 1
+        start_blocks = min(S, max(1, sms // num_lanes))
+        chunk = -(-S // start_blocks)     # starts per block
+        start_blocks = -(-S // chunk)
+        groups = -(-chunk // -(-chunk // slots))
+
+    for stage in (True, False):
         nl, ng = lanes, groups
-        while nbytes(nl, ng, stage_w) > _SMEM_LIMIT and (nl > 1 or ng > 1):
+        while nbytes(nl, ng, stage) > _SMEM_LIMIT and (nl > 1 or ng > 1):
             if nl > 1:
                 nl -= 1
             else:
                 ng -= 1
-        if nbytes(nl, ng, stage_w) <= _SMEM_LIMIT:
-            return nl, ng, stage_w, nbytes(nl, ng, stage_w)
+        if nbytes(nl, ng, stage) <= _SMEM_LIMIT:
+            return Layout(nl, ng, stage, nbytes(nl, ng, stage), start_blocks)
     raise ValueError(f"newton_lanes kernel: capacity {cap} at d = {d} needs "
                      f"{nbytes(1, 1, False)} B of shared memory for one lane, "
                      f"over {_SMEM_LIMIT}")
 
 
-def lane_solve_work(n, cap: int, d: int, S: int, iterations: int, itemsize: int):
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def lane_solve_work(n, cap: int, d: int, S: int, iterations: int, itemsize: int,
+                    runs=None):
     """(floating-point operations, bytes) that one `newton_solve_lanes` call needs.
 
     `n` holds the lanes' active counts: loops over the data run to n, not
@@ -418,10 +465,13 @@ def lane_solve_work(n, cap: int, d: int, S: int, iterations: int, itemsize: int)
     (n d (d + 1)); or as P = Li G, the rows C_j = coef_j r_j and the entries
     of r_j C_j' and P_j P_j' (2 n d (d + 1)); one d x d Cholesky solve; the
     direction's norms. Then one value per (lane, start). A triangular
-    matvec over n rows is n (n + 1) operations. Left out, so that the count
-    stays a floor: the second, Gershgorin-damped solve (only where the
-    first fails) and whatever the loose freeze saves by ending a start
-    early. Bytes count each input once (X, the lane matrix, c, n, fmini,
+    matvec over n rows is n (n + 1) operations. `runs` (L, S), where given,
+    holds the iterations each start needs: the float64 kernel stops a start
+    at a fixed point (an iteration that returns its point unchanged) or at
+    the loose freeze, and reports what it ran (`_launch(runs=...)`); else
+    every start counts `iterations`. Left out, so that the count stays a
+    floor: the second, Gershgorin-damped solve (only where the first
+    fails). Bytes count each input once (X, the lane matrix, c, n, fmini,
     theta0 per lane; the box, the starts and the two kernel parameters
     once) and each output once: W whole, Li's lower triangle (its upper
     one is zero and never read)."""
@@ -429,7 +479,9 @@ def lane_solve_work(n, cap: int, d: int, S: int, iterations: int, itemsize: int)
     profile, profile_terms, rule, partials = 12, 25, 30, 60
     sym = d * (d + 1) // 2
     flops = 0
-    for ni in (int(v) for v in n):
+    steps = [S * iterations] * len(n) if runs is None else [int(r) for r in
+                                                            torch.as_tensor(runs).sum(-1)]
+    for ni, its in zip((int(v) for v in n), steps):
         tri = ni * (ni + 1)                                      # Li times an n-vector
         if li:
             value = ni * (3 * d + profile) + tri + 4 * ni + rule
@@ -454,7 +506,7 @@ def lane_solve_work(n, cap: int, d: int, S: int, iterations: int, itemsize: int)
         direction = 2 * d * d + 20 * d                           # Gershgorin, norms
         iteration = (_CANDIDATES * (value + 3 * d) + passes + rule + partials
                      + hessian + chol + direction)
-        flops += S * (iterations * iteration + value)
+        flops += its * iteration + S * value
     lanes = len(n)
     matrix = cap * (cap + 1) // 2 if li else cap * cap
     read = (lanes * (cap * d + matrix + cap + 2) + 2 * d + S * d + 2) * itemsize + 8 * lanes
@@ -504,12 +556,23 @@ def _check_lanes(X, Li, c, n, fmini, theta0, lbs, ubs, xstarts, kind, rule):
     return lbs, ubs, xstarts
 
 
+def _layout_args(layout: Layout):
+    """The entry points' lanes_per_block, groups_per_lane, start_blocks and
+    stage_m."""
+    return layout.lanes, layout.groups, layout.start_blocks, int(layout.stage_m)
+
+
 def _launch(X, Li, c, n, fmini, theta0, ell, lbs, ubs, xstarts, period, *,
-            kind, rule, iterations, sigma_tol, sigma_floor, ridge, f_tol, x_tol):
-    """One launch on the current stream. It copies nothing from the host and
-    does not synchronize, so a CUDA graph can capture it (`utils.graphs`):
-    the launcher runs `cudaFuncSetAttribute`, the launch and
-    `cudaGetLastError`. The library's measurement entries
+            kind, rule, iterations, sigma_tol, sigma_floor, ridge, f_tol, x_tol, runs=None):
+    """One solve on the current stream (in float64 two kernels: the solve
+    and the best start per lane over the start blocks; one count in LAUNCHES
+    or RECORDED either way). It copies nothing from the host and does not
+    synchronize, so a CUDA graph can capture it (`utils.graphs`): the
+    launcher runs `cudaFuncSetAttribute`, the launches and
+    `cudaGetLastError`. `runs`, an int32 (L, S) tensor, takes the
+    iterations each (lane, start) of a float64 solve ran (a start stops at
+    a fixed point of the iteration), for the measurements' work count. The
+    library's measurement entries
     (`newton_lanes_phase_cycles`, `newton_lanes_blocks_per_sm`) copy from
     the device or query it, and are called only outside the path."""
     global LAUNCHES, RECORDED
@@ -518,22 +581,26 @@ def _launch(X, Li, c, n, fmini, theta0, ell, lbs, ubs, xstarts, period, *,
     S = xstarts.shape[0]
     params = torch.stack([_on_device(ell, dt, dev).reshape(()),
                           _on_device(period, dt, dev).reshape(())])
-    lanes, groups, stage_m, smem = _block_shape(cap, d, S, X.element_size())
-
     xout = torch.empty((nl, d), dtype=dt, device=dev)
     vout = torch.empty((nl,), dtype=dt, device=dev)
     if nl == 0:
         return xout, vout
-    M = _lane_matrix(Li)[0]         # W for the float instantiation, Li for double
+    layout = _block_shape(cap, d, S, X.element_size(), nl,
+                          sms=_sm_count(dev.index if dev.index is not None
+                                        else torch.cuda.current_device()))
+    M = _lane_matrix(Li)[0]         # W for the float kernel, Li for the double one
+    # the double kernel's best start per (lane, start block): value, start, x
+    part = (torch.empty((nl, layout.start_blocks, d + 2), dtype=dt, device=dev)
+            if dt == torch.float64 else None)
     fn = getattr(_library(), _ENTRY[dt])
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(X.data_ptr(), M.data_ptr(), c.data_ptr(), n.data_ptr(),
              fmini.data_ptr(), theta0.data_ptr(), params.data_ptr(),
              lbs.data_ptr(), ubs.data_ptr(), xstarts.data_ptr(),
-             xout.data_ptr(), vout.data_ptr(),
-             nl, cap, d, S, iterations, _KIND_IDS[kind], _RULE_IDS[rule], lanes,
-             groups, int(stage_m), sigma_tol, sigma_floor, ridge, f_tol, x_tol,
-             smem, stream)
+             xout.data_ptr(), vout.data_ptr(), None if part is None else part.data_ptr(),
+             None if runs is None else runs.data_ptr(), nl, cap, d, S, iterations,
+             _KIND_IDS[kind], _RULE_IDS[rule], *_layout_args(layout),
+             sigma_tol, sigma_floor, ridge, f_tol, x_tol, layout.smem, stream)
     if err != 0:
         raise RuntimeError(f"newton_lanes kernel launch failed: CUDA error {err}")
     if torch.cuda.is_current_stream_capturing():
@@ -541,6 +608,23 @@ def _launch(X, Li, c, n, fmini, theta0, ell, lbs, ubs, xstarts, period, *,
     else:
         LAUNCHES += 1
     return xout, vout
+
+
+def _iterations_run(X, Li, c, n, fmini, theta0, ell, lbs, ubs, xstarts, period=1.0, *,
+                    kind="matern52", rule="EI", iterations=12, sigma_tol=1e-8,
+                    sigma_floor=1e-10, ridge=1e-8, f_tol=0.0, x_tol=0.0):
+    """The iterations each (lane, start) runs in one more float64 launch on
+    the card, int32 (L, S): `lane_solve_work`'s `runs` for the
+    measurements (a start stops at a fixed point or the loose freeze)."""
+    if X.dtype != torch.float64 or X.device.type != "cuda":
+        raise ValueError("_iterations_run: float64 lanes on the card only")
+    lbs, ubs, xstarts = _check_lanes(X, Li, c, n, fmini, theta0, lbs, ubs, xstarts,
+                                     kind, rule)
+    runs = torch.zeros((X.shape[0], xstarts.shape[0]), dtype=torch.int32, device=X.device)
+    _launch(X, Li, c, n, fmini, theta0, ell, lbs, ubs, xstarts, period, kind=kind, rule=rule,
+            iterations=iterations, sigma_tol=sigma_tol, sigma_floor=sigma_floor, ridge=ridge,
+            f_tol=f_tol, x_tol=x_tol, runs=runs)
+    return runs
 
 
 def newton_solve_lanes(X, Li, c, n, fmini, theta0, ell, lbs, ubs, xstarts,

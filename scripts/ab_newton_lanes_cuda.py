@@ -2,16 +2,23 @@
 """Measurements of the Newton-lane CUDA kernel on one card, in one process.
 
     python3 scripts/ab_newton_lanes_cuda.py [--old-source PATH/newton_lanes.cu]
+                                            [--variants]
 
 The kernel is the package's `csrc/newton_lanes.cu` (a warp per (lane,
-start); float32 lanes in the W = K^{-1} form, float64 lanes in the Li =
-L^{-1} form). `--old-source` adds an earlier source of the same design and
-C interface to compare it with: the W form in both dtypes, fed each lane's
-W = Li^T Li formed in the lanes' dtype (unpack it from the commit before
-the float64 Li form, e.g. `git archive <commit> | tar -x -C
-build/parent`). Each kernel is timed on its launch alone, the matrix it
-reads formed before the timed launches. In float32 the two run the same code, so their
-values must agree bit for bit.
+start); float32 lanes in the W = K^{-1} form; float64 lanes in the Li =
+L^{-1} form, a lane's starts over several blocks when the lanes leave SMs
+idle). `--old-source` adds an earlier source to compare it with: that
+tree's `csrc/newton_lanes.cu`, built with the package's flags and launched
+with that tree's own C signature and block shape (`ops/newton_lanes.py`
+beside it: its `_block_shape`, `_ARGTYPES` and, from the start blocks on,
+`_layout_args`), fed what the package's lanes read (W in float32, Li in
+float64). Unpack the tree with `git archive <commit> | tar -x -C
+build/parent`. Each kernel is timed on its launch alone, the matrix it
+reads formed before the timed launches. The float32 code is the same in
+both, so their float32 values must agree bit for bit: the script exits 1
+when they do not. `--variants` also times, at the BO loops' two float64
+shapes, the float64 kernel for d <= 8 built with other register budgets
+(-DNEWTON_LI_MAXNREG8=128, 64 or 48; the package's is 56).
 
 All builds start together. Then:
 - per shape, the kernels run in turns (old, new, new, old), each turn the
@@ -25,6 +32,9 @@ All builds start together. Then:
         12 iterations: the myopic loop's (1 lane, n 104 of capacity 105, 64
         + 2 starts) and the non-myopic loop's (2000 lanes, n 6..21 of
         capacity 23, 16 + 2 starts);
+  (v)   the regret ladder's float32 shape (ackley2d at h 3: 8 restarts x 200
+        trajectories = 1600 lanes, n 4..16 of capacity 20, d 2, 8 + 2
+        starts, 12 iterations);
   with the work and the bound from `lane_solve_work` in the lanes' dtype
   (the fewest operations the function needs: both kernels' share is of
   it), the values against the old kernel's (in float32 bit for bit), the value floor (each kernel run on the same lanes cast
@@ -55,6 +65,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import subprocess
 import sys
@@ -83,35 +94,37 @@ _SMOKE_SEED = 11
 
 
 def build_old(source: Path):
-    """nvcc on the earlier source, with the package's flags."""
+    """nvcc on the earlier source, with the package's flags; and that tree's
+    wrapper module (its `_block_shape` and `_ARGTYPES`)."""
     out = _build.BUILD_DIR / "newton_lanes-old.so"
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(source)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {source}:\n{proc.stdout}{proc.stderr}")
-    return ctypes.CDLL(str(out)), proc.stdout + proc.stderr
-
-
-def w_form(Li):
-    """W = Li^T Li in the lanes' dtype, as the W-form kernel's caller formed it."""
-    return Li.transpose(-1, -2) @ Li
+    path = source.resolve().parent.parent / "ops" / "newton_lanes.py"
+    spec = importlib.util.spec_from_file_location("old_newton_lanes", path)
+    wrapper = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(wrapper)
+    return ctypes.CDLL(str(out)), proc.stdout + proc.stderr, wrapper
 
 
 def package_form(Li):
-    """The matrix the package's kernel reads: W in float32, Li in float64."""
+    """The matrix the kernels read: W in float32, Li in float64."""
     return nl._lane_matrix(Li)[0]
 
 
-def solver(lib, matrix):
-    """A build's launch on Li arguments, `matrix(Li)` being what that build
-    reads. `prepare` (which forms it) and `launch` split the two, so that a
-    timing holds the launch alone, the same for every build."""
+def solver(lib, wrapper=None):
+    """A build's launch on Li arguments: the package's (`wrapper` None) or
+    an earlier tree's.
+    `prepare` (which forms the matrix the kernel reads) and `launch` split
+    the two, so that a timing holds the launch alone, the same for every
+    build."""
     def prepare(args):
-        return args[:1] + (matrix(args[1]).contiguous(),) + args[2:]
+        return args[:1] + (package_form(args[1]).contiguous(),) + args[2:]
 
     def launch(*args, **kw):
-        return launch_with(lib, args, kw)
+        return launch_with(lib, args, kw, wrapper=wrapper)
 
     def solve(*args, **kw):
         return launch(*prepare(args), **kw)
@@ -120,41 +133,56 @@ def solver(lib, matrix):
     return solve
 
 
-def launch_with(lib, args, kw, smem=None):
+def launch_with(lib, args, kw, smem=None, *, wrapper=None):
     """The wrapper's launch on another build (`lib`), or with more dynamic
-    shared memory than the layout needs (`smem`). The lanes' second argument
-    is the matrix that build reads (`solver`)."""
+    shared memory than the layout needs (`smem`); with `wrapper`, an
+    earlier tree's launch (its block shape and
+    C signature). The lanes' second argument is the matrix the kernel reads
+    (`solver`)."""
     X, M, c, n, fmini, th0, ell, lbs, ubs, xstarts, period = args
     dt, dev = X.dtype, X.device
     L, cap, d = X.shape
-    lanes, groups, stage_m, need = nl._block_shape(cap, d, xstarts.shape[0], X.element_size())
+    S = xstarts.shape[0]
     as_t = lambda a: torch.as_tensor(a, dtype=dt, device=dev)
     params = torch.stack([as_t(ell).reshape(()), as_t(period).reshape(())])
     xout = torch.empty((L, d), dtype=dt, device=dev)
     vout = torch.empty((L,), dtype=dt, device=dev)
     fn = getattr(lib, nl._ENTRY[dt])
-    fn.argtypes, fn.restype = nl._ARGTYPES, ctypes.c_int
-    err = fn(X.data_ptr(), M.data_ptr(), c.data_ptr(), n.data_ptr(), fmini.data_ptr(),
-             th0.data_ptr(), params.data_ptr(), lbs.data_ptr(), ubs.data_ptr(),
-             xstarts.data_ptr(), xout.data_ptr(), vout.data_ptr(), L, cap, d,
-             xstarts.shape[0], kw["iterations"], nl._KIND_IDS[kw["kind"]],
-             nl._RULE_IDS[kw["rule"]], lanes, groups, int(stage_m), 1e-8, 1e-10, 1e-8,
-             kw.get("f_tol", 0.0), kw.get("x_tol", 0.0), need if smem is None else smem,
-             torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else None)
+    head = (X.data_ptr(), M.data_ptr(), c.data_ptr(), n.data_ptr(), fmini.data_ptr(),
+            th0.data_ptr(), params.data_ptr(), lbs.data_ptr(), ubs.data_ptr(),
+            xstarts.data_ptr(), xout.data_ptr(), vout.data_ptr())
+    shape = (cap, d, S, kw["iterations"], nl._KIND_IDS[kw["kind"]], nl._RULE_IDS[kw["rule"]])
+    tail = (1e-8, 1e-10, 1e-8, kw.get("f_tol", 0.0), kw.get("x_tol", 0.0))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if wrapper is not None and not hasattr(wrapper, "_layout_args"):
+        # a tree before start blocks: (lanes, groups, stage_m, smem), no part
+        lanes, groups, stage_m, need = wrapper._block_shape(cap, d, S, X.element_size())
+        fn.argtypes, fn.restype = wrapper._ARGTYPES, ctypes.c_int
+        err = fn(*head, L, *shape, lanes, groups, int(stage_m), *tail,
+                 need if smem is None else smem, stream)
+    else:
+        mod = wrapper or nl
+        layout = mod._block_shape(cap, d, S, X.element_size(), L, sms=nl._sm_count(dev.index))
+        part = torch.empty((L, layout.start_blocks, d + 2), dtype=dt, device=dev)
+        fn.argtypes, fn.restype = mod._ARGTYPES, ctypes.c_int
+        err = fn(*head, part.data_ptr(), None, L, *shape, *mod._layout_args(layout), *tail,
+                 layout.smem if smem is None else smem, stream)
     if err != 0:
         raise RuntimeError(f"kernel launch failed: CUDA error {err}")
     return xout, vout
 
 
-def phase_cycles(args, kw):
-    """Mean cycles per (lane, start, iteration) in each phase."""
+def phase_cycles(args, kw, runs=None):
+    """Mean cycles per (lane, start, iteration) in each phase (iterations as
+    run: `runs`, where the kernel stops starts early)."""
     lib = _build.load("newton_lanes", _PROFILE)
     buf = (ctypes.c_ulonglong * 8)()
     lib.newton_lanes_phase_cycles(buf)              # sets the counts to 0
-    solver(lib, package_form)(*args, **kw)
+    solver(lib)(*args, **kw)
     torch.cuda.synchronize()
     lib.newton_lanes_phase_cycles(buf)
-    solves = args[0].shape[0] * args[9].shape[0] * kw["iterations"]
+    solves = (args[0].shape[0] * args[9].shape[0] * kw["iterations"] if runs is None
+              else int(runs.sum()))
     return {name: buf[i] / solves for i, name in enumerate(_PHASES)}
 
 
@@ -163,13 +191,15 @@ def residency_times(args, kw, reps):
     shared memory is padded until only that many fit."""
     lib = nl._library()
     X, S = args[0], args[9].shape[0]
-    lanes, groups, stage_m, smem = nl._block_shape(X.shape[1], X.shape[2], S, X.element_size())
-    threads = lanes * groups * nl._GROUP
-    most = lib.newton_lanes_blocks_per_sm(X.element_size(), int(stage_m), threads, smem)
+    layout = nl._block_shape(X.shape[1], X.shape[2], S, X.element_size(), X.shape[0])
+    threads, smem = layout.threads, layout.smem
+    occupancy = lambda nbytes: lib.newton_lanes_blocks_per_sm(
+        X.element_size(), X.shape[2], int(layout.stage_m), threads, nbytes)
+    most = occupancy(smem)
     out = {}
     for blocks in range(1, most + 1):
         padded = smem if blocks == most else max(smem, nl._SMEM_LIMIT // (blocks + 1) + 4096)
-        got = lib.newton_lanes_blocks_per_sm(X.element_size(), int(stage_m), threads, padded)
+        got = occupancy(padded)
         solve = lambda *a, **k: launch_with(
             lib, a[:1] + (package_form(a[1]),) + a[2:], k, padded)
         out[f"{got} blocks ({got * threads // 32} warps) per SM"] = \
@@ -221,6 +251,11 @@ def shapes(dev):
         st = chip_smoke._lane_state(sizes, f.dim, cap, "matern52", (0.6,), f.lbs, f.ubs,
                                     torch.float64, dev, 17, f=f)
         out[name] = pack(st, f.lbs, f.ubs, torch.float64, starts, 12)
+    f = testfns.get_function("ackley2d")
+    st = chip_smoke._lane_state({4: 400, 8: 400, 12: 400, 16: 400}, f.dim, 20, "matern52",
+                                (0.6,), f.lbs, f.ubs, torch.float32, dev, 23, f=f)
+    out["ladder f32 (ackley2d h 3: 1600 lanes, n 4..16 of cap 20, d 2, S 10)"] = pack(
+        st, f.lbs, f.ubs, torch.float32, 8, 12)
     return out
 
 
@@ -418,6 +453,7 @@ def acquisition_launch_times(dev):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--old-source", type=Path, default=None)
+    ap.add_argument("--variants", action="store_true")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--json", type=Path, default=None)
     ap.add_argument("--criterion-b-seeds", type=int, nargs="*",
@@ -431,33 +467,41 @@ def main():
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card)
 
+    variants = {f"{r} registers": (f"-DNEWTON_LI_MAXNREG8={r}",) for r in (128, 64, 48)} \
+        if a.variants else {}
     t0 = time.perf_counter()
     with ThreadPoolExecutor() as pool:
         old = pool.submit(build_old, a.old_source) if a.old_source else None
-        builds = [pool.submit(_build.load, "newton_lanes"),
-                  pool.submit(_build.load, "newton_lanes", _PROFILE)]
+        builds = [pool.submit(_build.load, "newton_lanes", defines) for defines in ((), _PROFILE)]
+        tried = {k: pool.submit(_build.load, "newton_lanes", v) for k, v in variants.items()}
         for fut in builds:
             fut.result()
-        old_lib, old_log = old.result() if old else (None, "")
+        for k, fut in tried.items():
+            try:
+                fut.result()
+            except RuntimeError as e:       # a cap this nvcc refuses: reported, not timed
+                print(f"variant {k} did not build: {str(e)[-400:]}")
+                variants.pop(k)
+        old_lib, old_log, old_wrapper = old.result() if old else (None, "", None)
     print(f"builds: {time.perf_counter() - t0:.1f} s (all started together)")
-    report = {"card": card, "shapes": {},
+    report = {"card": card, "shapes": {}, "variants": {},
               "ptxas": {"old": ptxas_lines(old_log),
-                        "new": ptxas_lines(_build.build_log("newton_lanes"))}}
+                        "new": ptxas_lines(_build.build_log("newton_lanes")),
+                        **{k: ptxas_lines(_build.build_log("newton_lanes", v))
+                           for k, v in variants.items()}}}
     for name, lines in report["ptxas"].items():
         for line in lines:
             print(f"  ptxas {name}: {line}")
 
-    lanes, groups, stage_m, smem = nl._block_shape(24, 10, 10, 4)
-    report["bench_block"] = dict(
-        threads=lanes * groups * nl._GROUP, shared_bytes=smem,
-        blocks_per_sm=nl._library().newton_lanes_blocks_per_sm(
-            4, int(stage_m), lanes * groups * nl._GROUP, smem))
-    print(f"bench shape, new kernel: {report['bench_block']}")
-
-    new = solver(nl._library(), package_form)
-    solvers = {"old": solver(old_lib, w_form), "new": new} if old_lib else {"new": new}
+    lib = nl._library()
+    new = solver(lib)
+    solvers = {"old": solver(old_lib, old_wrapper), "new": new} if old_lib else {"new": new}
     order = ["old", "new", "new", "old"] if old_lib else ["new", "new"]
+    float32_differs = []
     for name, (args, kw, counts) in shapes(dev).items():
+        report["shapes"][name] = dict(layout=chip_smoke.kernel_layout(args[0],
+                                                                      args[9].shape[0]))
+        print(f"{name}: new kernel's blocks {report['shapes'][name]['layout']}")
         vs_old = None
         if old_lib:
             (xo, vo), (xn, vn) = solvers["old"](*args, **kw), new(*args, **kw)
@@ -468,18 +512,27 @@ def main():
                 max_abs_dv=float(torch.where(vn == vo, 0.0, (vn - vo).abs()).max()),
                 argmax_agreement=float(((xn - xo).abs().amax(-1) <= 1e-3 * width)
                                        .double().mean()))
+            if args[0].dtype == torch.float32 and not vs_old["bitwise_equal"]:
+                float32_differs.append(name)
         turns = time_turns(solvers, order, args, kw, a.reps)
         X, S = args[0], args[9].shape[0]
+        # the float64 kernel stops a start at a fixed point: count what these lanes need
+        runs = nl._iterations_run(*args, **kw) if X.dtype == torch.float64 else None
         work = chip_smoke.lane_bound(counts, X.shape[1], X.shape[2], S, kw["iterations"],
-                                     X.dtype)
+                                     X.dtype, runs)
         flops, nbytes, bound_ms = work["flops"], work["bytes"], work["bound_ms"]
         mean = {k: float(np.mean([ms for n_, ms in turns if n_ == k])) for k in solvers}
-        phases = phase_cycles(args, kw)
+        phases = phase_cycles(args, kw, runs)
         floor = value_floor(solvers, args, kw)
-        report["shapes"][name] = dict(turns=turns, mean_ms=mean, vs_old=vs_old,
+        report["shapes"][name].update(turns=turns, mean_ms=mean, vs_old=vs_old,
+                                      mean_runs=None if runs is None else
+                                      float(runs.double().mean()),
                                       gflop=flops / 1e9, bytes=nbytes, bound_ms=bound_ms,
                                       phase_cycles=phases, value_floor=floor)
-        print(f"{name}: " + ", ".join(f"{n_} {ms:.3f}" for n_, ms in turns) + " ms")
+        print(f"  " + ", ".join(f"{n_} {ms:.3f}" for n_, ms in turns) + " ms")
+        if runs is not None:
+            print(f"  iterations run per start: mean {float(runs.double().mean()):.3f} of "
+                  f"{kw['iterations']}")
         print(f"  mean ms {mean}; {flops / 1e9:.3f} GFLOP, {nbytes} B, bound {bound_ms:.4f} "
               f"ms, share of bound { {k: round(bound_ms / mean[k], 4) for k in solvers} }"
               + (f"; speedup {mean['old'] / mean['new']:.2f}x; new vs old {vs_old}"
@@ -492,6 +545,20 @@ def main():
         print(f"  cycles per (lane, start, iteration), new kernel: "
               f"{ {k: round(v) for k, v in phases.items()} }, "
               f"{round(sum(phases.values()))} in all")
+        if a.variants and X.dtype == torch.float64 and ("myopic" in name):
+            runs = {k: solver(_build.load("newton_lanes", v)) for k, v in variants.items()}
+            for k, run in runs.items():
+                xv, vv = run(*args, **kw)
+                xn, vn = new(*args, **kw)
+                torch.cuda.synchronize()
+                got = time_turns({"new": new, k: run}, ["new", k, k, "new"], args, kw, a.reps)
+                ms = {n_: float(np.mean([t for m_, t in got if m_ == n_])) for n_ in ("new", k)}
+                report["variants"][f"{name}: {k}"] = dict(
+                    turns=got, mean_ms=ms,
+                    max_abs_dv=float(torch.where(vv == vn, 0.0, (vv - vn).abs()).max()))
+                print(f"  variant {k}: " + ", ".join(f"{n_} {t:.3f}" for n_, t in got)
+                      + f" ms; max |v - v_new| "
+                      f"{report['variants'][f'{name}: {k}']['max_abs_dv']:.3e}")
 
     if a.criterion_b_seeds:
         print(f"criterion (b) on the 25 x 64 small float32 lanes (chip_smoke's seed is "
@@ -519,6 +586,11 @@ def main():
     if a.json is not None:
         a.json.parent.mkdir(parents=True, exist_ok=True)
         a.json.write_text(json.dumps(report, indent=1))
+    if float32_differs:
+        print(f"float32 values differ from the old source's at: {float32_differs}")
+        raise SystemExit(1)
+    if old_lib:
+        print("float32 values bit for bit the old source's at every float32 shape")
 
 
 if __name__ == "__main__":

@@ -131,8 +131,9 @@ def gap_table(port: str, ref: str) -> tuple[list[dict], list[str]]:
     """One row per cell that both sides hold, and the table's lines."""
     rows, lines = [], []
     for block in ("myopic", "ladder"):
-        head = ("== myopic final gap: port vs results/myopic ==" if block == "myopic" else
-                "== non-myopic ladder final gap: port vs results/nonmyopic_noflag ==")
+        where = os.path.relpath(ref, REPO)
+        head = (f"== myopic final gap: port vs {where}/myopic ==" if block == "myopic" else
+                f"== non-myopic ladder final gap: port vs {where}/nonmyopic_noflag ==")
         lines += ["", head, f"{'function':<16} {'cell':<7} {'port':>7} {'n':>3} {'jax':>7} "
                             f"{'n':>3} {'|z|':>6}"]
         for b, fn, label, prefix, refpath, _ in cells(port, ref):

@@ -4,7 +4,8 @@
 // against the plain PyTorch version (tests/test_torch_kernel_emulation.py).
 // One OS thread per CUDA thread; blocks run one after another; __syncthreads,
 // __syncwarp and the *_sync intrinsics are barriers over the threads of the
-// block, or of the mask (a full warp or either half of it). Shared memory is
+// block, or of the mask (a full warp or either half of it: a group of 32 or
+// 16 threads). Kernels launch through the source's LANES_LAUNCH. Shared memory is
 // a heap block of exactly the launch's dynamic bytes, filled with 0xff (NaN
 // patterns), so that an address sanitizer sees an overrun and a read of a
 // word nobody wrote shows in the result. It says nothing about speed, bank
@@ -25,6 +26,7 @@
 #define __forceinline__ inline
 #define __constant__ static const
 #define __launch_bounds__(...)
+#define __maxnreg__(...)
 #define __noinline__
 #define __align__(x)
 
@@ -124,5 +126,7 @@ void emu_run(K kernel, int blocks, int threads, int smem, Args... args) {
 template <class K> auto emu_launch(K kernel, int blocks, int threads, int smem) {
   return [=](auto... args) { emu_run(kernel, blocks, threads, smem, args...); };
 }
+#define LANES_LAUNCH(kernel, blocks, threads, smem, stream) \
+  emu_launch(kernel, blocks, threads, smem)
 template <class F> int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* b, F, int, int) { *b = 0; return 0; }
 inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }

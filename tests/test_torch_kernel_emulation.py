@@ -41,13 +41,12 @@ torch.set_num_threads(1)
 
 _HERE = Path(__file__).resolve().parent
 _SOURCE = _HERE.parent / "rollout_bo_tpu_torch" / "csrc" / "newton_lanes.cu"
-# what the emulation replaces in the source, and with what
+# what the emulation replaces in the source, with what, and how often (the
+# header defines the launch macro, LANES_LAUNCH, before the source does)
 _PATCHES = (
-    ("#include <cuda_runtime.h>", '#include "cuda_emu.h"'),
+    ("#include <cuda_runtime.h>", '#include "cuda_emu.h"', 1),
     ("extern __shared__ __align__(16) unsigned char smem_raw[];",
-     "unsigned char* smem_raw = emu_smem;"),
-    ("kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(",
-     "emu_launch(kernel, blocks, threads, smem)("),
+     "unsigned char* smem_raw = emu_smem;", 2),
 )
 
 
@@ -58,8 +57,8 @@ def emulated(tmp_path_factory):
     if gxx is None:
         pytest.skip("needs g++ to build the host emulation of the kernel")
     text = _SOURCE.read_text()
-    for old, new in _PATCHES:
-        assert text.count(old) == 1, f"the emulation expects one {old!r} in the source"
+    for old, new, count in _PATCHES:
+        assert text.count(old) == count, f"the emulation expects {count} {old!r} in the source"
         text = text.replace(old, new)
     out = tmp_path_factory.mktemp("kernel_emulation")
     (out / "newton_lanes_emu.cpp").write_text(text)
@@ -76,23 +75,28 @@ def emulated(tmp_path_factory):
 
 
 def _solve(lib, X, Li, c, n, fmini, th0, ell, lbs, ubs, xstarts, period, *, kind, rule,
-           iterations, f_tol=0.0, x_tol=0.0):
+           iterations, f_tol=0.0, x_tol=0.0, sms=nl._SMS, runs=None):
     """The wrapper's launch, on CPU pointers: same block shape, same arguments
-    (the lane matrix of the dtype: W in float32, Li in float64)."""
+    (the lane matrix of the dtype: W in float32, Li in float64). `sms` passes
+    to `_block_shape`: a smaller card spreads fewer blocks; `runs`
+    (int32 (L, S), float64 only) takes the iterations each start ran."""
     dt = X.dtype
     L, cap, d = X.shape
     S = xstarts.shape[0]
-    lanes, groups, stage_m, smem = nl._block_shape(cap, d, S, X.element_size())
+    assert all(a.is_contiguous() for a in (X, Li, c, n, fmini, th0, lbs, ubs, xstarts))
+    layout = nl._block_shape(cap, d, S, X.element_size(), L, sms=sms)
     M = nl._lane_matrix(Li)[0]
     params = torch.tensor([float(ell), float(period)], dtype=dt)
     xout = torch.full((L, d), float("nan"), dtype=dt)
     vout = torch.full((L,), float("nan"), dtype=dt)
+    part = torch.full((L, layout.start_blocks, d + 2), float("nan"), dtype=dt)
     err = getattr(lib, nl._ENTRY[dt])(
         X.data_ptr(), M.data_ptr(), c.data_ptr(), n.data_ptr(), fmini.data_ptr(),
         th0.data_ptr(), params.data_ptr(), lbs.data_ptr(), ubs.data_ptr(),
-        xstarts.data_ptr(), xout.data_ptr(), vout.data_ptr(), L, cap, d, S, iterations,
-        nl._KIND_IDS[kind], nl._RULE_IDS[rule], lanes, groups, int(stage_m),
-        1e-8, 1e-10, 1e-8, f_tol, x_tol, smem, None)
+        xstarts.data_ptr(), xout.data_ptr(), vout.data_ptr(), part.data_ptr(),
+        None if runs is None else runs.data_ptr(), L, cap, d, S, iterations,
+        nl._KIND_IDS[kind], nl._RULE_IDS[rule], *nl._layout_args(layout),
+        1e-8, 1e-10, 1e-8, f_tol, x_tol, layout.smem, None)
     assert err == 0
     return xout, vout
 
@@ -114,7 +118,16 @@ _CASES = {
                                     torch.float32, 0),
     "Li_left_in_device_memory_f64": ({5: 2, 11: 1}, 4, 240, 3, "matern52", "EI",
                                      torch.float64, 0),
+    # the myopic loop's shape: one lane's 66 starts in 66 blocks of one group
+    "myopic_cap105_n104_d6_66_starts_f64": ({104: 1}, 6, 105, 66, "matern52", "EI",
+                                            torch.float64, 0),
 }
+# every kind x rule in float64, n below the group of 32 (and a lane with n =
+# 0 where the rule reads no incumbent)
+_CASES.update({
+    f"{kind}_{rule}_f64_n_below_the_group": ({3: 1, 7: 1}, 2, 8, 4, kind, rule, torch.float64,
+                                             1 if rule == "LCB" else 0)
+    for kind in nl.SUPPORTED_KINDS for rule in nl.SUPPORTED_RULES})
 
 
 def _case_inputs(case):
@@ -149,7 +162,7 @@ def _case_inputs(case):
             kern.theta[0], t(lo), t(hi), t(starts), period)
     kw = dict(kind=kind, rule=rule_name, iterations=5, f_tol=rule.solve_f_tol,
               x_tol=rule.solve_x_tol)
-    assert nl._block_shape(cap, d, S, st.X.element_size())[2] == (cap < 200)
+    assert nl._block_shape(cap, d, S, st.X.element_size()).stage_m == (cap < 200)
     return st, rule, th, args, kw
 
 
@@ -176,6 +189,60 @@ def test_emulated_kernel_matches_plain_version(emulated, case):
     _hold_to_plain_version(st, rule, th, args, kw, *_solve(emulated, *args, **kw))
 
 
+def test_emulated_double_kernel_stops_a_start_at_its_fixed_point(emulated):
+    """A start whose iteration returns its point unchanged stops there: the
+    iteration is a function of the point alone, so every later one would
+    return it too. Over 3 lanes x 40 starts some stop before the 5
+    iterations, some run them all; the result meets the criteria against
+    the plain version (every start run to the end); and a start that
+    stopped, solved alone, gives bit for bit the same with 4 iterations
+    more."""
+    st, rule, th, args, kw = _case_inputs("forty_starts_in_chunks")
+    L, S, its = args[0].shape[0], args[9].shape[0], kw["iterations"]
+    runs = torch.full((L, S), -1, dtype=torch.int32)
+    xk, vk = _solve(emulated, *args, **kw, runs=runs)
+    assert bool(torch.all((runs >= 1) & (runs <= its)))
+    assert bool(torch.any(runs < its)) and bool(torch.any(runs == its))
+    _hold_to_plain_version(st, rule, th, args, kw, xk, vk)
+    for lane, start in torch.nonzero(runs < its)[:4].tolist():
+        one = tuple(a[lane:lane + 1].contiguous() for a in args[:6]) + args[6:9] + \
+            (args[9][start:start + 1].contiguous(), args[10])
+        x1, v1 = _solve(emulated, *one, **kw)
+        x2, v2 = _solve(emulated, *one, **dict(kw, iterations=its + 4))
+        assert torch.equal(x1, x2) and torch.equal(v1, v2)
+
+
+@pytest.mark.parametrize("sms", [132, 8, 3])
+def test_emulated_double_kernel_ties_across_start_blocks(emulated, sms):
+    """One lane, 66 starts over 66, 8 or 3 start blocks. Four data points
+    in a corner at lengthscale 0.001: starts 0-23 sit on them (EI near 0, no
+    step leaves them), starts 24-65 lie where every k(x, X_j) underflows to
+    0, so their values tie exactly and none moves (a zero gradient). The
+    lowest of the tied starts, 24, must win across the blocks, as in the
+    plain version, whose x is start 24 itself."""
+    dt, d = torch.float64, 2
+    X = np.array([[-0.9, -0.9], [-0.9, -0.8], [-0.8, -0.9], [-0.8, -0.8]])
+    kern = K.RBFKernel(torch.tensor([0.001], dtype=dt), "matern52")
+    st = sg.fit(kern, X[None], np.array([[1.0, 1.5, 2.0, 2.5]]), capacity=8, noise=1e-4,
+                device="cpu", dtype=dt)
+    st = st._replace(Li=st.Li.contiguous())
+    lo, hi = np.full(d, -1.0), np.full(d, 1.0)
+    starts = torch.tensor(np.concatenate(
+        [np.repeat(X, 6, axis=0), qmc.generate_initial_guesses(40, np.zeros(d), hi)]), dtype=dt)
+    assert starts.shape == (66, d)
+    args = (st.X, st.Li, st.c, st.n, sg.get_active_minimum(st), torch.zeros(1, dtype=dt),
+            kern.theta[0], torch.tensor(lo, dtype=dt), torch.tensor(hi, dtype=dt), starts, 1.0)
+    kw = dict(kind="matern52", rule="EI", iterations=5)
+    assert nl._block_shape(8, d, 66, 8, 1, sms=sms).start_blocks == min(sms, 66)
+    xr, vr = nl.newton_solve_lanes_ref(*args, **kw)
+    assert torch.equal(xr[0], starts[24])
+    runs = torch.zeros((1, 66), dtype=torch.int32)
+    xk, vk = _solve(emulated, *args, **kw, sms=sms, runs=runs)
+    assert torch.equal(xk[0], starts[24])
+    assert bool(torch.all(runs == 1))       # no start moves: a fixed point at once
+    torch.testing.assert_close(vk, vr, rtol=1e-12, atol=0.0)
+
+
 @pytest.mark.parametrize("case", ["matern52_EI_f64_d10_like_the_bench",
                                   "Li_left_in_device_memory_f64"])
 def test_emulated_double_kernel_reads_only_the_lower_triangle_of_li(emulated, case):
@@ -192,5 +259,7 @@ def test_emulated_double_kernel_reads_only_the_lower_triangle_of_li(emulated, ca
     poisoned = torch.where(upper, torch.full_like(Li, float("nan")), Li)
     xk, vk = _solve(emulated, *args, **kw)
     xp, vp = _solve(emulated, args[0], poisoned, *args[2:], **kw)
+    assert nl._block_shape(*args[0].shape[1:], args[9].shape[0], 8, args[0].shape[0]) \
+        .start_blocks > 1          # the lane's starts over several blocks
     assert torch.equal(xk, xp) and torch.equal(vk, vp)
     _hold_to_plain_version(st, rule, th, args, kw, xp, vp)

@@ -325,31 +325,60 @@ _BLOCK_SHARED = 232_448        # Hopper: 227 KB of dynamic shared memory
 def test_block_shape_fits_the_card(cap, S, itemsize):
     """Every supported d: the block fits the card's thread and shared-memory
     limits, holds at least one lane and one group, covers every start, and
-    its byte count is the layout's (lane state + box + groups' scratch)."""
+    its byte count is the layout's (lane state + box + groups' scratch); in
+    float64 also for one lane, whose starts spread over start blocks."""
     for d in range(1, nl.MAX_D + 1):
-        lanes, groups, stage_m, smem = nl._block_shape(cap, d, S, itemsize)
-        assert lanes >= 1 and 1 <= groups <= S
-        assert lanes * groups * nl._GROUP <= nl._MAX_THREADS <= _BLOCK_THREADS
-        assert 0 < smem <= _BLOCK_SHARED
         dp = d | 1
-        per_group = (5 * cap + 2 * cap * max(dp, 18) + 2 * d * dp + 25 * dp + dp + 2)
-        per_lane = cap * dp + cap + (cap * (cap | 1) if stage_m else 0)
-        assert smem == (lanes * (per_lane + groups * per_group) + 2 * dp) * itemsize
-        assert stage_m      # these capacities keep W (or Li) in shared memory
+        if itemsize == 4:
+            per_group = 5 * cap + 2 * cap * max(dp, 18) + 2 * d * dp + 25 * dp + dp + 2
+            matrix = cap * (cap | 1)
+        else:
+            per_group = cap * max(5 + 2 * dp, 18) + 2 * d * dp + 25 * dp + dp + 2
+            matrix = cap * (cap + 1) // 2
+        shapes = [nl._block_shape(cap, d, S, itemsize)]
+        if itemsize == 8:
+            shapes.append(nl._block_shape(cap, d, S, itemsize, 1))
+        for lay in shapes:
+            lanes, groups, stage_m, smem = lay[:4]
+            assert lanes >= 1 and 1 <= groups <= S
+            assert lay.threads <= nl._MAX_THREADS <= _BLOCK_THREADS
+            assert 0 < smem <= _BLOCK_SHARED
+            # the start blocks cover every start once, none of them empty
+            chunk = -(-S // lay.start_blocks)
+            assert 1 <= lay.start_blocks <= S and (lay.start_blocks - 1) * chunk < S
+            assert groups <= chunk
+            per_lane = cap * dp + cap + (matrix if stage_m else 0)
+            assert smem == (lanes * (per_lane + groups * per_group) + 2 * dp) * itemsize
+            assert stage_m      # these capacities keep W (or Li) in shared memory
+        if itemsize == 8:       # one lane: its starts over as many blocks as SMs allow
+            assert shapes[1].start_blocks == -(-S // -(-S // min(S, nl._SMS)))
 
 
 def test_block_shape_bench_and_beyond():
     # the bench shape: one lane x 10 warps, 63,320 B in float32
-    assert nl._block_shape(24, 10, 10, 4) == (1, 10, True, 63320)
-    assert nl._block_shape(24, 10, 10, 8) == (1, 10, True, 126640)
+    assert nl._block_shape(24, 10, 10, 4) == (1, 10, True, 63320, 1)
+    # float64 (Li packed): 97,360 B, however many lanes fill the card
+    assert nl._block_shape(24, 10, 10, 8) == (1, 10, True, 97360, 1)
+    assert nl._block_shape(24, 10, 10, 8, 1600) == (1, 10, True, 97360, 1)
     # few starts: several lanes per block; many: starts in chunks per group
     assert nl._block_shape(24, 10, 1, 4)[:2] == (8, 1)
     assert nl._block_shape(24, 10, 40, 4)[:2] == (1, 14)
     assert nl._block_shape(24, 10, 1024, 4)[:2] == (1, 16)
+    # the BO loops' float64 shapes: the myopic loop's one lane puts each of
+    # its 66 starts in a block of its own; the non-myopic loop's 2000 lanes
+    # fill the card with 9 warps per lane, two starts each
+    assert nl._block_shape(105, 6, 66, 8, 1) == (1, 1, True, 69456, 66)
+    assert nl._block_shape(23, 6, 18, 8, 2000) == (1, 9, True, 54552, 1)
+    # 64 lanes of 10 starts leave SMs idle: two start blocks of 5 starts
+    assert nl._block_shape(24, 16, 10, 8, 64) == (1, 5, True, 83088, 2)
+    assert nl._block_shape(8, 2, 66, 8, 1, sms=3).start_blocks == 3
     # a capacity whose W = K^{-1} alone exceeds the block: W stays in device
-    # memory (240 x 241 floats = 231,360 B)
-    lanes, groups, stage_m, smem = nl._block_shape(240, 10, 10, 4)
-    assert lanes == 1 and groups >= 1 and not stage_m and smem <= _BLOCK_SHARED
+    # memory (240 x 241 floats = 231,360 B); Li packed (240 x 241 / 2 doubles)
+    # too
+    for itemsize in (4, 8):
+        lay = nl._block_shape(240, 10, 10, itemsize)
+        assert lay.lanes == 1 and lay.groups >= 1 and not lay.stage_m
+        assert lay.smem <= _BLOCK_SHARED
     for bad in (dict(cap=24, d=0, S=4), dict(cap=24, d=17, S=4),
                 dict(cap=24, d=4, S=0), dict(cap=24, d=4, S=1025)):
         with pytest.raises(ValueError, match="outside"):
