@@ -10,12 +10,13 @@
 // backtracking over 2 directions x 9 steps. Then the best start per lane
 // wins (first start on a tie, non-finite values count as -inf).
 //
-// Two kernels, one per dtype, as the JAX package routes the two dtypes
+// One kernel per dtype, as the JAX package routes the two dtypes
 // (rollout_bo_tpu/rollout/solvers.py:40-64): float32 lanes to the TPU
 // kernel, float64 lanes to its XLA solver.
 // - newton_lanes_kernel (float) reads M = W = K^{-1} = Li^T Li, formed by
 //   the wrapper, and computes the TPU kernel's k0 - k^T W k. Its design is
-//   the bench shape's (below, "The float kernel").
+//   the bench shape's, with the double kernel's fixed-point stop and start
+//   blocks (below, "The float kernel").
 // - newton_li_kernel_d8 / _d16 (double) read M = Li = L^{-1}, the lower-triangular
 //   inverse of the Cholesky factor that the surrogate state maintains
 //   (identity-padded, zero above the diagonal), and computes k0 - |Li k|^2:
@@ -36,7 +37,8 @@
 // lane_solve_work; the card's 67 TFLOP/s of float32 and 33.5 of float64
 // outside the tensor cores, 3.35 TB/s):
 // - the bench shape (float32; 1600 lanes, capacity 24, d 10, 10 starts, 10
-//   iterations): 4.7 GFLOP over 5.4 MB, 0.070 ms against 0.0016 ms;
+//   iterations): 4.7 GFLOP over 5.4 MB, 0.070 ms against 0.0016 ms; 0.49
+//   GFLOP, 0.0072 ms, for the one iteration each start needs;
 // - the myopic loop (float64; 1 lane, n 104 of capacity 105, d 6, 66
 //   starts, 12 iterations): 0.24-0.29 GFLOP (by the iterations the starts
 //   need), 0.007-0.009 ms, over 54 KB;
@@ -54,15 +56,23 @@
 // is most of that shape's time, and no measurement here shows what DMMA
 // would save (PERF.md, open questions).
 //
-// The float kernel (designed for the bench shape): a group of G = 32
-// threads (one warp) owns one (lane, start), so the card sees lanes x
-// starts warps instead of as many threads, and no thread holds a d x d
-// array in local memory.
+// The float kernel (designed for the bench shape; since then for the
+// shapes that run it): a group of G = 32 threads (one warp) owns one (lane,
+// start), so the card sees lanes x starts warps instead of as many threads,
+// and no thread holds a d x d array in local memory.
 // - A block holds `lanes_per_block` lanes x `groups_per_lane` groups. Each
 //   lane's X, W and c are staged once in shared memory, rows padded to an
 //   odd stride so that threads on different rows hit different banks; a
 //   group loops over the starts ws, ws + groups_per_lane, ... When one
 //   lane's W does not fit, it stays in device memory (template kStageM).
+//   When the lanes fill fewer blocks than the card has SMs, a lane's starts
+//   spread over blocks and best_start_kernel picks over them, as in the
+//   double kernel below (the myopic loop's one lane at --dtype float32: 66
+//   blocks of one warp, not one block of 10 warps on one SM).
+// - A fixed point ends a start, as in the double kernel: the iteration is a
+//   function of its point and the lane alone, so the result is the one all
+//   `iterations` would give (bit for bit). At the bench shape every start
+//   stops after its first iteration: the lanes sit on EI plateaus.
 // - Passes over the data (k(x, X), psi'/rho, b; w = W k): thread t takes
 //   the rows t, t + G, ... mu, the variance and the isotropic terms are
 //   butterfly reductions by __shfl_xor_sync, a fixed tree, so a run repeats
@@ -93,7 +103,10 @@
 // at the bench shape 1,492 words, so a block of one lane x 10 groups (320
 // threads) takes 63,320 B with the lane's 3,640 B. It is held to 64
 // registers (__launch_bounds__), so three such blocks, 30 warps, are
-// resident per SM.
+// resident per SM. One layout serves every shape: groups of 8 or 16 threads
+// (several starts a warp at d <= 8) were slower than a warp at every shape
+// that runs them, and a second layout for d <= 8 (the candidates' sums in
+// registers) gained 1.1-1.5x on synthetic ladder lanes only (PERF.md).
 //
 // The double kernel (designed for the BO loops' float64 shapes). The float
 // kernel's layout left the myopic loop's one lane on one SM of 132 (one
@@ -103,7 +116,7 @@
 //   blocks than the card has SMs, a lane's starts spread over blocks, as
 //   many as make one block per SM (each of the myopic loop's 66 starts a
 //   block of one warp); each block stages its lane. Each block writes its
-//   best start per lane to `part`; li_best_start_kernel then picks, per
+//   best start per lane to `part`; best_start_kernel then picks, per
 //   lane, the largest value, the lowest start on a tie, over the blocks in
 //   start order. The wrapper counts the two kernels as one launch.
 // - Li is staged as its packed lower triangle (row j at j (j + 1) / 2):
@@ -134,8 +147,8 @@
 //   profile's constants are computed once per lane (li_psi: the same
 //   values) and the triangular loops unrolled: 1.06-1.15x at the BO
 //   loops' shapes against the same code without them.
-// rollout_bo_tpu_torch/ops/newton_lanes.py::_block_shape computes both
-// kernels' layouts and must match `GroupScratch`, `LiScratch` and the
+// rollout_bo_tpu_torch/ops/newton_lanes.py::_block_shape computes every
+// kernel's layout and must match `GroupScratch`, `LiScratch` and the
 // kernels' carve-up below.
 //
 // d and the capacity are runtime values (d <= MAX_D); kind, rule and the
@@ -178,11 +191,6 @@ constexpr int kBacktrack = 9;            // steps per direction
 constexpr int kCand = 2 * kBacktrack;    // candidates per iteration
 constexpr int kG = 32;                   // threads that share one (lane, start): a warp
 constexpr int kMaxThreads = 512;         // per block; the wrapper sizes blocks within it
-// Blocks of kMaxThreads that an SM must hold. 2 caps float32 at 64 registers,
-// so that three 320-thread blocks (30 warps) are resident at the bench shape:
-// measured faster than 80, 96 or 128 registers with fewer warps, spills and
-// all. (newton_lanes_kernel is instantiated for float only.)
-template <typename T> constexpr int min_blocks() { return sizeof(T) == 4 ? 2 : 1; }
 static_assert(MAX_D <= kG, "thread k of a group owns component k of a d-vector");
 
 __constant__ double kCCoef[13] = {
@@ -883,23 +891,42 @@ __device__ void group_iteration(const Lane<T>& L, const GroupScratch<T>& S, int 
   PHASE_MARK(6);  // the winner
 }
 
-template <typename T, bool kStageM>
-__global__ void __launch_bounds__(kMaxThreads, min_blocks<T>())
-    newton_lanes_kernel(const T* __restrict__ X, const T* __restrict__ M,
-                        const T* __restrict__ c, const long long* __restrict__ n_lane,
-                        const T* __restrict__ fmini, const T* __restrict__ theta0,
-                        const T* __restrict__ params, const T* __restrict__ lbs,
-                        const T* __restrict__ ubs, const T* __restrict__ xstarts,
-                        T* __restrict__ xout, T* __restrict__ vout, int num_lanes, int cap,
-                        int d, int S, int iterations, int kind, int rule,
-                        int lanes_per_block, int groups_per_lane, T stol, T sfloor, T ridge,
-                        T f_tol, T x_tol) {
+// The float kernel. Block b runs lane block b / start_blocks over the starts
+// of start block b % start_blocks (contiguous ranges of ceil(S /
+// start_blocks)); a group of kG threads per (lane, start), each group
+// looping over starts ws, ws + groups_per_lane, ... of the block's range.
+// With one start block the block's best start per lane goes to xout / vout;
+// with several, to part (lane, start block): value, start (-1 if none), x,
+// and best_start_kernel picks over the blocks. A start stops at a fixed point:
+// an iteration is a function of x alone, so once it returns x unchanged
+// every later one does too, and the result is the one all `iterations`
+// would give. `runs` (may be null) takes the iterations each (lane, start)
+// ran, for the measurements' work count. Held to 64 registers
+// (__launch_bounds__ with 2 blocks of kMaxThreads), so that three 320-thread
+// blocks (30 warps) are resident at the bench shape: measured faster than 80,
+// 96 or 128 registers with fewer warps, spills and all.
+template <bool kStageM>
+__global__ void __launch_bounds__(kMaxThreads, 2)
+    newton_lanes_kernel(const float* __restrict__ X, const float* __restrict__ M,
+                        const float* __restrict__ c, const long long* __restrict__ n_lane,
+                        const float* __restrict__ fmini, const float* __restrict__ theta0,
+                        const float* __restrict__ params, const float* __restrict__ lbs,
+                        const float* __restrict__ ubs, const float* __restrict__ xstarts,
+                        float* __restrict__ xout, float* __restrict__ vout,
+                        float* __restrict__ part, int* __restrict__ runs, int num_lanes,
+                        int cap, int d, int S, int iterations, int kind, int rule,
+                        int lanes_per_block, int groups_per_lane, int start_blocks,
+                        float stol, float sfloor, float ridge, float f_tol, float x_tol) {
+  using T = float;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nth = blockDim.x;
   const int tid = threadIdx.x;
   const int dp = d | 1;
   const int mst = kStageM ? (cap | 1) : cap;
-  const int lane0 = blockIdx.x * lanes_per_block;
+  const int lblock = blockIdx.x / start_blocks, sb = blockIdx.x - lblock * start_blocks;
+  const int chunk = (S + start_blocks - 1) / start_blocks;
+  const int s_lo = sb * chunk, s_hi = min(S, s_lo + chunk);
+  const int lane0 = lblock * lanes_per_block;
   const int here = min(lanes_per_block, num_lanes - lane0);
 
   // block: X (lanes, cap, dp), M (lanes, cap, mst) when staged, c (lanes, cap),
@@ -972,26 +999,29 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks<T>())
     // the group's best start so far, in start order (strict >: first wins)
     T best_v = neg_inf<T>(), best_x = T(0);
     int best_s = -1;
-    for (int s = ws; s < S; s += groups_per_lane) {
+    for (int s = s_lo + ws; s < s_hi; s += groups_per_lane) {
       T x_t = comp ? clip(xstarts[s * d + t], lb_t, ub_t) : T(0);
       if (comp) Sg.xs()[t] = x_t;
       __syncwarp(m);
-      for (int it = 0; it < iterations; ++it) {
+      int it = 0;
+      while (it < iterations) {
         T xn_t, a0, vbest;
         group_iteration(L, Sg, t, m, x_t, scale, ridge, xn_t, a0, vbest);
-        bool freeze = false;
+        ++it;
+        bool freeze = __all_sync(m, xn_t == x_t);  // a fixed point
         if (loose) {
           // IPNewton-style loose acceptance (reference rbf_optim.jl:26-30);
           // a frozen start keeps its point, so it may stop iterating
           const T improvement = jmax(vbest - a0, T(0));
           const T dx2 = group_sum(m, (xn_t - x_t) * (xn_t - x_t));
-          freeze = improvement <= f_tol * (m_abs(a0) + f_tol) || m_sqrt(dx2) <= x_tol;
+          freeze = freeze || improvement <= f_tol * (m_abs(a0) + f_tol) || m_sqrt(dx2) <= x_tol;
         }
         x_t = xn_t;
         if (comp) Sg.xs()[t] = x_t;
         __syncwarp(m);
         if (freeze) break;
       }
+      if (runs != nullptr && t == 0) runs[(size_t)lane * S + s] = it;
       T v = T(0);
       candidate_values<1>(L, Sg, Sg.xs(), t, m, [&](int, T v0) { v = v0; });
       v = __shfl_sync(m, v, 0, kG);
@@ -1010,13 +1040,15 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks<T>())
   }
   __syncthreads();
 
-  // best start per lane: the largest value, the lowest start on a tie (what
-  // a strict > in start order selects); every start -inf gives x = 0
+  // the block's best start per lane: the largest value, the lowest start on
+  // a tie (what a strict > in start order selects); every start -inf gives
+  // x = 0
   if (active && ws == 0 && comp) {
     T best = neg_inf<T>();
     int arg = -1, arg_s = 0;
+    const size_t at = Sg.res() - Sg.base;
     for (int j = 0; j < groups_per_lane; ++j) {
-      const T* res = sgroups + (size_t)(g + j) * group_words + (Sg.res() - Sg.base);
+      const T* res = sgroups + (size_t)(g + j) * group_words + at;
       const T v = res[0];
       const int s = static_cast<int>(res[1]);
       if (s >= 0 && (v > best || (v == best && s < arg_s))) {
@@ -1025,54 +1057,81 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks<T>())
         arg_s = s;
       }
     }
-    const T* res = sgroups + (size_t)(g + (arg < 0 ? 0 : arg)) * group_words +
-                   (Sg.res() - Sg.base);
-    xout[(size_t)lane * d + t] = arg < 0 ? T(0) : res[2 + t];
-    if (t == 0) vout[lane] = best;
+    const T* res = sgroups + (size_t)(g + (arg < 0 ? 0 : arg)) * group_words + at;
+    if (start_blocks == 1) {
+      xout[(size_t)lane * d + t] = arg < 0 ? T(0) : res[2 + t];
+      if (t == 0) vout[lane] = best;
+    } else {
+      T* out = part + ((size_t)lane * start_blocks + sb) * (d + 2);
+      out[2 + t] = arg < 0 ? T(0) : res[2 + t];
+      if (t == 0) {
+        out[0] = best;
+        out[1] = arg < 0 ? T(-1) : T(arg_s);
+      }
+    }
   }
 }
 
-template <typename T, bool kStageM>
-int launch_as(const void* X, const void* M, const void* c, const void* n,
-              const void* fmini, const void* theta0, const void* params, const void* lbs,
-              const void* ubs, const void* xstarts, void* xout, void* vout, int num_lanes,
-              int cap, int d, int S, int iterations, int kind, int rule,
-              int lanes_per_block, int groups_per_lane, double stol, double sfloor,
-              double ridge, double f_tol, double x_tol, int smem, void* stream) {
-  auto kernel = newton_lanes_kernel<T, kStageM>;
+// The best start per lane over its start blocks: the largest value, the
+// lowest start on a tie (the blocks hold increasing ranges of starts, so a
+// strict > in block order keeps the first); every start -inf gives x = 0.
+template <typename T>
+__global__ void best_start_kernel(const T* __restrict__ part, T* __restrict__ xout,
+                                  T* __restrict__ vout, int num_lanes, int start_blocks, int d) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= num_lanes) return;
+  const T* p = part + (size_t)lane * start_blocks * (d + 2);
+  T best = neg_inf<T>();
+  int arg = -1;
+  for (int b = 0; b < start_blocks; ++b) {
+    const T v = p[b * (d + 2)];
+    if (p[b * (d + 2) + 1] >= T(0) && v > best) {
+      best = v;
+      arg = b;
+    }
+  }
+  for (int k = 0; k < d; ++k) xout[(size_t)lane * d + k] = arg < 0 ? T(0) : p[arg * (d + 2) + 2 + k];
+  vout[lane] = best;
+}
+
+constexpr int kReduceThreads = 128;
+
+int launch_f32(const void* X, const void* M, const void* c, const void* n, const void* fmini,
+               const void* theta0, const void* params, const void* lbs, const void* ubs,
+               const void* xstarts, void* xout, void* vout, void* part, void* runs,
+               int num_lanes, int cap, int d, int S, int iterations, int kind, int rule,
+               int lanes_per_block, int groups_per_lane, int start_blocks, int stage_m,
+               double stol, double sfloor, double ridge, double f_tol, double x_tol, int smem,
+               void* stream) {
+  if (d < 1 || d > MAX_D || S < 1 || lanes_per_block < 1 || groups_per_lane < 1 ||
+      start_blocks < 1 || start_blocks > S || (start_blocks > 1 && part == nullptr) ||
+      lanes_per_block * groups_per_lane * kG > kMaxThreads)
+    return (int)cudaErrorInvalidValue;
+  const auto kernel = stage_m ? newton_lanes_kernel<true> : newton_lanes_kernel<false>;
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const int blocks = (num_lanes + lanes_per_block - 1) / lanes_per_block;
+  const int blocks = (num_lanes + lanes_per_block - 1) / lanes_per_block * start_blocks;
   const int threads = lanes_per_block * groups_per_lane * kG;
   LANES_LAUNCH(kernel, blocks, threads, smem, stream)(
-      static_cast<const T*>(X), static_cast<const T*>(M), static_cast<const T*>(c),
-      static_cast<const long long*>(n), static_cast<const T*>(fmini),
-      static_cast<const T*>(theta0), static_cast<const T*>(params),
-      static_cast<const T*>(lbs), static_cast<const T*>(ubs),
-      static_cast<const T*>(xstarts), static_cast<T*>(xout), static_cast<T*>(vout),
-      num_lanes, cap, d, S, iterations, kind, rule, lanes_per_block, groups_per_lane,
-      T(stol), T(sfloor), T(ridge), T(f_tol), T(x_tol));
+      static_cast<const float*>(X), static_cast<const float*>(M),
+      static_cast<const float*>(c), static_cast<const long long*>(n),
+      static_cast<const float*>(fmini), static_cast<const float*>(theta0),
+      static_cast<const float*>(params), static_cast<const float*>(lbs),
+      static_cast<const float*>(ubs), static_cast<const float*>(xstarts),
+      static_cast<float*>(xout), static_cast<float*>(vout), static_cast<float*>(part),
+      static_cast<int*>(runs), num_lanes, cap, d, S, iterations, kind, rule, lanes_per_block,
+      groups_per_lane, start_blocks, float(stol), float(sfloor), float(ridge), float(f_tol),
+      float(x_tol));
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || start_blocks == 1) return (int)e;
+  const auto reduce = best_start_kernel<float>;
+  LANES_LAUNCH(reduce, (num_lanes + kReduceThreads - 1) / kReduceThreads, kReduceThreads, 0,
+               stream)(static_cast<const float*>(part), static_cast<float*>(xout),
+                       static_cast<float*>(vout), num_lanes, start_blocks, d);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch(const void* X, const void* M, const void* c, const void* n,
-           const void* fmini, const void* theta0, const void* params,
-           const void* lbs, const void* ubs, const void* xstarts, void* xout,
-           void* vout, int num_lanes, int cap, int d, int S, int iterations,
-           int kind, int rule, int lanes_per_block, int groups_per_lane, int stage_m,
-           double stol, double sfloor, double ridge, double f_tol, double x_tol,
-           int smem, void* stream) {
-  if (d < 1 || d > MAX_D || S < 1 || lanes_per_block < 1 || groups_per_lane < 1 ||
-      lanes_per_block * groups_per_lane * kG > kMaxThreads)
-    return (int)cudaErrorInvalidValue;
-  auto fn = stage_m ? launch_as<T, true> : launch_as<T, false>;
-  return fn(X, M, c, n, fmini, theta0, params, lbs, ubs, xstarts, xout, vout, num_lanes,
-            cap, d, S, iterations, kind, rule, lanes_per_block, groups_per_lane, stol,
-            sfloor, ridge, f_tol, x_tol, smem, stream);
 }
 
 // ============================================================================
@@ -1691,28 +1750,6 @@ __device__ __forceinline__ void li_solve(LI_PARAMS) {
   }
 }
 
-// The best start per lane over its start blocks: the largest value, the
-// lowest start on a tie (the blocks hold increasing ranges of starts, so a
-// strict > in block order keeps the first); every start -inf gives x = 0.
-__global__ void li_best_start_kernel(const double* __restrict__ part,
-                                     double* __restrict__ xout, double* __restrict__ vout,
-                                     int num_lanes, int start_blocks, int d) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= num_lanes) return;
-  const double* p = part + (size_t)lane * start_blocks * (d + 2);
-  double best = neg_inf<double>();
-  int arg = -1;
-  for (int b = 0; b < start_blocks; ++b) {
-    const double v = p[b * (d + 2)];
-    if (p[b * (d + 2) + 1] >= 0.0 && v > best) {
-      best = v;
-      arg = b;
-    }
-  }
-  for (int k = 0; k < d; ++k) xout[(size_t)lane * d + k] = arg < 0 ? 0.0 : p[arg * (d + 2) + 2 + k];
-  vout[lane] = best;
-}
-
 // The kernels, by the factorization's unroll (and so by their registers)
 template <bool kStage>
 __global__ void __maxnreg__(NEWTON_LI_MAXNREG8) newton_li_kernel_d8(LI_PARAMS) {
@@ -1731,8 +1768,6 @@ LiKernel li_kernel_for(int d, int stage_m) {
   if (!stage_m) return newton_li_kernel_d16<false>;
   return d > 8 ? newton_li_kernel_d16<true> : newton_li_kernel_d8<true>;
 }
-
-constexpr int kReduceThreads = 128;
 
 int launch_li(const void* X, const void* Li, const void* c, const void* n,
               const void* fmini, const void* theta0, const void* params, const void* lbs,
@@ -1764,7 +1799,7 @@ int launch_li(const void* X, const void* Li, const void* c, const void* n,
       lanes_per_block, groups_per_lane, start_blocks, stol, sfloor, ridge, f_tol, x_tol);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const auto reduce = li_best_start_kernel;
+  const auto reduce = best_start_kernel<double>;
   LANES_LAUNCH(reduce, (num_lanes + kReduceThreads - 1) / kReduceThreads, kReduceThreads, 0,
                stream)(static_cast<const double*>(part), static_cast<double*>(xout),
                        static_cast<double*>(vout), num_lanes, start_blocks, d);
@@ -1790,7 +1825,7 @@ extern "C" int newton_lanes_blocks_per_sm(int itemsize, int d, int stage_m, int 
   int blocks = 0;
   cudaError_t e;
   if (itemsize == 4) {
-    auto k = stage_m ? newton_lanes_kernel<float, true> : newton_lanes_kernel<float, false>;
+    auto k = stage_m ? newton_lanes_kernel<true> : newton_lanes_kernel<false>;
     cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, threads, smem);
   } else {
@@ -1801,8 +1836,10 @@ extern "C" int newton_lanes_blocks_per_sm(int itemsize, int d, int stage_m, int 
   return e == cudaSuccess ? blocks : -(int)e;
 }
 
-// The entry points: one signature for both; the float one takes one start
-// block, and no `part` or `runs`.
+// The entry points: one signature for both. `part` (lanes, start blocks, d +
+// 2) holds each block's best start where there are several start blocks (a
+// float launch of one start block may pass null); `runs` (lanes, S) int32,
+// may be null.
 extern "C" int newton_lanes_f32(const void* X, const void* W, const void* c, const void* n,
                                 const void* fmini, const void* theta0, const void* params,
                                 const void* lbs, const void* ubs, const void* xstarts,
@@ -1811,11 +1848,10 @@ extern "C" int newton_lanes_f32(const void* X, const void* W, const void* c, con
                                 int lanes_per_block, int groups_per_lane, int start_blocks,
                                 int stage_m, double stol, double sfloor, double ridge,
                                 double f_tol, double x_tol, int smem, void* stream) {
-  if (start_blocks != 1) return (int)cudaErrorInvalidValue;
-  return launch<float>(X, W, c, n, fmini, theta0, params, lbs, ubs, xstarts, xout, vout,
-                       num_lanes, cap, d, S, iterations, kind, rule, lanes_per_block,
-                       groups_per_lane, stage_m, stol, sfloor, ridge, f_tol, x_tol, smem,
-                       stream);
+  return launch_f32(X, W, c, n, fmini, theta0, params, lbs, ubs, xstarts, xout, vout, part,
+                    runs, num_lanes, cap, d, S, iterations, kind, rule, lanes_per_block,
+                    groups_per_lane, start_blocks, stage_m, stol, sfloor, ridge, f_tol, x_tol,
+                    smem, stream);
 }
 
 extern "C" int newton_lanes_f64(const void* X, const void* Li, const void* c, const void* n,

@@ -8,10 +8,10 @@ d ~10). A lane is one (restart, trajectory) pair; the bench configuration
 has 8 x 200 = 1600 lanes per call.
 
 - `newton_solve_lanes` is the entry point. For CUDA tensors it launches the
-  hand-written kernel `csrc/newton_lanes.cu` (one warp per (lane, start),
-  the lane's GP staged in shared memory; in float64 a lane's starts spread
-  over several blocks when the lanes alone would leave SMs idle); it raises
-  rather than fall back. For CPU tensors it runs the plain version.
+  hand-written kernel `csrc/newton_lanes.cu` (a warp per (lane, start), the
+  lane's GP staged in shared memory; a lane's starts spread over several
+  blocks when the lanes alone would leave SMs idle); it raises rather than
+  fall back. For CPU tensors it runs the plain version.
 - `newton_solve_lanes_ref` is the plain PyTorch version: the same math,
   batch-first over (lane, start). The CPU tests hold it against the JAX
   package, and `chip_smoke.py` holds the CUDA kernel against it on the card.
@@ -382,20 +382,19 @@ def _block_shape(cap: int, d: int, S: int, itemsize: int, num_lanes: int | None 
     `lanes` lanes x `groups` groups over the starts of one of
     `start_blocks` contiguous ranges, and a group loops over the starts g,
     g + groups, ... of its range. In words of the lane dtype, dp = d | 1:
-    - float32 (the W form; one start block): per lane X (cap, dp), W (cap,
-      cap | 1) when staged (odd strides keep rows on different banks) and
-      c (cap,); per block the box (2, dp); per group
-      (`GroupScratch`) 5 cap-long rows, 2 cap x max(dp, 18) for the Hessian
-      strips and the candidates' columns, A and its factor (d, dp) each, 18
+    - float32 (the W form): per lane X (cap, dp), W (cap, cap | 1) when
+      staged (odd strides keep rows on different banks) and c (cap,); per
+      block the box (2, dp); per group (`GroupScratch`) 5 cap-long rows, 2
+      cap x max(dp, 18) for the Hessian strips and the candidates' columns, A and its factor (d, dp) each, 18
       candidates and 7 vectors of dp, and a (dp + 2)-long result.
     - float64 (the Li form): per lane X, Li's lower triangle packed by rows
       (cap (cap + 1) / 2) when staged, and c; per group (`LiScratch`) cap x
       max(5 + 2 dp, 18) (5 cap-long rows, G and P = Li G; then the
       candidates' k(x_c, X)), A and its factor, 18 candidates, 7 vectors and
-      the result. With `num_lanes`, a launch whose lanes fill fewer blocks
-      than `sms` takes one lane per block and spreads its starts over
-      blocks, as many as make `sms` blocks (each start its own block at the
-      most).
+      the result.
+    With `num_lanes`, a launch whose lanes fill fewer blocks than `sms`
+    takes one lane per block and spreads its starts over blocks, as many as
+    make `sms` blocks (each start its own block at the most).
     When one lane with one group does not fit, the lane matrix stays in
     device memory. Raises ValueError when even that exceeds the block's
     shared memory."""
@@ -423,7 +422,7 @@ def _block_shape(cap: int, d: int, S: int, itemsize: int, num_lanes: int | None 
     groups = -(-S // chunks)
     lanes = max(1, _GROUPS_TARGET // groups)
     start_blocks = 1
-    if li and num_lanes and -(-num_lanes // lanes) < sms:
+    if num_lanes and -(-num_lanes // lanes) < sms:
         lanes = 1
         start_blocks = min(S, max(1, sms // num_lanes))
         chunk = -(-S // start_blocks)     # starts per block
@@ -466,10 +465,10 @@ def lane_solve_work(n, cap: int, d: int, S: int, iterations: int, itemsize: int,
     of r_j C_j' and P_j P_j' (2 n d (d + 1)); one d x d Cholesky solve; the
     direction's norms. Then one value per (lane, start). A triangular
     matvec over n rows is n (n + 1) operations. `runs` (L, S), where given,
-    holds the iterations each start needs: the float64 kernel stops a start
-    at a fixed point (an iteration that returns its point unchanged) or at
-    the loose freeze, and reports what it ran (`_launch(runs=...)`); else
-    every start counts `iterations`. Left out, so that the count stays a
+    holds the iterations each start needs: the kernel stops a start at a
+    fixed point (an iteration that returns its point unchanged) or at the
+    loose freeze, and reports what it ran (`_launch(runs=...)`); else every
+    start counts `iterations`. Left out, so that the count stays a
     floor: the second, Gershgorin-damped solve (only where the first
     fails). Bytes count each input once (X, the lane matrix, c, n, fmini,
     theta0 per lane; the box, the starts and the two kernel parameters
@@ -564,15 +563,15 @@ def _layout_args(layout: Layout):
 
 def _launch(X, Li, c, n, fmini, theta0, ell, lbs, ubs, xstarts, period, *,
             kind, rule, iterations, sigma_tol, sigma_floor, ridge, f_tol, x_tol, runs=None):
-    """One solve on the current stream (in float64 two kernels: the solve
-    and the best start per lane over the start blocks; one count in LAUNCHES
-    or RECORDED either way). It copies nothing from the host and does not
-    synchronize, so a CUDA graph can capture it (`utils.graphs`): the
-    launcher runs `cudaFuncSetAttribute`, the launches and
-    `cudaGetLastError`. `runs`, an int32 (L, S) tensor, takes the
-    iterations each (lane, start) of a float64 solve ran (a start stops at
-    a fixed point of the iteration), for the measurements' work count. The
-    library's measurement entries
+    """One solve on the current stream (two kernels where a lane's starts
+    spread over start blocks, and always in float64: the solve and the best
+    start per lane over the start blocks; one count in LAUNCHES or RECORDED
+    either way). It copies nothing from the host and does not synchronize,
+    so a CUDA graph can capture it (`utils.graphs`): the launcher runs
+    `cudaFuncSetAttribute`, the launches and `cudaGetLastError`. `runs`, an
+    int32 (L, S) tensor, takes the iterations each (lane, start) ran (a
+    start stops at a fixed point of the iteration), for the measurements'
+    work count. The library's measurement entries
     (`newton_lanes_phase_cycles`, `newton_lanes_blocks_per_sm`) copy from
     the device or query it, and are called only outside the path."""
     global LAUNCHES, RECORDED
@@ -589,9 +588,10 @@ def _launch(X, Li, c, n, fmini, theta0, ell, lbs, ubs, xstarts, period, *,
                           sms=_sm_count(dev.index if dev.index is not None
                                         else torch.cuda.current_device()))
     M = _lane_matrix(Li)[0]         # W for the float kernel, Li for the double one
-    # the double kernel's best start per (lane, start block): value, start, x
+    # each block's best start per lane where there are several (always in
+    # float64): value, start, x
     part = (torch.empty((nl, layout.start_blocks, d + 2), dtype=dt, device=dev)
-            if dt == torch.float64 else None)
+            if dt == torch.float64 or layout.start_blocks > 1 else None)
     fn = getattr(_library(), _ENTRY[dt])
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(X.data_ptr(), M.data_ptr(), c.data_ptr(), n.data_ptr(),
@@ -613,11 +613,11 @@ def _launch(X, Li, c, n, fmini, theta0, ell, lbs, ubs, xstarts, period, *,
 def _iterations_run(X, Li, c, n, fmini, theta0, ell, lbs, ubs, xstarts, period=1.0, *,
                     kind="matern52", rule="EI", iterations=12, sigma_tol=1e-8,
                     sigma_floor=1e-10, ridge=1e-8, f_tol=0.0, x_tol=0.0):
-    """The iterations each (lane, start) runs in one more float64 launch on
-    the card, int32 (L, S): `lane_solve_work`'s `runs` for the
-    measurements (a start stops at a fixed point or the loose freeze)."""
-    if X.dtype != torch.float64 or X.device.type != "cuda":
-        raise ValueError("_iterations_run: float64 lanes on the card only")
+    """The iterations each (lane, start) runs in one more launch on the card,
+    int32 (L, S): `lane_solve_work`'s `runs` for the measurements (a start
+    stops at a fixed point or the loose freeze)."""
+    if X.device.type != "cuda":
+        raise ValueError("_iterations_run: lanes on the card only")
     lbs, ubs, xstarts = _check_lanes(X, Li, c, n, fmini, theta0, lbs, ubs, xstarts,
                                      kind, rule)
     runs = torch.zeros((X.shape[0], xstarts.shape[0]), dtype=torch.int32, device=X.device)

@@ -6,19 +6,24 @@
 
 The kernel is the package's `csrc/newton_lanes.cu` (a warp per (lane,
 start); float32 lanes in the W = K^{-1} form; float64 lanes in the Li =
-L^{-1} form, a lane's starts over several blocks when the lanes leave SMs
-idle). `--old-source` adds an earlier source to compare it with: that
-tree's `csrc/newton_lanes.cu`, built with the package's flags and launched
-with that tree's own C signature and block shape (`ops/newton_lanes.py`
-beside it: its `_block_shape`, `_ARGTYPES` and, from the start blocks on,
-`_layout_args`), fed what the package's lanes read (W in float32, Li in
-float64). Unpack the tree with `git archive <commit> | tar -x -C
-build/parent`. Each kernel is timed on its launch alone, the matrix it
-reads formed before the timed launches. The float32 code is the same in
-both, so their float32 values must agree bit for bit: the script exits 1
-when they do not. `--variants` also times, at the BO loops' two float64
-shapes, the float64 kernel for d <= 8 built with other register budgets
-(-DNEWTON_LI_MAXNREG8=128, 64 or 48; the package's is 56).
+L^{-1} form; a lane's starts over several blocks when the lanes leave SMs
+idle). `--old-source` adds an earlier source to compare it
+with: that tree's `csrc/newton_lanes.cu`, built with the package's flags and
+launched with that tree's own C signature and block shape
+(`ops/newton_lanes.py` beside it: its `_block_shape`, `_ARGTYPES` and, from
+the start blocks on, `_layout_args`), fed what the package's lanes read (W
+in float32, Li in float64). Unpack the tree with `git archive <commit> |
+tar -x -C build/parent`. Each kernel is timed on its launch alone, the
+matrix it reads formed before the timed launches. The float32 arithmetic
+is the same in both (a start that stops at its fixed point gives what all
+its iterations give), so the float32 values must agree bit for bit: the
+script exits 1 when they do not. It prints, per shape, the lanes whose
+values differ, the largest difference, the argmax agreement of both
+kernels with the plain version and the lanes on which each misses
+criterion (a) of chip_smoke.py. `--variants` also times, at the BO loops'
+two float64 shapes, the float64 kernel for d <= 8 built with other
+register budgets (-DNEWTON_LI_MAXNREG8=128, 64 or 48; the package's is
+56).
 
 All builds start together. Then:
 - per shape, the kernels run in turns (old, new, new, old), each turn the
@@ -32,12 +37,21 @@ All builds start together. Then:
         12 iterations: the myopic loop's (1 lane, n 104 of capacity 105, 64
         + 2 starts) and the non-myopic loop's (2000 lanes, n 6..21 of
         capacity 23, 16 + 2 starts);
-  (v)   the regret ladder's float32 shape (ackley2d at h 3: 8 restarts x 200
+  (v)   the regret ladder's float32 shapes (ackley2d at h 3: 8 restarts x 200
         trajectories = 1600 lanes, n 4..16 of capacity 20, d 2, 8 + 2
-        starts, 12 iterations);
-  with the work and the bound from `lane_solve_work` in the lanes' dtype
+        starts, 12 iterations; the same at lengthscale 3, where most
+        lanes' starts move; gramacylee: 2000 lanes, n 1..16 of capacity 20,
+        d 1, lengthscale 0.15);
+  (vi)  the throughput call's shape (4096 lanes of 13-15 trid10d points in
+        capacity 24, d 10, 10 starts, 10 iterations, float32) and the myopic
+        loop's shape in float32 (hartmann6d, `--dtype float32`: 1 lane, n
+        104 of capacity 105, d 6, 64 + 2 starts, 12 iterations);
+  with the layout (blocks, warps, start blocks, resident warps), the
+  iterations the starts ran (a start stops at a fixed point), the work and
+  the bound from `lane_solve_work` in the lanes' dtype counted from them
   (the fewest operations the function needs: both kernels' share is of
-  it), the values against the old kernel's (in float32 bit for bit), the value floor (each kernel run on the same lanes cast
+  it), the values against the old kernel's (in float32 bit for bit), the
+  value floor (each kernel run on the same lanes cast
   to float32 and to float64: the largest |v - v64| over the lanes, v64 the
   plain version's value in float64), and the cycles per phase of a Newton
   iteration (a build with -DNEWTON_LANES_PROFILE: `clock64` around each
@@ -232,6 +246,10 @@ def shapes(dev):
     st = chip_smoke._lane_state(bench_lanes, f.dim, 24, "matern52", (1.0,), f.lbs, f.ubs,
                                 torch.float32, dev, 7, f=f)
     out["bench f32 (1600 lanes, cap 24, d 10, S 10)"] = pack(st, f.lbs, f.ubs, torch.float32)
+    st = chip_smoke._lane_state({13: 1366, 14: 1365, 15: 1365}, f.dim, 24, "matern52", (1.0,),
+                                f.lbs, f.ubs, torch.float32, dev, 7, f=f)
+    out["throughput f32 (4096 lanes, cap 24, d 10, S 10)"] = pack(st, f.lbs, f.ubs,
+                                                                  torch.float32)
     lo, hi = np.full(10, -1.0), np.full(10, 1.0)
     st = chip_smoke._lane_state(bench_lanes, 10, 24, "matern52", (0.8,), lo, hi,
                                 torch.float32, dev, 5)
@@ -256,6 +274,25 @@ def shapes(dev):
                                 (0.6,), f.lbs, f.ubs, torch.float32, dev, 23, f=f)
     out["ladder f32 (ackley2d h 3: 1600 lanes, n 4..16 of cap 20, d 2, S 10)"] = pack(
         st, f.lbs, f.ubs, torch.float32, 8, 12)
+    # the same at lengthscale 3, where most lanes' Newton steps move
+    st = chip_smoke._lane_state({4: 400, 8: 400, 12: 400, 16: 400}, f.dim, 20, "matern52",
+                                (3.0,), f.lbs, f.ubs, torch.float32, dev, 23, f=f)
+    out["ladder f32, moving (ackley2d, lengthscale 3: 1600 lanes, n 4..16 of cap 20, d 2, "
+        "S 10)"] = pack(st, f.lbs, f.ubs, torch.float32, 8, 12)
+    # gramacylee at lengthscale 0.15 (chip_smoke.py phase 3's first gramacylee
+    # lanes: its 16 random points in [0.5, 2.5] leave K on a few lanes in a
+    # thousand too ill-conditioned for the float32 W form, in the plain
+    # version too)
+    f = testfns.get_function("gramacylee")
+    st = chip_smoke._lane_state({1: 400, 4: 400, 8: 400, 12: 400, 16: 400}, f.dim, 20,
+                                "matern52", (0.15,), f.lbs, f.ubs, torch.float32, dev, 23, f=f)
+    out["ladder f32 (gramacylee: 2000 lanes, n 1..16 of cap 20, d 1, S 10)"] = pack(
+        st, f.lbs, f.ubs, torch.float32, 8, 12)
+    f = testfns.get_function("hartmann6d")
+    st = chip_smoke._lane_state({104: 1}, f.dim, 105, "matern52", (0.6,), f.lbs, f.ubs,
+                                torch.float32, dev, 17, f=f)
+    out["myopic f32 (1 lane, n 104 of cap 105, d 6, S 66)"] = pack(
+        st, f.lbs, f.ubs, torch.float32, 64, 12)
     return out
 
 
@@ -318,6 +355,23 @@ def acquisition_f64(args, kw, x):
                                     c[:, None], ml, kind, ell, period, k0, 1e-10)
     v = nl.rule_value(kw["rule"], mu, sigma, th0[:, None], fmini[:, None], 1e-8)[:, 0]
     return torch.where(torch.isfinite(v), v, -torch.inf)
+
+
+def misses_a(args, kw, x, v):
+    """Lanes on which a float32 solver's value v misses chip_smoke's criterion
+    (a) at its point x: |v - acq(x)| > 2e-3 |acq(x)| + 1e-5 max(1, |acq(x)|)
+    (2e-3 in place of 1e-5 for the Log rules), acq the acquisition in the Li
+    form in the lanes' dtype, as the surrogate evaluates it."""
+    X, Li, c, n, fmini, th0, ell, _, _, _, period = args
+    kind, cap = kw["kind"], X.shape[1]
+    ml = (torch.arange(cap, device=X.device) < n[:, None]).to(X.dtype)[:, None]
+    zero = torch.zeros((), dtype=X.dtype, device=X.device)
+    k0 = nl._profile_terms(kind, zero, zero, ell, period)[0]
+    mu, sigma = nl._posterior_value(x[:, None], X[:, None], Li[:, None], True, c[:, None], ml,
+                                    kind, ell, period, k0, 1e-10)
+    acq = nl.rule_value(kw["rule"], mu, sigma, th0[:, None], fmini[:, None], 1e-8)[:, 0]
+    atol = 2e-3 if kw["rule"].startswith("Log") else 1e-5
+    return int(((v - acq).abs() > 2e-3 * acq.abs() + atol * acq.abs().clamp(min=1.0)).sum())
 
 
 def _small_cases(dev, seed):
@@ -499,25 +553,31 @@ def main():
     order = ["old", "new", "new", "old"] if old_lib else ["new", "new"]
     float32_differs = []
     for name, (args, kw, counts) in shapes(dev).items():
-        report["shapes"][name] = dict(layout=chip_smoke.kernel_layout(args[0],
-                                                                      args[9].shape[0]))
-        print(f"{name}: new kernel's blocks {report['shapes'][name]['layout']}")
+        layout = chip_smoke.kernel_layout(args[0], args[9].shape[0])
+        report["shapes"][name] = dict(layout=layout)
+        print(f"{name}: new kernel's blocks {layout}")
+        X, S = args[0], args[9].shape[0]
         vs_old = None
         if old_lib:
             (xo, vo), (xn, vn) = solvers["old"](*args, **kw), new(*args, **kw)
+            xr, vr = nl.newton_solve_lanes_ref(*args, **kw)
             torch.cuda.synchronize()
             width = float(torch.max(args[8] - args[7]))
+            near = lambda x, y: float(((x - y).abs().amax(-1) <= 1e-3 * width).double().mean())
             vs_old = dict(
                 bitwise_equal=bool(torch.equal(xn, xo) and torch.equal(vn, vo)),
+                lanes_differ=int((vn != vo).sum()),
                 max_abs_dv=float(torch.where(vn == vo, 0.0, (vn - vo).abs()).max()),
-                argmax_agreement=float(((xn - xo).abs().amax(-1) <= 1e-3 * width)
-                                       .double().mean()))
-            if args[0].dtype == torch.float32 and not vs_old["bitwise_equal"]:
+                argmax_agreement=near(xn, xo),
+                argmax_agreement_with_plain={"old": near(xo, xr), "new": near(xn, xr)},
+                lanes_missing_criterion_a={k: misses_a(args, kw, x_, v_) for k, (x_, v_) in
+                                           dict(old=(xo, vo), new=(xn, vn),
+                                                plain=(xr, vr)).items()})
+            if X.dtype == torch.float32 and not vs_old["bitwise_equal"]:
                 float32_differs.append(name)
         turns = time_turns(solvers, order, args, kw, a.reps)
-        X, S = args[0], args[9].shape[0]
-        # the float64 kernel stops a start at a fixed point: count what these lanes need
-        runs = nl._iterations_run(*args, **kw) if X.dtype == torch.float64 else None
+        # a start stops at a fixed point: count the work these lanes need
+        runs = nl._iterations_run(*args, **kw)
         work = chip_smoke.lane_bound(counts, X.shape[1], X.shape[2], S, kw["iterations"],
                                      X.dtype, runs)
         flops, nbytes, bound_ms = work["flops"], work["bytes"], work["bound_ms"]
@@ -530,9 +590,9 @@ def main():
                                       gflop=flops / 1e9, bytes=nbytes, bound_ms=bound_ms,
                                       phase_cycles=phases, value_floor=floor)
         print(f"  " + ", ".join(f"{n_} {ms:.3f}" for n_, ms in turns) + " ms")
-        if runs is not None:
-            print(f"  iterations run per start: mean {float(runs.double().mean()):.3f} of "
-                  f"{kw['iterations']}")
+        print(f"  iterations run per start: mean {float(runs.double().mean()):.3f} of "
+              f"{kw['iterations']} ({layout['start_blocks']} start blocks, "
+              f"{layout['warps_per_sm']} warps per SM)")
         print(f"  mean ms {mean}; {flops / 1e9:.3f} GFLOP, {nbytes} B, bound {bound_ms:.4f} "
               f"ms, share of bound { {k: round(bound_ms / mean[k], 4) for k in solvers} }"
               + (f"; speedup {mean['old'] / mean['new']:.2f}x; new vs old {vs_old}"

@@ -31,9 +31,11 @@ designs and seeds), so a cut run or a call for more trials runs only what
 is missing. A cell that fails writes `<cell>_failed.txt`, is reported, and
 the sweep goes on; the exit status is then 1.
 
-Usage (on the card; `--device cpu` runs the plain PyTorch route):
+Usage (on the card; `--device cpu` runs the plain PyTorch route; `--dtype
+float32` runs the myopic cells in the dtype the JAX record's were run in):
     python scripts/parity_sweep_torch.py --plan parity --trials 10
     python scripts/parity_sweep_torch.py --plan parity --trials 20 --functions sixhump:poi
+    python scripts/parity_sweep_torch.py --trials 10 --functions levy10d:ei --dtype float32
     python scripts/parity_report_torch.py
 `--functions` takes function names, or `name:rule` / `name:h<k>` for one
 cell.
@@ -283,12 +285,24 @@ def parse_args(argv=None):
     p.add_argument("--out", default=os.path.join(REPO, "results_torch"))
     p.add_argument("--device", default="cuda",
                    help="the CLIs' --device (cpu runs the plain PyTorch route)")
+    p.add_argument("--dtype", choices=("float32", "float64"), default=None,
+                   help="the myopic cells' --dtype (default: the CLI's, float64; the "
+                        "ladder runs float32 by run_parity_sweep.sh)")
     return p.parse_args(argv)
+
+
+def with_dtype(cells: list[Cell], dtype: str | None) -> list[Cell]:
+    """The cells with `--dtype dtype` added to each myopic cell's flags."""
+    if dtype is None:
+        return cells
+    return [dataclasses.replace(c, flags=c.flags + ("--dtype", dtype)) if c.cli == "myopic"
+            else c for c in cells]
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    cells = select(plan_cells(args.plan, args.trials, args.horizon), args.functions)
+    cells = with_dtype(select(plan_cells(args.plan, args.trials, args.horizon),
+                              args.functions), args.dtype)
     failed = run(cells, args.out, args.device)
     print(f"sweep done: {len(cells)} cells, {failed} failed", flush=True)
     return 1 if failed else 0

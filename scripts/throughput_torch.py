@@ -137,8 +137,10 @@ def single_card(args, device):
 
 def _lane_kernel_times(call):
     """The lane kernel inside one more call (after the timed ones): the
-    CUDA-event ms of each launch, and the least time the card could take
-    for the same work (`chip_smoke.lane_bound`)."""
+    CUDA-event ms of each launch, the iterations its starts ran (one more
+    launch on the same lanes, `newton_lanes._iterations_run`: a start stops
+    at its fixed point) and the least time the card could take for the work
+    they need (`chip_smoke.lane_bound`)."""
     import chip_smoke
     from rollout_bo_tpu_torch.ops import newton_lanes as nl
 
@@ -149,7 +151,9 @@ def _lane_kernel_times(call):
         start.record()
         out = real(X, Li, c, n, fmini, theta0, ell, lbs, ubs, xstarts, *rest, **kw)
         stop.record()
-        launches.append((start, stop, n, X, xstarts.shape[0], kw["iterations"]))
+        runs = nl._iterations_run(X, Li, c, n, fmini, theta0, ell, lbs, ubs, xstarts, *rest,
+                                  **kw)
+        launches.append((start, stop, n, X, xstarts.shape[0], kw["iterations"], runs))
         return out
 
     nl.newton_solve_lanes = timed
@@ -158,12 +162,14 @@ def _lane_kernel_times(call):
     finally:
         nl.newton_solve_lanes = real
     torch.cuda.synchronize()
-    ms, bounds = [], []
-    for start, stop, n, X, S, iterations in launches:
+    ms, bounds, ran = [], [], []
+    for start, stop, n, X, S, iterations, runs in launches:
         ms.append(start.elapsed_time(stop))
         bounds.append(chip_smoke.lane_bound(n.tolist(), X.shape[1], X.shape[2], S,
-                                            iterations, X.dtype))
+                                            iterations, X.dtype, runs))
+        ran.append(float(runs.double().mean()))
     return dict(lane_kernel_lanes=launches[0][3].shape[0], lane_kernel_ms=ms,
+                lane_kernel_iterations_run=ran,
                 lane_kernel_bound_ms=[b["bound_ms"] for b in bounds],
                 lane_kernel_bound_by=bounds[0]["bound_by"])
 

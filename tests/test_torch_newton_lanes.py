@@ -325,8 +325,8 @@ _BLOCK_SHARED = 232_448        # Hopper: 227 KB of dynamic shared memory
 def test_block_shape_fits_the_card(cap, S, itemsize):
     """Every supported d: the block fits the card's thread and shared-memory
     limits, holds at least one lane and one group, covers every start, and
-    its byte count is the layout's (lane state + box + groups' scratch); in
-    float64 also for one lane, whose starts spread over start blocks."""
+    its byte count is the layout's (lane state + box + groups' scratch);
+    also for one lane, whose starts spread over start blocks."""
     for d in range(1, nl.MAX_D + 1):
         dp = d | 1
         if itemsize == 4:
@@ -335,9 +335,7 @@ def test_block_shape_fits_the_card(cap, S, itemsize):
         else:
             per_group = cap * max(5 + 2 * dp, 18) + 2 * d * dp + 25 * dp + dp + 2
             matrix = cap * (cap + 1) // 2
-        shapes = [nl._block_shape(cap, d, S, itemsize)]
-        if itemsize == 8:
-            shapes.append(nl._block_shape(cap, d, S, itemsize, 1))
+        shapes = [nl._block_shape(cap, d, S, itemsize), nl._block_shape(cap, d, S, itemsize, 1)]
         for lay in shapes:
             lanes, groups, stage_m, smem = lay[:4]
             assert lanes >= 1 and 1 <= groups <= S
@@ -350,16 +348,28 @@ def test_block_shape_fits_the_card(cap, S, itemsize):
             per_lane = cap * dp + cap + (matrix if stage_m else 0)
             assert smem == (lanes * (per_lane + groups * per_group) + 2 * dp) * itemsize
             assert stage_m      # these capacities keep W (or Li) in shared memory
-        if itemsize == 8:       # one lane: its starts over as many blocks as SMs allow
-            assert shapes[1].start_blocks == -(-S // -(-S // min(S, nl._SMS)))
+        # one lane: its starts over as many blocks as SMs allow
+        assert shapes[1].start_blocks == -(-S // -(-S // min(S, nl._SMS)))
 
 
 def test_block_shape_bench_and_beyond():
-    # the bench shape: one lane x 10 warps, 63,320 B in float32
+    # the bench shape: one lane x 10 warps, 63,320 B in float32, at 1600
+    # lanes and at the throughput call's 4096 as well
     assert nl._block_shape(24, 10, 10, 4) == (1, 10, True, 63320, 1)
+    assert nl._block_shape(24, 10, 10, 4, 1600) == (1, 10, True, 63320, 1)
+    assert nl._block_shape(24, 10, 10, 4, 4096) == (1, 10, True, 63320, 1)
     # float64 (Li packed): 97,360 B, however many lanes fill the card
     assert nl._block_shape(24, 10, 10, 8) == (1, 10, True, 97360, 1)
     assert nl._block_shape(24, 10, 10, 8, 1600) == (1, 10, True, 97360, 1)
+    # the paper's ladder in float32 (d 2 and d 1, capacity 20): a lane x 10 warps
+    assert nl._block_shape(20, 2, 10, 4, 1600) == (1, 10, True, 38504, 1)
+    assert nl._block_shape(20, 1, 10, 4, 2000) == (1, 10, True, 35848, 1)
+    # the myopic loop in float32 (capacity 105): one warp per start, each in
+    # a block of its own
+    assert nl._block_shape(105, 6, 66, 4, 1) == (1, 1, True, 65808, 66)
+    # 64 float32 lanes of 10 starts leave SMs idle: two start blocks
+    assert nl._block_shape(24, 10, 10, 4, 64) == (1, 5, True, 33480, 2)
+    assert nl._block_shape(8, 2, 66, 4, 1, sms=3).start_blocks == 3
     # few starts: several lanes per block; many: starts in chunks per group
     assert nl._block_shape(24, 10, 1, 4)[:2] == (8, 1)
     assert nl._block_shape(24, 10, 40, 4)[:2] == (1, 14)
@@ -413,6 +423,19 @@ def test_lane_solve_work_at_the_bench_shape_and_its_growth():
     assert work(cap=48) == base
     assert nl.lane_solve_work([14] * 8, 48, 10, 10, 10, 4)[1] > \
         nl.lane_solve_work([14] * 8, 24, 10, 10, 10, 4)[1]
+    # `runs`: the iterations each (lane, start) ran, as the float32 kernel
+    # reports them since it stops a start at its fixed point: all of them
+    # count as `iterations` does, one each as iterations=1 does, and a lane's
+    # count follows its own runs
+    full = torch.full((8, 10), 10, dtype=torch.int32)
+    assert work(runs=full) == base
+    assert work(runs=torch.ones_like(full)) == work(iterations=1)
+    one_lane = torch.ones_like(full)
+    one_lane[3] = 10
+    assert work(runs=one_lane) == pytest.approx(
+        (7 * work(iterations=1) + base) / 8, rel=1e-12)
+    assert nl.lane_solve_work([13] * 8, 24, 10, 10, 10, 4, runs=full)[1] == \
+        nl.lane_solve_work([13] * 8, 24, 10, 10, 10, 4)[1]
 
 
 def test_lane_solve_work_of_the_float64_li_form():

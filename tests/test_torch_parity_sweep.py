@@ -241,6 +241,21 @@ def test_select_names_functions_and_cells():
         sweep.select(cells, ["sixhump:h1"])
 
 
+def test_dtype_reaches_the_myopic_cells_only():
+    """`--dtype float32` adds the flag to each myopic cell (the dtype the JAX
+    record's myopic cells were run in), and the myopic CLI of both packages
+    parses it; the ladder's cells keep run_parity_sweep.sh's float32."""
+    cells = sweep.select(sweep.plan_cells("parity", trials=10), ["levy10d:ei", "ackley2d:h3"])
+    assert sweep.with_dtype(cells, None) == cells
+    args = sweep.parse_args(["--functions", "levy10d:ei", "ackley2d:h3", "--dtype", "float32"])
+    ladder, myopic = sweep.with_dtype(cells, args.dtype)
+    assert ladder == cells[0] and ladder.flags.count("--dtype") == 1
+    assert myopic.flags == cells[1].flags + ("--dtype", "float32")
+    out = os.path.join("results", "x")
+    assert _parsed("myopic", myopic.argv(out, "cuda"), 0)["dtype"] == "float32"
+    assert _parsed("myopic", myopic.argv(out), 1)["dtype"] == "float32"
+
+
 def test_tiny_cells_through_the_sweep_match_the_jax_clis(tmp_path, monkeypatch, capsys):
     cells = sweep.plan_cells("parity", trials=1)
     cells = [_tiny(cells, "sixhump:ei", budget=3, starts=4),
