@@ -38,6 +38,11 @@ eager loop: no graph can hold a gloo collective, which runs on the host
 The host reads what the loop needs: per iteration the acquisition's best
 value (non-myopic, to decide on the fallback) and the new point with its
 observation; in the myopic loop, one chunk's points and observations.
+
+Every BO iteration (every myopic chunk) keeps a trace record
+(`utils.profiling`): spans `bo.iteration` (`bo.chunk`) > `bo.acquire`
+(> `bo.fallback`) and `bo.observe`, the counters, and the device time of
+its graph replays, kept in `profiling.RECORDS`.
 """
 
 from __future__ import annotations
@@ -62,7 +67,7 @@ from rollout_bo_tpu_torch.rollout import solvers
 from rollout_bo_tpu_torch.rollout.trajectory import TrajectoryParams
 from rollout_bo_tpu_torch.utils import checkpoint as ckpt
 from rollout_bo_tpu_torch.utils import graphs
-from rollout_bo_tpu_torch.utils import metrics
+from rollout_bo_tpu_torch.utils import metrics, profiling
 from rollout_bo_tpu_torch.utils.graphs import GraphProgram
 
 __all__ = ["MyopicBOResult", "run_myopic_bo", "run_nonmyopic_bo", "run_adaptive_bo",
@@ -154,17 +159,21 @@ class _Trial:
     def observe(self, b: int, observe, xnext) -> None:
         """Record the gap before the observation; run `observe`, the observe
         program (the true function at xnext, the condition on it and the
-        hyperparameter MLE when due); snapshot when due."""
-        best = min(self.y_all)               # the incumbent BEFORE this observation
-        self.gaps[b] = metrics.gap(self.initial_best, best, self.true_minimum)
-        self.regrets[b] = metrics.simple_regret(self.true_minimum, best)
-        self.state, ynext = observe(self.state, xnext, (b + 1) % self.mle_every == 0)
-        xy = torch.cat([xnext, ynext[None]]).cpu().numpy().astype(float)  # one read
-        self.X_all.append(xy[:-1])
-        self.y_all.append(float(xy[-1]))
-        self.min_obs[b] = min(self.y_all)
-        if (b + 1) % self.checkpoint_every == 0:
-            self.snapshot(b + 1)
+        hyperparameter MLE when due); snapshot when due. A span of the
+        iteration's trace record: `bo.observe`."""
+        with profiling.span("bo.observe"):
+            best = min(self.y_all)               # the incumbent BEFORE this observation
+            self.gaps[b] = metrics.gap(self.initial_best, best, self.true_minimum)
+            self.regrets[b] = metrics.simple_regret(self.true_minimum, best)
+            refit = (b + 1) % self.mle_every == 0
+            profiling.note(refit=refit)
+            self.state, ynext = observe(self.state, xnext, refit)
+            xy = torch.cat([xnext, ynext[None]]).cpu().numpy().astype(float)  # one read
+            self.X_all.append(xy[:-1])
+            self.y_all.append(float(xy[-1]))
+            self.min_obs[b] = min(self.y_all)
+            if (b + 1) % self.checkpoint_every == 0:
+                self.snapshot(b + 1)
 
     def record_chunk(self, b: int, rows: np.ndarray, seconds: float) -> None:
         """Record the BO iterations b, b + 1, ... of one myopic chunk from its
@@ -317,19 +326,23 @@ def run_myopic_bo(
             _observer(testfn, t.klbs, t.kubs)), device=t.device))
     best = torch.tensor(min(t.y_all), dtype=torch.float64, device=t.device)
     b = t.start
+    serial = profiling.next_serial()
     while b < budget:
         k = min(steps_per_call, budget - b)
-        us = torch.stack([draw() for _ in range(k)]).to(t.device) if is_random else None
-        t0 = time.perf_counter()
-        rows = []
-        for i in range(k):
-            # the MLE is a constant of the program: two graphs at most
-            do_mle = not is_random and (b + i + 1) % mle_every == 0
-            t.state, best, row = iteration(t.state, best, None if us is None else us[i],
-                                           do_mle)
-            rows.append(row)
-        rows = torch.stack(rows).cpu().numpy()   # the chunk's one host read
-        t.record_chunk(b, rows, time.perf_counter() - t0)
+        with profiling.record("bo.chunk", serial=serial, b=b, loop="myopic", device=t.device,
+                              iterations=k) as rec:
+            us = torch.stack([draw() for _ in range(k)]).to(t.device) if is_random else None
+            t0 = time.perf_counter()
+            rows = []
+            for i in range(k):
+                # the MLE is a constant of the program: two graphs at most
+                do_mle = not is_random and (b + i + 1) % mle_every == 0
+                rec.refit = rec.refit or do_mle
+                t.state, best, row = iteration(t.state, best, None if us is None else us[i],
+                                               do_mle)
+                rows.append(row)
+            rows = torch.stack(rows).cpu().numpy()   # the chunk's one host read
+            t.record_chunk(b, rows, time.perf_counter() - t0)
         b += k
         if b % checkpoint_every == 0:
             t.snapshot(b)
@@ -525,18 +538,21 @@ def run_nonmyopic_bo(
     restarts = t.as_t(qmc.generate_batch(num_restarts, testfn.lbs, testfn.ubs))
     if mesh is not None:
         restarts = restarts[:num_restarts]
+    serial = profiling.next_serial()
     for b in range(t.start, budget):
-        rnstream = make_rnstream(horizon)
-        t0 = time.perf_counter()
-        xnext, sga_iterations[b], fallbacks[b] = _acquire_or_fall_back(
-            acquire, fallback, t.state, rnstream, restarts, horizon)
-        if mesh is not None and fallbacks[b]:
-            xnext = mesh_mod.broadcast(xnext, mesh)
-        _synchronize(t.device)
-        t.times[b] = time.perf_counter() - t0
-        t.observe(b, observe, xnext)
-        if mesh is not None:
-            t.state = mesh_mod.replicate(t.state, mesh)
+        with profiling.record("bo.iteration", serial=serial, b=b, loop="nonmyopic",
+                              device=t.device):
+            rnstream = make_rnstream(horizon)
+            with profiling.span("bo.acquire") as acquisition:
+                xnext, sga_iterations[b], fallbacks[b] = _acquire_or_fall_back(
+                    acquire, fallback, t.state, rnstream, restarts, horizon)
+                if mesh is not None and fallbacks[b]:
+                    xnext = mesh_mod.broadcast(xnext, mesh)
+                _synchronize(t.device)
+            t.times[b] = acquisition.seconds
+            t.observe(b, observe, xnext)
+            if mesh is not None:
+                t.state = mesh_mod.replicate(t.state, mesh)
     return t.result(sga_iterations=sga_iterations, fallbacks=fallbacks)
 
 
@@ -633,12 +649,15 @@ def _rollout_acquirer(t: _Trial, rule, theta, *, deterministic, ghq_nodes, sgd_i
 
 def _acquire_or_fall_back(acquire, fallback, state, rnstream, restarts, h):
     """(x, SGA iterations, fallback taken): the rollout acquisition's
-    winner, or the exploration fallback's point where the winner's value is
-    not finite and positive."""
+    winner, or the exploration fallback's point (span `bo.fallback`) where
+    the winner's value is not finite and positive."""
     xnext, vbest, iterations = acquire(state, rnstream, restarts, h)
     vb = float(vbest)
-    if not math.isfinite(vb) or vb <= 0.0:
-        return fallback(state)[0], iterations, True
+    taken = not math.isfinite(vb) or vb <= 0.0
+    profiling.note(value=vb, fallback=taken)
+    if taken:
+        with profiling.span("bo.fallback"):
+            return fallback(state)[0], iterations, True
     return xnext, iterations, False
 
 
@@ -762,16 +781,19 @@ def run_adaptive_bo(
     fallbacks = np.zeros(budget, dtype=bool)
     allocations = np.zeros(budget)
     restarts = t.as_t(qmc.generate_batch(num_restarts, testfn.lbs, testfn.ubs))
+    serial = profiling.next_serial()
     for b in range(budget):
-        h = max(0, int(schedule(b, budget)))
-        rnstream = make_rnstream(h)
-        mark = _memory_mark(t.device)
-        t0 = time.perf_counter()
-        xnext, sga_iterations[b], fallbacks[b] = _acquire_or_fall_back(
-            acquire, fallback, t.state, rnstream, restarts, h)
-        _synchronize(t.device)
-        t.times[b] = time.perf_counter() - t0
-        allocations[b] = _peak_bytes_since(t.device, mark)
-        t.observe(b, observe, xnext)
+        with profiling.record("bo.iteration", serial=serial, b=b, loop="adaptive",
+                              device=t.device):
+            h = max(0, int(schedule(b, budget)))
+            rnstream = make_rnstream(h)
+            mark = _memory_mark(t.device)
+            with profiling.span("bo.acquire") as acquisition:
+                xnext, sga_iterations[b], fallbacks[b] = _acquire_or_fall_back(
+                    acquire, fallback, t.state, rnstream, restarts, h)
+                _synchronize(t.device)
+            t.times[b] = acquisition.seconds
+            allocations[b] = _peak_bytes_since(t.device, mark)
+            t.observe(b, observe, xnext)
     return t.result(sga_iterations=sga_iterations, fallbacks=fallbacks,
                     allocations=allocations)

@@ -57,6 +57,7 @@ from rollout_bo_tpu_torch.models.decision_rules import DecisionRule
 from rollout_bo_tpu_torch.parallel import mesh as mesh_mod
 from rollout_bo_tpu_torch.rollout import mc as mc_mod
 from rollout_bo_tpu_torch.rollout.trajectory import TrajectoryParams
+from rollout_bo_tpu_torch.utils import profiling
 from rollout_bo_tpu_torch.utils.graphs import GraphProgram
 
 __all__ = [
@@ -180,16 +181,21 @@ def _sga(step, carry, *, max_steps, check_every=1, mesh=None,
     the restarts still active over the world (`_active_count`), and the
     loop ends when it reads 0: one replicated scalar, so every rank takes
     as many steps as the others, as the JAX `while_loop` under its
-    all-reduced predicate does. Returns (carry, steps run)."""
+    all-reduced predicate does. Each step and each read of the predicate is
+    a span of the BO iteration's trace record (`outer.step`,
+    `outer.stop_read`). Returns (carry, steps run)."""
     it = 0
     while it < max_steps:
-        carry = step(carry)
+        with profiling.span("outer.step"):
+            carry = step(carry)
         if mesh is not None:
             carry, active = carry
         it += 1
         if it % check_every:
             continue
-        if int(active) == 0 if mesh is not None else stopped(carry):
+        with profiling.span("outer.stop_read"):
+            done = int(active) == 0 if mesh is not None else stopped(carry)
+        if done:
             break
     return carry, it
 
@@ -244,7 +250,8 @@ def _multi_restart(state, tp, rule, xstarts, restarts, *, max_iters, lr, inner_i
     (xs, *_), it = _sga(
         lambda carry: _sga_step(simulate, carry, tp.lbs, tp.ubs, sample_size, lr, mesh),
         _sga_carry(restarts), max_steps=max_iters, check_every=check_every, mesh=mesh)
-    return (*_final(simulate, xs, mesh, select_best), it)
+    with profiling.span("outer.final"):
+        return (*_final(simulate, xs, mesh, select_best), it)
 
 
 class _Problem(NamedTuple):
@@ -424,7 +431,8 @@ class _FusedSGAProgram:
         xs0, rnstream, _ = _blocks(xs0, rnstream, self.mesh, self.shard_stream)
         carry, self.iterations = _sga(lambda c: self.step(st, rnstream, prob, c),
                                       _sga_carry(xs0), max_steps=self.max_iters, mesh=self.mesh)
-        return self.final(st, rnstream, prob, carry[0])
+        with profiling.span("outer.final"):
+            return self.final(st, rnstream, prob, carry[0])
 
 
 def _fused_program(state, tp, rule, xstarts, *, max_iters, lr, inner_iterations, draw_mode,
@@ -561,8 +569,9 @@ def _scanned_program_solve(program, state, rnstream, starts, max_iters) -> Fused
     (xs, _, _, vals), calls = _sga(lambda c: program(state, rnstream, c), _sga_carry(starts),
                                    max_steps=-(-max_iters // program.steps_per_call),
                                    mesh=mesh)
-    if mesh is not None:
-        xs, vals = program.gather(xs, vals)
+    with profiling.span("outer.final"):     # the values came with the last window
+        if mesh is not None:
+            xs, vals = program.gather(xs, vals)
     return FusedSolve(xs, vals, calls * program.steps_per_call)
 
 
@@ -740,7 +749,8 @@ class _DeterministicProgram:
         starts, _, _ = _blocks(starts, None, self.mesh, False)
         xs = _deterministic_ascent(lambda c: self.step(st, c), starts, max_iters=self.max_iters,
                                    mesh=self.mesh)
-        return self.final(st, xs)
+        with profiling.span("outer.final"):
+            return self.final(st, xs)
 
 
 def make_deterministic_program(state: sg.SurrogateState, theta, lbs, ubs, xstarts,

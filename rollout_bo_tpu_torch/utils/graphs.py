@@ -20,7 +20,10 @@ device:
   (`copy_`), replays the graph and returns clones of its outputs, which
   the next replay would overwrite (JAX returns fresh arrays);
 - a capture or replay error raises: nothing runs fn eagerly in place of
-  a replay after the warm-up.
+  a replay after the warm-up;
+- while a BO iteration's trace record is open (`utils.profiling`), a pair
+  of timing events brackets each call's replay and clones, for the
+  record's device time (`profiling.replay_start`, `profiling.replay_end`).
 
 A program whose fn issues NCCL collectives (the mesh programs of
 `rollout.outer`, built with `collectives=True`) is captured like any
@@ -65,6 +68,7 @@ from collections import OrderedDict
 import torch
 
 from rollout_bo_tpu_torch.ops import newton_lanes
+from rollout_bo_tpu_torch.utils import profiling
 
 __all__ = ["GraphProgram", "CAPTURES", "WARMUP", "WARMUP_LAUNCHES", "PROGRAM_CACHE",
            "PROGRAM_CACHE_MAX", "cached_program", "release_collectives"]
@@ -147,9 +151,12 @@ class GraphProgram:
             cap = self._graphs[key] = self._capture(spec, leaves)
         for buf, t in zip(cap.inputs, leaves):
             buf.copy_(t)
+        mark = profiling.replay_start(self.device)
         cap.graph.replay()
         newton_lanes.LAUNCHES += cap.launches
-        return _unflatten(cap.out_spec, (t.clone() for t in cap.outputs))
+        out = _unflatten(cap.out_spec, (t.clone() for t in cap.outputs))
+        profiling.replay_end(mark)
+        return out
 
     def _capture(self, spec, leaves) -> _Captured:
         global CAPTURES, WARMUP_LAUNCHES

@@ -338,18 +338,30 @@ def test_experiment_setup_matches_jax(variance_reduction):
     assert re.tp.rnstream.dtype == f64 and torch.equal(re.restarts, es.restarts)
 
 
-def test_profiling_on_the_cpu(tmp_path, capsys):
-    t = profiling.PhaseTimer(device="cpu")
-    for _ in range(2):
-        with t.phase("solve"):
-            torch.ones(3).sum()
-    with t.phase("observe"):
+def test_profiling_on_the_cpu(tmp_path):
+    kept = len(profiling.RECORDS)
+    with profiling.span("outer.step") as s:         # no record open: nothing kept
         pass
-    assert t.counts == {"solve": 2, "observe": 1} and t.mean("solve") > 0.0
-    assert "solve: total" in t.report() and "observe" in capsys.readouterr().out
-    assert profiling.device_memory_stats("cpu") == {}
+    assert s is None and len(profiling.RECORDS) == kept
+    with profiling.record("bo.iteration", serial=profiling.next_serial(), b=0, loop="myopic",
+                          device="cpu") as rec:
+        with profiling.span("bo.acquire") as acquisition:
+            with profiling.span("outer.step"):
+                torch.ones(3).sum()
+            profiling.note(value=0.5, fallback=False)
+        profiling.note(refit=True)
+        assert profiling.replay_start(torch.device("cpu")) is None   # no timing off CUDA
+    assert list(profiling.RECORDS)[kept:] == [rec]
+    assert [(s.name, s.parent) for s in rec.spans] == [("bo.iteration", -1), ("bo.acquire", 0),
+                                                       ("outer.step", 1)]
+    assert rec.within(2, "bo.acquire") and not rec.within(1, "outer.step")
+    assert (rec.value, rec.fallback, rec.refit, rec.sga_steps) == (0.5, False, True, 1)
+    assert rec.replays == [] and acquisition.seconds == rec.spans[1].seconds
+    assert all(s.seconds >= 0 for s in rec.spans)
+    assert not any(hasattr(profiling, n) for n in ("PhaseTimer", "annotate",
+                                                   "device_memory_stats"))
     with profiling.trace(str(tmp_path / "trace")) as prof:
-        with profiling.annotate("matmul block"):
+        with profiling.span("matmul block"):
             torch.ones(4, 4) @ torch.ones(4, 4)
     assert (tmp_path / "trace" / "trace.json").exists()
     assert any(e.key == "matmul block" for e in prof.key_averages())
