@@ -308,17 +308,18 @@ def phase_build():
 def kernel_layout(X, S):
     """The lane kernel's blocks for lanes shaped like X and S starts on this
     card: blocks in the launch, their threads, lanes, groups (of 32
-    threads) and start blocks, shared bytes, cluster size (no clusters: 1)
-    and what an SM holds (`newton_lanes_blocks_per_sm`)."""
+    threads) and start blocks, the lane block's slots (0: a warp per
+    start), shared bytes, cluster size (no clusters: 1) and what an SM
+    holds (`newton_lanes_blocks_per_sm`)."""
     from rollout_bo_tpu_torch.ops import newton_lanes as nl
 
     L, cap, d = X.shape
     lay = nl._block_shape(cap, d, S, X.element_size(), L, sms=nl._sm_count(X.device.index))
     per_sm = nl._library().newton_lanes_blocks_per_sm(X.element_size(), d, int(lay.stage_m),
-                                                      lay.threads, lay.smem)
+                                                      lay.slots, lay.threads, lay.smem)
     return dict(blocks=-(-L // lay.lanes) * lay.start_blocks, threads=lay.threads,
                 lanes_per_block=lay.lanes, groups_per_lane=lay.groups,
-                start_blocks=lay.start_blocks, shared_bytes=lay.smem, cluster=1,
+                start_blocks=lay.start_blocks, slots=lay.slots, shared_bytes=lay.smem, cluster=1,
                 stage_m=lay.stage_m, blocks_per_sm=per_sm,
                 warps_per_sm=per_sm * -(-lay.threads // 32))
 
@@ -667,7 +668,8 @@ def _layout_line(lay):
     return (f"layout: {lay['blocks']} blocks of {lay['lanes_per_block']} lane(s) x "
             f"{lay['groups_per_lane']} warps ({lay['threads']} threads), "
             f"{lay['start_blocks']} start block(s) per lane, "
-            f"{'W' if lay['stage_m'] else 'no lane matrix'} staged, {lay['shared_bytes']} B "
+            + (f"lane block of {lay['slots']} starts a pass, " if lay['slots'] else "")
+            + f"{'W' if lay['stage_m'] else 'no lane matrix'} staged, {lay['shared_bytes']} B "
             f"of shared memory, {lay['blocks_per_sm']} blocks ({lay['warps_per_sm']} warps) "
             f"resident per SM")
 

@@ -147,9 +147,47 @@
 //   profile's constants are computed once per lane (li_psi: the same
 //   values) and the triangular loops unrolled: 1.06-1.15x at the BO
 //   loops' shapes against the same code without them.
+//
+// The double lane block (newton_li_kernel_lanes; designed for the
+// non-myopic loop's float64 shape, where 2000 lanes fill the card). With a
+// warp per (lane, start), occupancy had nothing left to buy there (shared
+// memory and 56 registers both held an SM to 36 warps), and each warp ran
+// one start's chain of small steps with most of its threads idle: n = 6..21
+// rows, d = 6 components, 21 Hessian entries, 27 candidate tiles on 32
+// threads, the Cholesky on 6. What bounds it is latency and instruction rate,
+// not the card's operations or bytes. The 18 starts of a lane read the same
+// X, Li and c and are independent, so:
+// - One block of 8 warps per lane, X, packed Li and c staged once; the
+//   starts, in passes of up to 32 (`slots`), advance through the iteration
+//   together, each start's scratch in its own slot (`LaneSlots`, 110 KB at
+//   the non-myopic shape: two blocks per SM, which 128 registers allow too).
+// - The parallel phases deal independent items over all 256 threads:
+//   (start, row) for pass 1, v = Li k with P = Li G (one pass over Li's
+//   row), w = Li^T v; (start, component) for grad mu and grad sigma;
+//   (start, entry) for H; (start, row pair, point pair) for the 18
+//   candidates' k(x_c, X) and (start, row group, point pair) for their
+//   triangular products, then (start, candidate) for their values: hundreds
+//   to thousands of items a phase, several per thread, each a few
+//   independent chains. A barrier ends each phase (10 an iteration).
+// - The per-start steps run for all active starts at once: the sums over
+//   the data and the rule's value and partials on the block's last threads,
+//   one start each; Gershgorin, the two-shift Cholesky solve
+//   (chol_solve_inline on a segment of 8 threads, shuffles on the
+//   segment's mask) and the directions on 8 threads per start; the winner
+//   and the stop on warp 0, one lane per start, which also lists the starts
+//   still active (a ballot): a start that stops leaves every later phase's
+//   items, and the block goes on while any start is active.
+// - Warp 0 keeps the best start (largest value, lowest start on a tie) and
+//   writes xout / vout: no `part`, no best_start_kernel.
+// - Every sum runs in a fixed order, with no atomics: a launch repeats bit
+//   for bit. Each start's iterates are the warp kernel's up to the order of
+//   some sums (mu, |v|^2, the norms of the direction).
+// It gives each lane's starts one SM, so it runs where the lanes fill the
+// card (`_block_shape`'s crossover, measured: PERF.md); the myopic loop's
+// one lane keeps its starts over the SMs in newton_li_kernel_d8.
 // rollout_bo_tpu_torch/ops/newton_lanes.py::_block_shape computes every
-// kernel's layout and must match `GroupScratch`, `LiScratch` and the
-// kernels' carve-up below.
+// kernel's layout and must match `GroupScratch`, `LiScratch`, `LaneSlots`
+// and the kernels' carve-up below.
 //
 // d and the capacity are runtime values (d <= MAX_D); kind, rule and the
 // loose freeze are runtime switches uniform across a launch. The math
@@ -458,9 +496,24 @@ __device__ unsigned long long g_phase_cycles[8];
     mark_ = now_;                                                       \
   } while (0)
 #define PHASE_START() long long mark_ = clock64()
+// the lane-block kernel: cycles per phase on thread 0 of every block (its
+// barriers included), and in the last slot the Newton iterations counted
+__device__ unsigned long long g_lane_cycles[12];
+#define LANE_MARK(i)                                                    \
+  do {                                                                  \
+    const long long now_ = clock64();                                   \
+    if (tid == 0) atomicAdd(&g_lane_cycles[i], (unsigned long long)(now_ - lmark_)); \
+    lmark_ = now_;                                                      \
+  } while (0)
+#define LANE_START() long long lmark_ = clock64()
+#define LANE_COUNT() \
+  do { if (tid == 0) atomicAdd(&g_lane_cycles[11], 1ull); } while (0)
 #else
 #define PHASE_MARK(i)
 #define PHASE_START()
+#define LANE_MARK(i)
+#define LANE_START()
+#define LANE_COUNT()
 #endif
 
 // ---- a group of kG threads: reductions with a fixed butterfly tree -------------
@@ -479,6 +532,23 @@ __device__ __forceinline__ int group_min(unsigned m, int v) {
 #pragma unroll
   for (int o = kG / 2; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(m, v, o, kG));
   return v;
+}
+// The same over a group of W threads (a segment of the warp, mask m)
+template <int W, typename T> __device__ __forceinline__ T width_sum(unsigned m, T v) {
+#pragma unroll
+  for (int o = W / 2; o > 0; o >>= 1) v += __shfl_xor_sync(m, v, o, W);
+  return v;
+}
+template <int W, typename T> __device__ __forceinline__ T width_max(unsigned m, T v) {
+#pragma unroll
+  for (int o = W / 2; o > 0; o >>= 1) v = jmax(v, __shfl_xor_sync(m, v, o, W));
+  return v;
+}
+template <int W> __device__ __forceinline__ bool width_all(unsigned m, bool p) {
+  int v = p ? 1 : 0;
+#pragma unroll
+  for (int o = W / 2; o > 0; o >>= 1) v &= __shfl_xor_sync(m, v, o, W);
+  return v != 0;
 }
 
 // ---- one lane and one group's scratch ----------------------------------------------
@@ -612,11 +682,13 @@ __device__ __forceinline__ void candidate_values(const Lane<T>& L, const GroupSc
 // solve broadcasts one finished component per step; the backward solve
 // reads L' from the copy in shared memory (Lc, written once).
 // (The float kernel calls it out of line, chol_solve below; the double
-// kernel inlines it once.)
-template <int D, typename T>
+// kernels inline it once.) The group is a warp (W = kG, mask m full) or,
+// in the lane-block kernel, a segment of W threads of it (mask m that
+// segment): thread t of the segment holds row t.
+template <int D, typename T, int W = kG>
 __device__ __forceinline__ bool chol_solve_inline(const T* A, T tau, T g_t, int d, int dp,
                                                   T* Lc, int t, unsigned m, T& p_t) {
-  static_assert(D <= kG, "thread i of the group holds row i");
+  static_assert(D <= W, "thread i of the group holds row i");
   const bool row = t < d;
   T a[D];
 #pragma unroll
@@ -626,7 +698,7 @@ __device__ __forceinline__ bool chol_solve_inline(const T* A, T tau, T g_t, int 
 #pragma unroll
   for (int j = 0; j < D; ++j) {
     if (j < d) {
-      const T sj = __shfl_sync(m, a[j], j, kG);
+      const T sj = __shfl_sync(m, a[j], j, W);
       const T inv = m_rsqrt(sj);
       const T l = (row && t > j) ? a[j] * inv : (t == j ? sj * inv : T(0));  // L[t][j]
       if (t == j) inv_t = inv;
@@ -636,7 +708,7 @@ __device__ __forceinline__ bool chol_solve_inline(const T* A, T tau, T g_t, int 
         if (k0 + 3 > j && k0 < d) {
 #pragma unroll
           for (int k = (k0 > j + 1 ? k0 : j + 1); k < k0 + 4; ++k)
-            a[k] -= l * __shfl_sync(m, l, k, kG);  // L[t][j] L[k][j]; used where k <= t
+            a[k] -= l * __shfl_sync(m, l, k, W);  // L[t][j] L[k][j]; used where k <= t
         }
       }
     }
@@ -650,7 +722,7 @@ __device__ __forceinline__ bool chol_solve_inline(const T* A, T tau, T g_t, int 
 #pragma unroll
   for (int k = 0; k < D; ++k) {
     if (k < d) {
-      const T zk = __shfl_sync(m, acc * inv_t, k, kG);
+      const T zk = __shfl_sync(m, acc * inv_t, k, W);
       if (t == k) z_t = zk;
       if (t > k) acc -= a[k] * zk;
     }
@@ -658,12 +730,19 @@ __device__ __forceinline__ bool chol_solve_inline(const T* A, T tau, T g_t, int 
   acc = z_t;
   p_t = T(0);
   for (int k = d - 1; k >= 0; --k) {
-    const T pk = __shfl_sync(m, acc * inv_t, k, kG);
+    const T pk = __shfl_sync(m, acc * inv_t, k, W);
     if (t == k) p_t = pk;
     if (t < k) acc -= Lc[k * dp + t] * pk;
   }
-  const bool finite = __all_sync(m, m_finite(p_t));
-  const T dot = group_sum(m, p_t * g_t);
+  bool finite;
+  T dot;
+  if constexpr (W == kG) {
+    finite = __all_sync(m, m_finite(p_t));
+    dot = group_sum(m, p_t * g_t);
+  } else {
+    finite = width_all<W>(m, m_finite(p_t));
+    dot = width_sum<W>(m, p_t * g_t);
+  }
   __syncwarp(m);  // every read of Lc is done before it is written again
   return finite && dot > T(0);
 }
@@ -1100,10 +1179,10 @@ int launch_f32(const void* X, const void* M, const void* c, const void* n, const
                const void* theta0, const void* params, const void* lbs, const void* ubs,
                const void* xstarts, void* xout, void* vout, void* part, void* runs,
                int num_lanes, int cap, int d, int S, int iterations, int kind, int rule,
-               int lanes_per_block, int groups_per_lane, int start_blocks, int stage_m,
-               double stol, double sfloor, double ridge, double f_tol, double x_tol, int smem,
-               void* stream) {
-  if (d < 1 || d > MAX_D || S < 1 || lanes_per_block < 1 || groups_per_lane < 1 ||
+               int lanes_per_block, int groups_per_lane, int start_blocks, int slots,
+               int stage_m, double stol, double sfloor, double ridge, double f_tol,
+               double x_tol, int smem, void* stream) {
+  if (d < 1 || d > MAX_D || S < 1 || lanes_per_block < 1 || groups_per_lane < 1 || slots != 0 ||
       start_blocks < 1 || start_blocks > S || (start_blocks > 1 && part == nullptr) ||
       lanes_per_block * groups_per_lane * kG > kMaxThreads)
     return (int)cudaErrorInvalidValue;
@@ -1760,6 +1839,624 @@ __global__ void __launch_bounds__(kLiMaxThreads, 1) newton_li_kernel_d16(LI_PARA
   li_solve<16, kStage>(LI_ARGS);
 }
 
+// ============================================================================
+// The float64 lane-block kernel: one block per lane, the lane's starts
+// advanced together, each phase's items spread over the block's threads
+// ============================================================================
+
+constexpr int kSub = 8;            // threads per start in the per-start steps (d <= kSub)
+constexpr int kMaxSlots = 32;      // starts a block advances together (warp 0: one lane each)
+constexpr int kRowGroups = 4;      // row groups of a point's triangular product Li k
+// Its launch bounds leave it 128 registers: two 256-thread blocks per SM, as
+// many as their shared memory allows at the non-myopic shape (bounds that
+// held it to 85 or 64 registers, for 2 blocks of 12 or 16 warps, were no
+// faster: PERF.md).
+constexpr int kLaneMaxThreads = 512;
+
+// A start's scalars, after its vectors
+enum SlotScalar { kMu, kIsoC, kQuad, kIsoW, kA0, kGmu, kGsig, kGmumu, kGsigsig, kGmusig, kHs, kScal };
+
+// The starts' shared memory, in doubles, `words` per slot (odd, so that
+// the same word of neighbouring slots falls in other banks); the Python
+// _block_shape counts the same words. Per slot: x, grad mu, grad sigma (dp
+// each), the scalars, the 18 candidates (dp each; A and its factor in the
+// Newton step), their values; then a region that holds the passes' vectors
+// (k, b, a or iso, Li k, Li^T Li k), G and P = Li G until the Hessian's
+// entries are summed, and then a (cap, kNc) block of k(x_c, X) with the row
+// groups' partial sums (kNc, kRowGroups, 2).
+struct LaneSlots {
+  double* base;
+  int cap, d, dp, words;
+  __device__ __forceinline__ double* xs(int s) const { return base + s * words; }
+  __device__ __forceinline__ double* gm(int s) const { return xs(s) + dp; }
+  __device__ __forceinline__ double* gs(int s) const { return xs(s) + 2 * dp; }
+  __device__ __forceinline__ double* scal(int s) const { return xs(s) + 3 * dp; }
+  __device__ __forceinline__ double* cand(int s) const { return scal(s) + kScal; }
+  __device__ __forceinline__ double* A(int s) const { return cand(s); }
+  __device__ __forceinline__ double* Lc(int s) const { return cand(s) + d * dp; }
+  __device__ __forceinline__ double* vals(int s) const { return cand(s) + kCand * dp; }
+  __device__ __forceinline__ double* kx(int s) const { return vals(s) + kCand; }
+  __device__ __forceinline__ double* bv(int s) const { return kx(s) + cap; }
+  __device__ __forceinline__ double* ia(int s) const { return kx(s) + 2 * cap; }
+  __device__ __forceinline__ double* vv(int s) const { return kx(s) + 3 * cap; }
+  __device__ __forceinline__ double* wv(int s) const { return kx(s) + 4 * cap; }
+  __device__ __forceinline__ double* G(int s) const { return kx(s) + 5 * cap; }
+  __device__ __forceinline__ double* P(int s) const { return G(s) + cap * dp; }
+  __device__ __forceinline__ double* kxc(int s) const { return kx(s); }
+  template <int kNc> __device__ __forceinline__ double* part(int s) const {
+    return kx(s) + cap * kNc;
+  }
+  __device__ static int words_for(int cap, int dp) {
+    const int passes = 5 * cap + 2 * cap * dp;
+    const int cands = kCand * cap + 2 * kRowGroups * kCand;
+    return (3 * dp + kScal + kCand * dp + kCand + (passes > cands ? passes : cands)) | 1;
+  }
+};
+
+// The items q = tid, tid + nth, ... < na * per of a phase as (a, r), q = a
+// per + r, a the index into the active starts: stepped by increments, not
+// divided per item
+struct ItemWalk {
+  int a, r, per, da, dr;
+  __device__ __forceinline__ ItemWalk(int tid, int nth, int per_) : per(per_) {
+    a = tid / per;
+    r = tid - a * per;
+    da = nth / per;
+    dr = nth - da * per;
+  }
+  __device__ __forceinline__ void next() {
+    a += da;
+    r += dr;
+    if (r >= per) {
+      r -= per;
+      ++a;
+    }
+  }
+};
+
+// Warp 0, lane s for slot s: the slots still iterating, in order, to
+// act[0 .. na), and na to act[kMaxSlots]
+__device__ __forceinline__ void publish_active(int* act, int wl, bool live) {
+  const unsigned mask = __ballot_sync(0xffffffffu, live);
+  if (live) act[__popc(mask & ((1u << wl) - 1u))] = wl;
+  if (wl == 0) act[kMaxSlots] = __popc(mask);
+}
+
+// 1 where component x (gradient g) is free, 0 where it is held at a face
+__device__ __forceinline__ double li_free(double x, double lb, double ub, double btol,
+                                          double g) {
+  const bool lo = (x <= lb + btol) && (g < 0.0);
+  const bool hi = (x >= ub - btol) && (g > 0.0);
+  return (lo || hi) ? 0.0 : 1.0;
+}
+
+// The rule's value at kNc points of each active start (its candidates, or
+// kNc = 1: its point) into vals: k(x_c, X_j) as (start, row, point pair)
+// items; (Li k_c)_j as (start, row group, point
+// pair) items over the row pairs jp = r, r + kRowGroups, ... (rows 2 jp and
+// 2 jp + 1 share one loop but for the last term: four chains, each word of
+// Li and of k loaded once for two products), each summing its rows'
+// squares and k_c c in row order; then (start, point) items add the
+// groups' sums in group order and evaluate the rule (non-finite -> -inf).
+template <int kNc>
+__device__ __forceinline__ void lane_values(const LiLane<true>& L, const LaneSlots& Z,
+                                            const int* act, int na, int tid, int nth) {
+  constexpr int kCp = (kNc + 1) / 2;  // point pairs
+  const int n = L.n, d = L.d, dp = L.dp;
+  LANE_START();
+  if (n > 0) {
+    for (ItemWalk w(tid, nth, n * kCp); w.a < na; w.next()) {
+      const int s = act[w.a], j = w.r / kCp, cp = w.r - j * kCp;
+      const int c0 = 2 * cp, c1 = min(c0 + 1, kNc - 1);
+      const double* pts = kNc == 1 ? Z.xs(s) : Z.cand(s);
+      const double* xa = pts + c0 * dp;
+      const double* xb = pts + c1 * dp;
+      const double* Xj = L.X + j * dp;
+      double sa = 0.0, sb = 0.0;
+      for (int k = 0; k < d; ++k) {
+        const double ra = xa[k] - Xj[k], rb = xb[k] - Xj[k];
+        sa += ra * ra;
+        sb += rb * rb;
+      }
+      double* kj = Z.kxc(s) + j * kNc;
+      kj[c0] = li_psi(L, m_sqrt(jmax(sa, 0.0)), sa);
+      if (c1 != c0) kj[c1] = li_psi(L, m_sqrt(jmax(sb, 0.0)), sb);
+    }
+  }
+  __syncthreads();
+  LANE_MARK(6);
+  for (ItemWalk w(tid, nth, kRowGroups * kCp); w.a < na; w.next()) {
+    const int s = act[w.a], r = w.r / kCp, cp = w.r - r * kCp;
+    const int c0 = 2 * cp, c1 = min(c0 + 1, kNc - 1);
+    const double* ka = Z.kxc(s) + c0;
+    const double* kb = Z.kxc(s) + c1;
+    double mua = 0.0, mub = 0.0, qa = 0.0, qb = 0.0;
+    for (int j0 = 2 * r; j0 < n; j0 += 2 * kRowGroups) {
+      const double* La = L.row(j0);
+      double waa = 0.0, wab = 0.0, wba = 0.0, wbb = 0.0;  // w<point><row>
+      if (j0 + 1 < n) {
+        const double* Lb = L.row(j0 + 1);
+#pragma unroll 2
+        for (int l = 0; l <= j0; ++l) {
+          const double kal = ka[l * kNc], kbl = kb[l * kNc], Lal = La[l], Lbl = Lb[l];
+          waa += Lal * kal;
+          wab += Lbl * kal;
+          wba += Lal * kbl;
+          wbb += Lbl * kbl;
+        }
+        const double Lbb = Lb[j0 + 1];  // row j0 + 1's diagonal term
+        wab += Lbb * ka[(j0 + 1) * kNc];
+        wbb += Lbb * kb[(j0 + 1) * kNc];
+        qa += waa * waa + wab * wab;
+        qb += wba * wba + wbb * wbb;
+        const double c0j = L.c[j0], c1j = L.c[j0 + 1];
+        mua += ka[j0 * kNc] * c0j + ka[(j0 + 1) * kNc] * c1j;
+        mub += kb[j0 * kNc] * c0j + kb[(j0 + 1) * kNc] * c1j;
+      } else {
+#pragma unroll 2
+        for (int l = 0; l <= j0; ++l) {
+          const double Lal = La[l];
+          waa += Lal * ka[l * kNc];
+          wba += Lal * kb[l * kNc];
+        }
+        qa += waa * waa;
+        qb += wba * wba;
+        const double c0j = L.c[j0];
+        mua += ka[j0 * kNc] * c0j;
+        mub += kb[j0 * kNc] * c0j;
+      }
+    }
+    double* part = Z.part<kNc>(s);
+    part[(c0 * kRowGroups + r) * 2] = mua;
+    part[(c0 * kRowGroups + r) * 2 + 1] = qa;
+    if (c1 != c0) {
+      part[(c1 * kRowGroups + r) * 2] = mub;
+      part[(c1 * kRowGroups + r) * 2 + 1] = qb;
+    }
+  }
+  __syncthreads();
+  LANE_MARK(7);
+  const double floor2 = L.sfloor * L.sfloor;
+  for (ItemWalk w(tid, nth, kNc); w.a < na; w.next()) {
+    const int s = act[w.a], c = w.r;
+    const double* part = Z.part<kNc>(s) + c * kRowGroups * 2;
+    double mu = 0.0, q = 0.0;
+#pragma unroll
+    for (int r = 0; r < kRowGroups; ++r) {
+      mu += part[2 * r];
+      q += part[2 * r + 1];
+    }
+    Z.vals(s)[c] = finite_or_neg_inf(
+        rule_value(L.rule, mu, m_sqrt(jmax(L.k0 - q, floor2)), L.th, L.fm, L.stol));
+  }
+  __syncthreads();
+  LANE_MARK(8);
+}
+
+// One projected-Newton iteration of every active start act[0 .. na), as
+// li_iteration computes it for one, up to the order of some sums; the
+// candidates' values end in vals, the current value (non-finite -> -inf) in
+// the scalars. Every phase ends at a barrier.
+__device__ __forceinline__ void lane_iteration(const LiLane<true>& L, const LaneSlots& Z,
+                                               const int* act, int na, int tid, int nth,
+                                               double scale, double ridge) {
+  const int n = L.n, d = L.d, dp = L.dp;
+  const int job = nth - 1 - tid;  // per-start jobs go to the block's last threads
+  LANE_START();
+  // pass 1, items (start, row j): k(x, X_j), b, a or iso, G_j = a_j r_j
+  if (n > 0) {
+    for (ItemWalk w(tid, nth, n); w.a < na; w.next()) {
+      const int s = act[w.a], j = w.r;
+      const double* x = Z.xs(s);
+      const double* Xj = L.X + j * dp;
+      double sq = 0.0;
+      for (int k = 0; k < d; ++k) {
+        const double r = x[k] - Xj[k];
+        sq += r * r;
+      }
+      const double rho = m_sqrt(jmax(sq, 0.0));
+      double psi, a, b, iso;
+      profile_terms(L.kind, rho, sq, L.ell, L.period, psi, a, b, iso);
+      Z.kx(s)[j] = psi;
+      Z.bv(s)[j] = b;
+      Z.ia(s)[j] = rho > kEps ? a : iso;
+      double* Gj = Z.G(s) + j * dp;
+      for (int k = 0; k < d; ++k) Gj[k] = a * (x[k] - Xj[k]);
+    }
+  }
+  __syncthreads();
+  LANE_MARK(0);
+  // items (start, row j): v_j = (Li k)_j and the row P_j = (Li G)_j, one
+  // pass over Li's row; per start: mu and iso . c
+  if (n > 0) {
+    for (ItemWalk w(tid, nth, n); w.a < na; w.next()) {
+      const int s = act[w.a], j = w.r;
+      const double* Lj = L.row(j);
+      const double* kx = Z.kx(s);
+      const double* G = Z.G(s);
+      double v = 0.0, p[kSub];
+#pragma unroll
+      for (int k = 0; k < kSub; ++k) p[k] = 0.0;
+      for (int l = 0; l <= j; ++l) {
+        const double Ljl = Lj[l];
+        const double* Gl = G + l * dp;
+        v += Ljl * kx[l];
+#pragma unroll
+        for (int k = 0; k < kSub; ++k)
+          if (k < d) p[k] += Ljl * Gl[k];
+      }
+      Z.vv(s)[j] = v;
+      double* Pj = Z.P(s) + j * dp;
+#pragma unroll
+      for (int k = 0; k < kSub; ++k)
+        if (k < d) Pj[k] = p[k];
+    }
+  }
+  if (job < na) {
+    const int s = act[job];
+    const double *kx = Z.kx(s), *ia = Z.ia(s);
+    double mu = 0.0, iso_c = 0.0;
+    for (int j = 0; j < n; ++j) {
+      const double cj = L.c[j];
+      mu += kx[j] * cj;
+      iso_c += cj * ia[j];
+    }
+    Z.scal(s)[kMu] = mu;
+    Z.scal(s)[kIsoC] = iso_c;
+  }
+  __syncthreads();
+  LANE_MARK(1);
+  // items (start, row l): w_l = (Li^T v)_l over the rows j >= l; per start:
+  // |v|^2
+  if (n > 0) {
+    for (ItemWalk w(tid, nth, n); w.a < na; w.next()) {
+      const int s = act[w.a], l = w.r;
+      const double* vv = Z.vv(s);
+      double wl = 0.0;
+      int at = l * (l + 1) / 2 + l;  // (j, l) packed at j (j + 1) / 2 + l
+      for (int j = l; j < n; ++j) {
+        wl += L.M[at] * vv[j];
+        at += j + 1;
+      }
+      Z.wv(s)[l] = wl;
+    }
+  }
+  if (job < na) {
+    const int s = act[job];
+    const double* vv = Z.vv(s);
+    double quad = 0.0;
+    for (int j = 0; j < n; ++j) quad += vv[j] * vv[j];
+    Z.scal(s)[kQuad] = quad;
+  }
+  __syncthreads();
+  LANE_MARK(2);
+  // items (start, component k): grad mu and grad sigma; per start, on two
+  // threads: iso . w and the rule's value; the rule's partials
+  const double floor2 = L.sfloor * L.sfloor;
+  for (ItemWalk w(tid, nth, d); w.a < na; w.next()) {
+    const int s = act[w.a], k = w.r;
+    const double ssafe = jmax(m_sqrt(jmax(L.k0 - Z.scal(s)[kQuad], floor2)), L.sfloor);
+    const double* Gk = Z.G(s) + k;
+    const double* wv = Z.wv(s);
+    double gm = 0.0, gs = 0.0;
+    for (int j = 0; j < n; ++j) {
+      const double g = Gk[j * dp];
+      gm += L.c[j] * g;
+      gs += wv[j] * g;
+    }
+    Z.gm(s)[k] = gm;
+    Z.gs(s)[k] = -gs / ssafe;
+  }
+  if (job < 2 * na) {
+    const int s = act[job < na ? job : job - na];
+    double* sc = Z.scal(s);
+    const double mu = sc[kMu];
+    const double sigma = m_sqrt(jmax(L.k0 - sc[kQuad], floor2));
+    if (job < na) {
+      const double *wv = Z.wv(s), *ia = Z.ia(s);
+      double iso_w = 0.0;
+      for (int j = 0; j < n; ++j) iso_w += wv[j] * ia[j];
+      sc[kIsoW] = iso_w;
+      sc[kA0] = finite_or_neg_inf(rule_value(L.rule, mu, sigma, L.th, L.fm, L.stol));
+    } else {
+      double pr[5];
+      rule_partials(L.rule, mu, sigma, L.th, L.fm, L.stol, pr);
+      sc[kGmu] = pr[0];
+      sc[kGsig] = pr[1];
+      sc[kGmumu] = pr[2];
+      sc[kGsigsig] = pr[3];
+      sc[kGmusig] = pr[4];
+      sc[kHs] = pr[1] / jmax(sigma, L.sfloor);  // gsig * hess_sigma = hs * (ssafe * hess_sigma)
+    }
+  }
+  __syncthreads();
+  LANE_MARK(3);
+  // items (start, entry i >= k) of H as in li_iteration: A = -Hf on the free
+  // set, the identity on the active one
+  const double btol = 1e-9 * scale;
+  for (ItemWalk w(tid, nth, d * (d + 1) / 2); w.a < na; w.next()) {
+    const int s = act[w.a], e = w.r;
+    int i = static_cast<int>((sqrtf(8.0f * e + 1.0f) - 1.0f) * 0.5f);
+    while (i * (i + 1) / 2 > e) --i;
+    while ((i + 1) * (i + 2) / 2 <= e) ++i;
+    const int k = e - i * (i + 1) / 2;
+    const double* sc = Z.scal(s);
+    const double gmu = sc[kGmu], gsig = sc[kGsig], hs = sc[kHs];
+    const double gmi = Z.gm(s)[i], gmk = Z.gm(s)[k], gsi = Z.gs(s)[i], gsk = Z.gs(s)[k];
+    double h = sc[kGmumu] * gmi * gmk + sc[kGsigsig] * gsi * gsk +
+               sc[kGmusig] * (gmi * gsk + gsi * gmk) - hs * gsi * gsk;
+    if (i == k) h += gmu * sc[kIsoC] - hs * sc[kIsoW];
+    const double xi = Z.xs(s)[i], xk = Z.xs(s)[k];
+    const double *bv = Z.bv(s), *wv = Z.wv(s), *P = Z.P(s);
+    double hc = 0.0, hp = 0.0;
+    for (int j = 0; j < n; ++j) {
+      const double bj = bv[j];
+      const double coef = gmu * L.c[j] * bj - hs * wv[j] * bj;
+      hc += (xi - L.X[j * dp + i]) * (coef * (xk - L.X[j * dp + k]));
+      hp += P[j * dp + i] * P[j * dp + k];
+    }
+    h += hc - hs * hp;
+    const double fi = li_free(xi, L.lb[i], L.ub[i], btol, gmu * gmi + gsig * gsi);
+    const double fk = li_free(xk, L.lb[k], L.ub[k], btol, gmu * gmk + gsig * gsk);
+    const double aik = -(h * fi * fk - (i == k ? 1.0 - fi : 0.0));
+    Z.A(s)[i * dp + k] = aik;
+    Z.A(s)[k * dp + i] = aik;
+  }
+  __syncthreads();
+  LANE_MARK(4);
+  // per start, kSub threads (thread t on component t): Gershgorin, the
+  // two-shift Cholesky solve, the direction and the 18 candidates, as in
+  // li_iteration. Every warp that holds a start takes part whole, so that
+  // its shuffles run on the full mask (segments of kSub lanes): a segment
+  // past the last start computes on the first start's data, writes its
+  // factor into that start's region (dead in this phase; its own d dp
+  // words, `_lane_block_shape` keeps the capacity at 4 or more) and nothing
+  // else.
+  if ((tid & ~31) / kSub < na) {
+    const int a = tid / kSub, t = tid - a * kSub;
+    const bool live = a < na;
+    {
+      const unsigned m = 0xffffffffu;
+      const int s = act[live ? a : 0];
+      const double* sc = Z.scal(s);
+      const bool comp = t < d;
+      const double x_t = comp ? Z.xs(s)[t] : 0.0;
+      double fr_t = 0.0, gf_t = 0.0;
+      if (comp) {
+        const double g_t = sc[kGmu] * Z.gm(s)[t] + sc[kGsig] * Z.gs(s)[t];
+        fr_t = li_free(x_t, L.lb[t], L.ub[t], btol, g_t);
+        gf_t = g_t * fr_t;
+      }
+      const double* A = Z.A(s);
+      double adiag = neg_inf<double>(), off = neg_inf<double>();
+      if (comp) {
+        const double* Ai = A + t * dp;
+        const double aii = Ai[t];
+        double rowsum = 0.0;
+        for (int k = 0; k < d; ++k) rowsum += m_abs(Ai[k]);
+        adiag = m_abs(aii);
+        off = rowsum - m_abs(aii) - aii;
+      }
+      const double s_scale = jmax(width_max<kSub>(m, adiag), ridge);
+      const double tau_g = jmax(width_max<kSub>(m, off), 0.0) + ridge + 1e-6 * s_scale;
+      // the ridge first, the Gershgorin shift where it fails: the second
+      // solve runs where any segment of the warp needs it
+      double* Lc = live ? Z.Lc(s) : Z.kx(s) + (a - na) * d * dp;
+      double p_t = 0.0;
+      bool solved = false;
+      for (int k = 0; k < 2 && __any_sync(m, !solved); ++k) {
+        double pk;
+        const bool ok = chol_solve_inline<kSub, double, kSub>(A, k == 0 ? ridge : tau_g, gf_t,
+                                                               d, dp, Lc, t, m, pk);
+        if (!solved) {
+          p_t = pk;
+          solved = ok;
+        }
+      }
+      if (!solved) p_t = gf_t / s_scale;
+      p_t *= fr_t;
+      const bool finite = width_all<kSub>(m, m_finite(p_t));
+      const double pg = width_sum<kSub>(m, p_t * gf_t);
+      const double gnorm2 = width_sum<kSub>(m, gf_t * gf_t);
+      const bool bad = !finite || pg <= 0.0;
+      const double gden = jmax(m_sqrt(gnorm2), 1e-12);
+      const double gstep_t = gf_t / gden * (0.1 * scale);
+      if (bad) p_t = gstep_t;
+      const double pn2 = width_sum<kSub>(m, p_t * p_t);
+      const double shrink = jmin(1.0, scale / jmax(m_sqrt(pn2), 1e-30));
+      p_t *= shrink;
+      // the candidates (over A and its factor: the segment has read them):
+      // direction 0 (Newton) steps 1, 1/2, ... then direction 1 (gradient);
+      // halving gives each step 2^-step exactly, with no division
+      if (comp && live) {
+        double* xc = Z.cand(s) + t;
+        const double lb = L.lb[t], ub = L.ub[t];
+        double tt = 1.0;
+        for (int c = 0; c < kBacktrack; ++c, tt *= 0.5) {
+          xc[c * dp] = clip(x_t + tt * p_t, lb, ub);
+          xc[(c + kBacktrack) * dp] = clip(x_t + tt * gstep_t, lb, ub);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  LANE_MARK(5);
+  lane_values<kCand>(L, Z, act, na, tid, nth);
+}
+
+// Block b solves lane b: its X, packed Li, c and the box staged once, its
+// starts in passes of `slots`, the starts of a pass iterating together
+// until each has stopped (a fixed point, the loose freeze or `iterations`)
+// and the frozen ones leaving the phases' items. Warp 0 picks each start's
+// winner among its candidates (lane s for slot s) and, after a pass, the
+// best start so far: the largest value, the lowest start on a tie, which
+// it writes to xout / vout at the end. `runs` (may be null) as above.
+__global__ void __launch_bounds__(kLaneMaxThreads, 1)
+    newton_li_kernel_lanes(const double* __restrict__ X, const double* __restrict__ Li,
+                           const double* __restrict__ c, const long long* __restrict__ n_lane,
+                           const double* __restrict__ fmini, const double* __restrict__ theta0,
+                           const double* __restrict__ params, const double* __restrict__ lbs,
+                           const double* __restrict__ ubs, const double* __restrict__ xstarts,
+                           double* __restrict__ xout, double* __restrict__ vout,
+                           int* __restrict__ runs, int cap, int d, int S, int iterations,
+                           int kind, int rule, int slots, double stol, double sfloor,
+                           double ridge, double f_tol, double x_tol) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nth = blockDim.x;
+  const int tid = threadIdx.x;
+  const int wid = tid >> 5, wl = tid & 31;
+  const int lane = blockIdx.x;
+  const int dp = d | 1;
+  const int tri = cap * (cap + 1) / 2;
+
+  // block: X (cap, dp), Li packed (tri), c (cap), the box (2, dp); the
+  // slots; the active starts and their count (kMaxSlots + 1 ints)
+  double* sX = reinterpret_cast<double*>(smem_raw);
+  double* sM = sX + cap * dp;
+  double* sc = sM + tri;
+  double* sbox = sc + cap;
+  LaneSlots Z;
+  Z.base = sbox + 2 * dp;
+  Z.cap = cap;
+  Z.d = d;
+  Z.dp = dp;
+  Z.words = LaneSlots::words_for(cap, dp);
+  int* act = reinterpret_cast<int*>(Z.base + slots * Z.words);
+
+  for (int i = tid; i < cap * d; i += nth) {
+    const int r = i / d;
+    sX[r * dp + (i - r * d)] = X[(size_t)lane * cap * d + i];
+  }
+  for (int i = tid; i < cap * cap; i += nth) {  // Li's lower triangle: nothing reads above it
+    const int j = i / cap, col = i - j * cap;
+    if (col <= j) sM[j * (j + 1) / 2 + col] = Li[(size_t)lane * cap * cap + i];
+  }
+  for (int i = tid; i < cap; i += nth) sc[i] = c[(size_t)lane * cap + i];
+  for (int i = tid; i < d; i += nth) {
+    sbox[i] = lbs[i];
+    sbox[dp + i] = ubs[i];
+  }
+  __syncthreads();
+
+  LiLane<true> L;
+  L.X = sX;
+  L.M = sM;
+  L.c = sc;
+  L.lb = sbox;
+  L.ub = sbox + dp;
+  const long long nl = n_lane[lane];
+  L.n = nl < 0 ? 0 : (nl > cap ? cap : static_cast<int>(nl));
+  L.d = d;
+  L.dp = dp;
+  L.cap = cap;
+  L.kind = kind;
+  L.rule = rule;
+  L.ell = params[0];
+  L.period = params[1];
+  double a_, b_, iso_;
+  profile_terms(kind, 0.0, 0.0, L.ell, L.period, L.k0, a_, b_, iso_);
+  li_psi_constants(L);
+  L.fm = fmini[lane];
+  L.th = theta0[lane];
+  L.stol = stol;
+  L.sfloor = sfloor;
+  double scale = neg_inf<double>();
+  for (int k = 0; k < d; ++k) scale = jmax(scale, L.ub[k] - L.lb[k]);
+  const bool loose = f_tol > 0.0 || x_tol > 0.0;
+
+  // warp 0: the best start so far (lane k < d holds component k)
+  double best_v = neg_inf<double>(), best_x = 0.0;
+  for (int s0 = 0; s0 < S; s0 += slots) {
+    const int np = min(slots, S - s0);
+    for (int i = tid; i < np * d; i += nth) {
+      const int s = i / d, k = i - s * d;
+      Z.xs(s)[k] = clip(xstarts[(size_t)(s0 + s) * d + k], L.lb[k], L.ub[k]);
+    }
+    int it = 0;         // warp 0, lane s: the iterations slot s has run
+    bool done = true;   // ... and whether it has stopped
+    if (wid == 0) {
+      done = wl >= np || iterations <= 0;
+      publish_active(act, wl, !done);
+    }
+    __syncthreads();
+    // the count, read by every thread after the barrier that follows its
+    // write; warp 0 writes it again only after a barrier more
+    for (int na = act[kMaxSlots]; na > 0; na = act[kMaxSlots]) {
+      lane_iteration(L, Z, act, na, tid, nth, scale, ridge);
+      LANE_START();
+      // the winner of each start: strictly better than its current value
+      // only, the lowest candidate on a tie; then whether it stops
+      if (wid == 0) {
+        if (!done) {
+          double* x = Z.xs(wl);
+          const double a0 = Z.scal(wl)[kA0];
+          const double* v = Z.vals(wl);
+          double vbest = a0;
+          int win = -1;
+          for (int k = 0; k < kCand; ++k) {
+            if (v[k] > vbest) {
+              vbest = v[k];
+              win = k;
+            }
+          }
+          bool fixed = true;  // a fixed point: the iteration returned x
+          double dx2 = 0.0;
+          if (win >= 0) {
+            const double* xc = Z.cand(wl) + win * dp;
+            for (int k = 0; k < d; ++k) {
+              const double dk = xc[k] - x[k];
+              fixed = fixed && xc[k] == x[k];
+              dx2 += dk * dk;
+              x[k] = xc[k];
+            }
+          }
+          bool freeze = fixed;
+          if (loose) {
+            // IPNewton-style loose acceptance (reference rbf_optim.jl:26-30);
+            // a frozen start keeps its point, so it may stop iterating
+            const double improvement = jmax(vbest - a0, 0.0);
+            freeze = freeze || improvement <= f_tol * (m_abs(a0) + f_tol) || m_sqrt(dx2) <= x_tol;
+          }
+          ++it;
+          done = freeze || it >= iterations;
+        }
+        publish_active(act, wl, !done);
+      }
+      __syncthreads();
+      LANE_MARK(9);
+      LANE_COUNT();
+    }
+    // every start's value at its point, then the pass's best start (the
+    // count stays: a thread may still read it)
+    if (wid == 0 && wl < np) act[wl] = wl;
+    __syncthreads();
+    lane_values<1>(L, Z, act, np, tid, nth);
+    if (wid == 0) {
+      if (wl < np && runs != nullptr) runs[(size_t)lane * S + s0 + wl] = it;
+      double v = wl < np ? Z.vals(wl)[0] : neg_inf<double>();
+      int s = wl < np ? wl : kMaxSlots;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        const double ov = __shfl_xor_sync(0xffffffffu, v, o, 32);
+        const int os = __shfl_xor_sync(0xffffffffu, s, o, 32);
+        if (ov > v || (ov == v && os < s)) {
+          v = ov;
+          s = os;
+        }
+      }
+      if (v > best_v) {  // an earlier pass holds lower starts: it keeps a tie
+        best_v = v;
+        if (wl < d) best_x = Z.xs(s)[wl];
+      }
+    }
+    __syncthreads();
+  }
+  if (wid == 0) {
+    if (wl < d) xout[(size_t)lane * d + wl] = best_x;
+    if (wl == 0) vout[lane] = best_v;
+  }
+}
+
 using LiKernel = decltype(&newton_li_kernel_d8<true>);
 
 // The kernel for this d: the factorization unrolled to 8 where d allows it
@@ -1769,13 +2466,50 @@ LiKernel li_kernel_for(int d, int stage_m) {
   return d > 8 ? newton_li_kernel_d16<true> : newton_li_kernel_d8<true>;
 }
 
+// The lane-block kernel: one block of lanes_per_block (1) x groups_per_lane
+// warps per lane, `slots` starts at a time, no `part`
+int launch_li_lanes(const void* X, const void* Li, const void* c, const void* n,
+                    const void* fmini, const void* theta0, const void* params,
+                    const void* lbs, const void* ubs, const void* xstarts, void* xout,
+                    void* vout, void* runs, int num_lanes, int cap, int d, int S,
+                    int iterations, int kind, int rule, int lanes_per_block,
+                    int groups_per_lane, int start_blocks, int slots, int stage_m,
+                    double stol, double sfloor, double ridge, double f_tol, double x_tol,
+                    int smem, void* stream) {
+  const int threads = groups_per_lane * kG;
+  if (d < 1 || d > kSub || S < 1 || slots > kMaxSlots || slots > S || !stage_m ||
+      lanes_per_block != 1 || start_blocks != 1 || threads < kSub * slots ||
+      threads < 2 * kMaxSlots || threads > kLaneMaxThreads)
+    return (int)cudaErrorInvalidValue;
+  const auto kernel = newton_li_kernel_lanes;
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  LANES_LAUNCH(kernel, num_lanes, threads, smem, stream)(
+      static_cast<const double*>(X), static_cast<const double*>(Li),
+      static_cast<const double*>(c), static_cast<const long long*>(n),
+      static_cast<const double*>(fmini), static_cast<const double*>(theta0),
+      static_cast<const double*>(params), static_cast<const double*>(lbs),
+      static_cast<const double*>(ubs), static_cast<const double*>(xstarts),
+      static_cast<double*>(xout), static_cast<double*>(vout), static_cast<int*>(runs), cap, d,
+      S, iterations, kind, rule, slots, stol, sfloor, ridge, f_tol, x_tol);
+  return (int)cudaGetLastError();
+}
+
 int launch_li(const void* X, const void* Li, const void* c, const void* n,
               const void* fmini, const void* theta0, const void* params, const void* lbs,
               const void* ubs, const void* xstarts, void* xout, void* vout, void* part,
               void* runs, int num_lanes, int cap, int d, int S, int iterations, int kind, int rule,
-              int lanes_per_block, int groups_per_lane, int start_blocks,
+              int lanes_per_block, int groups_per_lane, int start_blocks, int slots,
               int stage_m, double stol, double sfloor, double ridge, double f_tol,
               double x_tol, int smem, void* stream) {
+  if (slots > 0)
+    return launch_li_lanes(X, Li, c, n, fmini, theta0, params, lbs, ubs, xstarts, xout, vout,
+                           runs, num_lanes, cap, d, S, iterations, kind, rule, lanes_per_block,
+                           groups_per_lane, start_blocks, slots, stage_m, stol, sfloor, ridge,
+                           f_tol, x_tol, smem, stream);
   if (d < 1 || d > MAX_D || S < 1 || lanes_per_block < 1 || groups_per_lane < 1 ||
       start_blocks < 1 || start_blocks > S ||
       lanes_per_block * groups_per_lane * kG > kLiMaxThreads)
@@ -1816,15 +2550,27 @@ extern "C" int newton_lanes_phase_cycles(unsigned long long* out) {
   const unsigned long long zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};
   return (int)cudaMemcpyToSymbol(g_phase_cycles, zero, sizeof(zero));
 }
+// the lane-block kernel's: cycles per phase in out[0..10], the Newton
+// iterations its blocks ran in out[11]; sets them to 0
+extern "C" int newton_lanes_lane_phase_cycles(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_lane_cycles, sizeof(g_lane_cycles));
+  if (e != cudaSuccess) return (int)e;
+  const unsigned long long zero[12] = {};
+  return (int)cudaMemcpyToSymbol(g_lane_cycles, zero, sizeof(zero));
+}
 #endif
 
 // blocks of `threads` threads and `smem` dynamic bytes that one SM holds, for
-// the kernel that a launch of this itemsize, d and staging runs
-extern "C" int newton_lanes_blocks_per_sm(int itemsize, int d, int stage_m, int threads,
-                                          int smem) {
+// the kernel that a launch of this itemsize, d, staging and slots runs
+extern "C" int newton_lanes_blocks_per_sm(int itemsize, int d, int stage_m, int slots,
+                                          int threads, int smem) {
   int blocks = 0;
   cudaError_t e;
-  if (itemsize == 4) {
+  if (slots > 0) {
+    const auto k = newton_li_kernel_lanes;
+    cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, threads, smem);
+  } else if (itemsize == 4) {
     auto k = stage_m ? newton_lanes_kernel<true> : newton_lanes_kernel<false>;
     cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, threads, smem);
@@ -1838,20 +2584,20 @@ extern "C" int newton_lanes_blocks_per_sm(int itemsize, int d, int stage_m, int 
 
 // The entry points: one signature for both. `part` (lanes, start blocks, d +
 // 2) holds each block's best start where there are several start blocks (a
-// float launch of one start block may pass null); `runs` (lanes, S) int32,
-// may be null.
+// float launch of one start block, and a double launch of the lane-block
+// design, `slots` > 0, may pass null); `runs` (lanes, S) int32, may be null.
 extern "C" int newton_lanes_f32(const void* X, const void* W, const void* c, const void* n,
                                 const void* fmini, const void* theta0, const void* params,
                                 const void* lbs, const void* ubs, const void* xstarts,
                                 void* xout, void* vout, void* part, void* runs, int num_lanes,
                                 int cap, int d, int S, int iterations, int kind, int rule,
                                 int lanes_per_block, int groups_per_lane, int start_blocks,
-                                int stage_m, double stol, double sfloor, double ridge,
+                                int slots, int stage_m, double stol, double sfloor, double ridge,
                                 double f_tol, double x_tol, int smem, void* stream) {
   return launch_f32(X, W, c, n, fmini, theta0, params, lbs, ubs, xstarts, xout, vout, part,
                     runs, num_lanes, cap, d, S, iterations, kind, rule, lanes_per_block,
-                    groups_per_lane, start_blocks, stage_m, stol, sfloor, ridge, f_tol, x_tol,
-                    smem, stream);
+                    groups_per_lane, start_blocks, slots, stage_m, stol, sfloor, ridge, f_tol,
+                    x_tol, smem, stream);
 }
 
 extern "C" int newton_lanes_f64(const void* X, const void* Li, const void* c, const void* n,
@@ -1860,10 +2606,10 @@ extern "C" int newton_lanes_f64(const void* X, const void* Li, const void* c, co
                                 void* xout, void* vout, void* part, void* runs, int num_lanes,
                                 int cap, int d, int S, int iterations, int kind, int rule,
                                 int lanes_per_block, int groups_per_lane, int start_blocks,
-                                int stage_m, double stol, double sfloor, double ridge,
+                                int slots, int stage_m, double stol, double sfloor, double ridge,
                                 double f_tol, double x_tol, int smem, void* stream) {
   return launch_li(X, Li, c, n, fmini, theta0, params, lbs, ubs, xstarts, xout, vout, part,
                    runs, num_lanes, cap, d, S, iterations, kind, rule, lanes_per_block,
-                   groups_per_lane, start_blocks, stage_m, stol, sfloor, ridge, f_tol, x_tol,
-                   smem, stream);
+                   groups_per_lane, start_blocks, slots, stage_m, stol, sfloor, ridge, f_tol,
+                   x_tol, smem, stream);
 }

@@ -8,10 +8,13 @@ d ~10). A lane is one (restart, trajectory) pair; the bench configuration
 has 8 x 200 = 1600 lanes per call.
 
 - `newton_solve_lanes` is the entry point. For CUDA tensors it launches the
-  hand-written kernel `csrc/newton_lanes.cu` (a warp per (lane, start), the
-  lane's GP staged in shared memory; a lane's starts spread over several
-  blocks when the lanes alone would leave SMs idle); it raises rather than
-  fall back. For CPU tensors it runs the plain version.
+  hand-written kernel `csrc/newton_lanes.cu`; it raises rather than fall
+  back. The launch's shape picks the design (`_block_shape`): where the
+  float64 lanes fill the card, a block per lane whose starts advance
+  together (the lane block); else a warp per (lane, start), the lane's GP
+  staged in shared memory, a lane's starts spread over several blocks when
+  the lanes alone would leave SMs idle. For CPU tensors it runs the plain
+  version.
 - `newton_solve_lanes_ref` is the plain PyTorch version: the same math,
   batch-first over (lane, start). The CPU tests hold it against the JAX
   package, and `chip_smoke.py` holds the CUDA kernel against it on the card.
@@ -48,6 +51,8 @@ __all__ = [
     "MAX_D",
     "LAUNCHES",
     "RECORDED",
+    "LANE_BLOCK_LAUNCHES",
+    "LANE_BLOCK_RECORDED",
     "supported",
     "lane_solve_work",
     "newton_solve_lanes",
@@ -64,6 +69,16 @@ _MAX_THREADS = 512             # per block: kMaxThreads (kLiMaxThreads) in the .
 _SMEM_LIMIT = 227 * 1024       # Hopper: dynamic shared memory per block
 _GROUPS_TARGET = 8             # groups per block when one lane has fewer starts
 _SMS = 132                     # H100 SXM: streaming multiprocessors
+# the float64 lane block (csrc/newton_lanes.cu: kSub, kMaxSlots, kRowGroups, kScal)
+_LANE_SUB = 8                  # threads per start in its per-start steps: d <= 8
+_MAX_SLOTS = 32                # starts a block advances together
+_ROW_GROUPS = 4
+_SLOT_SCALARS = 11
+_LANE_WARPS = 8                # warps per lane block
+# lanes per SM from which the lane block runs: at the non-myopic shape on 132
+# SMs the two designs take the same time at 33 lanes, the lane block 0.84x at
+# 8 and 1.23x at 66, where it starts (scripts/ab_newton_lanes_cuda.py, PERF.md)
+_LANE_CROSSOVER = 0.5
 _BACKTRACK_STEPS = 9
 _CANDIDATES = 2 * _BACKTRACK_STEPS
 _EPS = 1e-14                   # must match kEps in csrc/newton_lanes.cu
@@ -74,6 +89,10 @@ LAUNCHES = 0
 # Launches recorded into a CUDA graph under capture: they run nothing then,
 # and run at each replay of the graph, which adds them to LAUNCHES.
 RECORDED = 0
+# The same two counts for the launches of the lane-block design alone (a
+# part of LAUNCHES and RECORDED).
+LANE_BLOCK_LAUNCHES = 0
+LANE_BLOCK_RECORDED = 0
 
 
 def supported(kind: str, rule_name: str) -> bool:
@@ -346,7 +365,7 @@ _ENTRY = {torch.float32: "newton_lanes_f32", torch.float64: "newton_lanes_f64"}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
-_ARGTYPES = [_P] * 14 + [_I] * 11 + [_D] * 5 + [_I, _P]
+_ARGTYPES = [_P] * 14 + [_I] * 12 + [_D] * 5 + [_I, _P]
 
 
 def _library():
@@ -364,10 +383,11 @@ def _library():
 class Layout(NamedTuple):
     """A launch's blocks (`_block_shape`)."""
     lanes: int              # lanes per block
-    groups: int             # groups per lane in a block
+    groups: int             # groups per lane in a block (the lane block: its warps)
     stage_m: bool           # the lane matrix in shared memory
     smem: int               # dynamic shared bytes per block
     start_blocks: int = 1   # blocks over one lane's starts
+    slots: int = 0          # the lane block: starts advanced together; 0: a warp per start
 
     @property
     def threads(self) -> int:
@@ -376,7 +396,61 @@ class Layout(NamedTuple):
 
 def _block_shape(cap: int, d: int, S: int, itemsize: int, num_lanes: int | None = None, *,
                  sms: int = _SMS) -> Layout:
-    """The blocks of a launch; must match the layout in csrc/newton_lanes.cu.
+    """The blocks of a launch; must match the layouts in csrc/newton_lanes.cu.
+
+    Two designs, picked from the launch's shape alone:
+    - the lane block (`_lane_block_shape`, `slots` > 0): float64, d <= 8,
+      at least `_LANE_CROSSOVER` x `sms` lanes and a lane whose state and
+      starts fit in shared memory. A block per lane: what bounds the warp
+      per (lane, start) below at these shapes is that a start's chain of
+      small steps keeps most of its warp idle (n rows, d components, 21
+      Hessian entries on 32 threads), so the block takes the lane's starts
+      together and deals each phase's items over all of its threads. It
+      leaves a lane's starts on one SM, so it needs lanes enough to fill
+      the card: below the crossover (the myopic loop's one lane) the
+      starts spread over blocks instead.
+    - a warp per (lane, start) (`_start_block_shape`): every other launch.
+    `sms` is the card's SM count (0: a card that any lane count fills)."""
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"newton_lanes kernel: d = {d} outside 1..{MAX_D}")
+    if not 1 <= S <= MAX_STARTS:
+        raise ValueError(f"newton_lanes kernel: {S} starts outside 1..{MAX_STARTS}")
+    if itemsize == 8 and d <= _LANE_SUB and num_lanes and num_lanes >= _LANE_CROSSOVER * sms:
+        layout = _lane_block_shape(cap, d, S)
+        if layout is not None:
+            return layout
+    return _start_block_shape(cap, d, S, itemsize, num_lanes, sms)
+
+
+def _lane_block_shape(cap: int, d: int, S: int) -> Layout | None:
+    """The float64 lane block: one block of `_LANE_WARPS` warps per lane,
+    its starts in passes of `slots` (at most 32, fewer where shared memory
+    needs it), or None where not one start fits. In doubles, dp = d | 1:
+    per lane X (cap, dp), Li's lower triangle packed (cap (cap + 1) / 2), c
+    (cap) and the box (2, dp); per slot (`LaneSlots`, made odd) 3 dp + 11
+    scalars, 18 candidates of dp and their 18 values, and a region of
+    max(5 cap + 2 cap dp, 18 cap + 2 x 4 x 18): the passes' 5 vectors, G
+    and P = Li G; then the candidates' k(x_c, X) and the 4 row groups'
+    partial sums; then 33 int32 (the active starts and their count). Needs
+    a capacity of 4 or more (a region of at least 3 x 8 x 8 words)."""
+    if cap < 4:          # a segment without a start writes its factor into a region
+        return None
+    dp = d | 1
+    words = (3 * dp + _SLOT_SCALARS + _CANDIDATES * dp + _CANDIDATES
+             + max(5 * cap + 2 * cap * dp,
+                   _CANDIDATES * cap + 2 * _ROW_GROUPS * _CANDIDATES)) | 1
+    lane = cap * dp + cap * (cap + 1) // 2 + cap + 2 * dp
+    ints = (_MAX_SLOTS + 2) // 2
+    for slots in range(min(S, _MAX_SLOTS), 0, -1):
+        smem = (lane + slots * words + ints) * 8
+        if smem <= _SMEM_LIMIT:
+            return Layout(1, _LANE_WARPS, True, smem, 1, slots)
+    return None
+
+
+def _start_block_shape(cap: int, d: int, S: int, itemsize: int, num_lanes: int | None,
+                       sms: int) -> Layout:
+    """A warp per (lane, start).
 
     A group of 32 threads (a warp) owns one (lane, start); a block holds
     `lanes` lanes x `groups` groups over the starts of one of
@@ -398,10 +472,6 @@ def _block_shape(cap: int, d: int, S: int, itemsize: int, num_lanes: int | None 
     When one lane with one group does not fit, the lane matrix stays in
     device memory. Raises ValueError when even that exceeds the block's
     shared memory."""
-    if not 1 <= d <= MAX_D:
-        raise ValueError(f"newton_lanes kernel: d = {d} outside 1..{MAX_D}")
-    if not 1 <= S <= MAX_STARTS:
-        raise ValueError(f"newton_lanes kernel: {S} starts outside 1..{MAX_STARTS}")
     li = itemsize == 8
     dp = d | 1
     if li:
@@ -556,17 +626,18 @@ def _check_lanes(X, Li, c, n, fmini, theta0, lbs, ubs, xstarts, kind, rule):
 
 
 def _layout_args(layout: Layout):
-    """The entry points' lanes_per_block, groups_per_lane, start_blocks and
-    stage_m."""
-    return layout.lanes, layout.groups, layout.start_blocks, int(layout.stage_m)
+    """The entry points' lanes_per_block, groups_per_lane, start_blocks,
+    slots and stage_m."""
+    return layout.lanes, layout.groups, layout.start_blocks, layout.slots, int(layout.stage_m)
 
 
 def _launch(X, Li, c, n, fmini, theta0, ell, lbs, ubs, xstarts, period, *,
             kind, rule, iterations, sigma_tol, sigma_floor, ridge, f_tol, x_tol, runs=None):
     """One solve on the current stream (two kernels where a lane's starts
-    spread over start blocks, and always in float64: the solve and the best
-    start per lane over the start blocks; one count in LAUNCHES or RECORDED
-    either way). It copies nothing from the host and does not synchronize,
+    spread over start blocks, and in float64 outside the lane block: the
+    solve and the best start per lane over the start blocks; one count in
+    LAUNCHES or RECORDED either way, and the lane block's also in
+    LANE_BLOCK_LAUNCHES or LANE_BLOCK_RECORDED). It copies nothing from the host and does not synchronize,
     so a CUDA graph can capture it (`utils.graphs`): the launcher runs
     `cudaFuncSetAttribute`, the launches and `cudaGetLastError`. `runs`, an
     int32 (L, S) tensor, takes the iterations each (lane, start) ran (a
@@ -574,7 +645,7 @@ def _launch(X, Li, c, n, fmini, theta0, ell, lbs, ubs, xstarts, period, *,
     work count. The library's measurement entries
     (`newton_lanes_phase_cycles`, `newton_lanes_blocks_per_sm`) copy from
     the device or query it, and are called only outside the path."""
-    global LAUNCHES, RECORDED
+    global LAUNCHES, RECORDED, LANE_BLOCK_LAUNCHES, LANE_BLOCK_RECORDED
     dt, dev = X.dtype, X.device
     nl, cap, d = X.shape
     S = xstarts.shape[0]
@@ -588,10 +659,11 @@ def _launch(X, Li, c, n, fmini, theta0, ell, lbs, ubs, xstarts, period, *,
                           sms=_sm_count(dev.index if dev.index is not None
                                         else torch.cuda.current_device()))
     M = _lane_matrix(Li)[0]         # W for the float kernel, Li for the double one
-    # each block's best start per lane where there are several (always in
-    # float64): value, start, x
+    # each block's best start per lane where there are several (in float64
+    # always, but for the lane block, which picks inside the block): value,
+    # start, x
     part = (torch.empty((nl, layout.start_blocks, d + 2), dtype=dt, device=dev)
-            if dt == torch.float64 or layout.start_blocks > 1 else None)
+            if (dt == torch.float64 and not layout.slots) or layout.start_blocks > 1 else None)
     fn = getattr(_library(), _ENTRY[dt])
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(X.data_ptr(), M.data_ptr(), c.data_ptr(), n.data_ptr(),
@@ -603,10 +675,13 @@ def _launch(X, Li, c, n, fmini, theta0, ell, lbs, ubs, xstarts, period, *,
              sigma_tol, sigma_floor, ridge, f_tol, x_tol, layout.smem, stream)
     if err != 0:
         raise RuntimeError(f"newton_lanes kernel launch failed: CUDA error {err}")
+    lane_block = int(layout.slots > 0)
     if torch.cuda.is_current_stream_capturing():
         RECORDED += 1
+        LANE_BLOCK_RECORDED += lane_block
     else:
         LAUNCHES += 1
+        LANE_BLOCK_LAUNCHES += lane_block
     return xout, vout
 
 

@@ -51,7 +51,8 @@ there like any other launch; `WARMUP_LAUNCHES` adds up how many they were,
 so that a check of the launches a result needed can take them off. A
 capture runs nothing: the launches it records go to
 `newton_lanes.RECORDED`, and every replay adds their number to
-`LAUNCHES`. `CAPTURES` counts the captures of every program; each program
+`LAUNCHES` (those of the lane-block design likewise from
+`LANE_BLOCK_RECORDED` to `LANE_BLOCK_LAUNCHES`). `CAPTURES` counts the captures of every program; each program
 keeps its own `captures`, `capture_seconds` and `pool_bytes` (the rise of
 `torch.cuda.memory_reserved` across its captures: the graphs' private
 memory pools).
@@ -120,6 +121,7 @@ class _Captured:
     out_spec: tuple
     outputs: list           # the graph's own output tensors
     launches: int           # lane-kernel launches per replay
+    lane_block_launches: int  # of them, the lane block's
 
 
 class GraphProgram:
@@ -154,6 +156,7 @@ class GraphProgram:
         mark = profiling.replay_start(self.device)
         cap.graph.replay()
         newton_lanes.LAUNCHES += cap.launches
+        newton_lanes.LANE_BLOCK_LAUNCHES += cap.lane_block_launches
         out = _unflatten(cap.out_spec, (t.clone() for t in cap.outputs))
         profiling.replay_end(mark)
         return out
@@ -173,6 +176,7 @@ class GraphProgram:
         torch.cuda.current_stream(dev).wait_stream(side)
         WARMUP_LAUNCHES += newton_lanes.LAUNCHES - before
         recorded = newton_lanes.RECORDED
+        lane_block = newton_lanes.LANE_BLOCK_RECORDED
         torch.cuda.synchronize(dev)
         gc.collect()
         reserved = torch.cuda.memory_reserved(dev)
@@ -192,6 +196,7 @@ class GraphProgram:
         outputs: list = []
         out_spec = _flatten(out, outputs)
         launches = newton_lanes.RECORDED - recorded
+        lane_block = newton_lanes.LANE_BLOCK_RECORDED - lane_block
         torch.cuda.synchronize(dev)
         self.pool_bytes += torch.cuda.memory_reserved(dev) - reserved
         self.captures += 1
@@ -199,7 +204,7 @@ class GraphProgram:
         self.capture_seconds += time.perf_counter() - t0
         if self.collectives:
             _COLLECTIVE_GRAPHS.add(graph)
-        return _Captured(graph, inputs, out_spec, outputs, launches)
+        return _Captured(graph, inputs, out_spec, outputs, launches, lane_block)
 
 
 def cached_program(key, builder):

@@ -106,6 +106,9 @@ class IterationRecord:
     refit: bool = False             # the MLE run
     value: float | None = None      # the acquisition's best value, as the fallback test read it
     captures: int = 0               # graph captures (`graphs.CAPTURES` delta)
+    # lane-kernel launches of the lane-block design (`newton_lanes
+    # .LANE_BLOCK_LAUNCHES` delta): how many of the iteration's solves took it
+    lane_block_launches: int = 0
     traced: bool = False            # a profiler was recording at some point
     cuda: bool = False
     _stack: list = dataclasses.field(default_factory=lambda: [-1], repr=False)
@@ -205,15 +208,17 @@ def record(root: str, *, serial: int, b: int, loop: str, device, iterations: int
     span `root`; yields the record, which goes to `RECORDS` on a normal
     exit, its replays resolved."""
     global _OPEN
+    from rollout_bo_tpu_torch.ops import newton_lanes
     from rollout_bo_tpu_torch.utils import graphs      # graphs imports this module
 
     rec = IterationRecord(serial, b, loop, iterations, cuda=torch.device(device).type == "cuda")
-    captures = graphs.CAPTURES
+    captures, lane_block = graphs.CAPTURES, newton_lanes.LANE_BLOCK_LAUNCHES
     enclosing, _OPEN = _OPEN, rec
     try:
         with span(root):
             yield rec
         rec.captures = graphs.CAPTURES - captures
+        rec.lane_block_launches = newton_lanes.LANE_BLOCK_LAUNCHES - lane_block
         rec._close()
         RECORDS.append(rec)
     finally:

@@ -7,7 +7,8 @@
 The kernel is the package's `csrc/newton_lanes.cu` (a warp per (lane,
 start); float32 lanes in the W = K^{-1} form; float64 lanes in the Li =
 L^{-1} form; a lane's starts over several blocks when the lanes leave SMs
-idle). `--old-source` adds an earlier source to compare it
+idle; where float64 lanes at d <= 8 fill the card, a block per lane whose
+starts advance together, the lane block). `--old-source` adds an earlier source to compare it
 with: that tree's `csrc/newton_lanes.cu`, built with the package's flags and
 launched with that tree's own C signature and block shape
 (`ops/newton_lanes.py` beside it: its `_block_shape`, `_ARGTYPES` and, from
@@ -16,7 +17,8 @@ in float32, Li in float64). Unpack the tree with `git archive <commit> |
 tar -x -C build/parent`. Each kernel is timed on its launch alone, the
 matrix it reads formed before the timed launches. The float32 arithmetic
 is the same in both (a start that stops at its fixed point gives what all
-its iterations give), so the float32 values must agree bit for bit: the
+its iterations give), so the float32 values must agree bit for bit, and so
+must the float64 values of every shape that the lane block bypasses: the
 script exits 1 when they do not. It prints, per shape, the lanes whose
 values differ, the largest difference, the argmax agreement of both
 kernels with the plain version and the lanes on which each misses
@@ -46,7 +48,8 @@ All builds start together. Then:
         capacity 24, d 10, 10 starts, 10 iterations, float32) and the myopic
         loop's shape in float32 (hartmann6d, `--dtype float32`: 1 lane, n
         104 of capacity 105, d 6, 64 + 2 starts, 12 iterations);
-  with the layout (blocks, warps, start blocks, resident warps), the
+  with the layout (blocks, warps, start blocks or the lane block's
+  starts a pass, resident warps), the
   iterations the starts ran (a start stops at a fixed point), the work and
   the bound from `lane_solve_work` in the lanes' dtype counted from them
   (the fewest operations the function needs: both kernels' share is of
@@ -56,7 +59,13 @@ All builds start together. Then:
   plain version's value in float64), and the cycles per phase of a Newton
   iteration (a build with -DNEWTON_LANES_PROFILE: `clock64` around each
   phase on thread 0 of every warp, so the cycles include the waits on the
-  SM's other warps);
+  SM's other warps; for the lane block, on thread 0 of every block per
+  (lane, iteration), its barriers included);
+- at the non-myopic float64 shape, both designs on the same lanes and build
+  (a warp per start as `_start_block_shape` lays it out, the lane block
+  as `_lane_block_shape` does) in turns at 8 to 2000 lanes, to place
+  the crossover (`_LANE_CROSSOVER`), and the lane block at 2000 lanes with
+  8, 12 and 16 warps and with 9 and 6 starts a pass;
 - at the bench shape, the kernel with its blocks padded so that an SM holds
   only one or two of them (how far more resident warps still help);
 - the compilers' register / stack / spill reports and the blocks an SM holds;
@@ -104,6 +113,11 @@ from rollout_bo_tpu_torch.ops import qmc  # noqa: E402
 _PROFILE = ("-DNEWTON_LANES_PROFILE",)
 _PHASES = ("passes, rule, active set", "Q strips (Li form: P = Li G, rows C)", "H entries",
            "Gershgorin + Cholesky", "directions", "candidates' values", "winner")
+_LANE_PHASES = ("pass 1 (k, b, G)", "v = Li k, P = Li G; mu", "w = Li^T v; |v|^2",
+                "grad mu, grad sigma; rule, partials", "H entries",
+                "Gershgorin + Cholesky + directions + candidates", "candidates' k",
+                "candidates' Li k (row groups)", "candidates' values", "winners, active set")
+_CROSSOVER_LANES = (8, 33, 66, 99, 132, 264, 528, 1056, 2000)
 _SMOKE_SEED = 11
 
 
@@ -147,10 +161,10 @@ def solver(lib, wrapper=None):
     return solve
 
 
-def launch_with(lib, args, kw, smem=None, *, wrapper=None):
+def launch_with(lib, args, kw, smem=None, *, wrapper=None, layout=None):
     """The wrapper's launch on another build (`lib`), or with more dynamic
-    shared memory than the layout needs (`smem`); with `wrapper`, an
-    earlier tree's launch (its block shape and
+    shared memory than the layout needs (`smem`), or in another `layout`;
+    with `wrapper`, an earlier tree's launch (its block shape and
     C signature). The lanes' second argument is the matrix the kernel reads
     (`solver`)."""
     X, M, c, n, fmini, th0, ell, lbs, ubs, xstarts, period = args
@@ -176,7 +190,9 @@ def launch_with(lib, args, kw, smem=None, *, wrapper=None):
                  need if smem is None else smem, stream)
     else:
         mod = wrapper or nl
-        layout = mod._block_shape(cap, d, S, X.element_size(), L, sms=nl._sm_count(dev.index))
+        if layout is None:
+            layout = mod._block_shape(cap, d, S, X.element_size(), L,
+                                      sms=nl._sm_count(dev.index))
         part = torch.empty((L, layout.start_blocks, d + 2), dtype=dt, device=dev)
         fn.argtypes, fn.restype = mod._ARGTYPES, ctypes.c_int
         err = fn(*head, part.data_ptr(), None, L, *shape, *mod._layout_args(layout), *tail,
@@ -188,16 +204,72 @@ def launch_with(lib, args, kw, smem=None, *, wrapper=None):
 
 def phase_cycles(args, kw, runs=None):
     """Mean cycles per (lane, start, iteration) in each phase (iterations as
-    run: `runs`, where the kernel stops starts early)."""
+    run: `runs`, where the kernel stops starts early); for the lane block,
+    per (lane, Newton iteration of its block) on the block's thread 0, the
+    final values of each pass counted in the candidates' phases."""
     lib = _build.load("newton_lanes", _PROFILE)
     buf = (ctypes.c_ulonglong * 8)()
+    lane = (ctypes.c_ulonglong * 12)()
     lib.newton_lanes_phase_cycles(buf)              # sets the counts to 0
+    lib.newton_lanes_lane_phase_cycles(lane)
     solver(lib)(*args, **kw)
     torch.cuda.synchronize()
     lib.newton_lanes_phase_cycles(buf)
+    lib.newton_lanes_lane_phase_cycles(lane)
+    if lane[11]:
+        return {name: lane[i] / lane[11] for i, name in enumerate(_LANE_PHASES)}
     solves = (args[0].shape[0] * args[9].shape[0] * kw["iterations"] if runs is None
               else int(runs.sum()))
     return {name: buf[i] / solves for i, name in enumerate(_PHASES)}
+
+
+def design_times(lib, args, kw, reps):
+    """At the lanes of `args` (the non-myopic shape): both designs in turns
+    (start blocks, lane block, lane block, start blocks) at each lane count
+    of _CROSSOVER_LANES (lanes picked evenly over the active counts), values
+    compared; then the lane block at 2000 lanes
+    with other warps and starts a pass."""
+    X, S = args[0], args[9].shape[0]
+    cap, d = X.shape[1], X.shape[2]
+    sms = nl._sm_count(X.device.index)
+    lane_block = nl._lane_block_shape(cap, d, S)
+    out = {"crossover": {}, "lane_block_variants": {}}
+    for L in _CROSSOVER_LANES:
+        pick = torch.arange(L, device=X.device) * X.shape[0] // L   # every active count
+        sub = tuple(a[pick].contiguous() if torch.is_tensor(a) and a.dim() and
+                    a.shape[0] == X.shape[0] else a for a in args)
+        sub = sub[:1] + (package_form(sub[1]).contiguous(),) + sub[2:]
+        designs = {"start blocks": nl._start_block_shape(cap, d, S, 8, L, sms),
+                   "lane block": lane_block}
+        runs = {k: (lambda lay: lambda *a, **k_: launch_with(lib, a, k_, layout=lay))(lay)
+                for k, lay in designs.items()}
+        xs, vs = runs["start blocks"](*sub, **kw)
+        xl, vl = runs["lane block"](*sub, **kw)
+        torch.cuda.synchronize()
+        turns = time_turns(runs, ["start blocks", "lane block", "lane block", "start blocks"],
+                           sub, kw, reps)
+        mean = {k: float(np.mean([ms for n_, ms in turns if n_ == k])) for k in runs}
+        out["crossover"][L] = dict(turns=turns, mean_ms=mean,
+                                   max_abs_dv=float((vl - vs).abs().max()))
+        print(f"  {L} lanes: start blocks {mean['start blocks']:.3f} ms, lane block "
+              f"{mean['lane block']:.3f} ms ({mean['start blocks'] / mean['lane block']:.2f}x); "
+              f"max |dv| {out['crossover'][L]['max_abs_dv']:.3e}")
+    full = args[:1] + (package_form(args[1]).contiguous(),) + args[2:]
+    variants = {"8 warps, all starts": lane_block}
+    for warps in (12, 16):
+        variants[f"{warps} warps, all starts"] = lane_block._replace(groups=warps)
+    for slots in (9, 6):
+        variants[f"8 warps, {slots} starts a pass"] = nl._lane_block_shape(cap, d, slots)
+    runs = {k: (lambda lay: lambda *a, **k_: launch_with(lib, a, k_, layout=lay))(lay)
+            for k, lay in variants.items()}
+    order = [k for k in runs] + [k for k in reversed(list(runs))]
+    turns = time_turns(runs, order, full, kw, reps)
+    for k, lay in variants.items():
+        per_sm = lib.newton_lanes_blocks_per_sm(8, d, 1, lay.slots, lay.threads, lay.smem)
+        ms = float(np.mean([t for n_, t in turns if n_ == k]))
+        out["lane_block_variants"][k] = dict(ms=ms, smem=lay.smem, blocks_per_sm=per_sm)
+        print(f"  lane block, {k}: {ms:.3f} ms ({lay.smem} B, {per_sm} blocks per SM)")
+    return out
 
 
 def residency_times(args, kw, reps):
@@ -208,7 +280,7 @@ def residency_times(args, kw, reps):
     layout = nl._block_shape(X.shape[1], X.shape[2], S, X.element_size(), X.shape[0])
     threads, smem = layout.threads, layout.smem
     occupancy = lambda nbytes: lib.newton_lanes_blocks_per_sm(
-        X.element_size(), X.shape[2], int(layout.stage_m), threads, nbytes)
+        X.element_size(), X.shape[2], int(layout.stage_m), layout.slots, threads, nbytes)
     most = occupancy(smem)
     out = {}
     for blocks in range(1, most + 1):
@@ -551,7 +623,7 @@ def main():
     new = solver(lib)
     solvers = {"old": solver(old_lib, old_wrapper), "new": new} if old_lib else {"new": new}
     order = ["old", "new", "new", "old"] if old_lib else ["new", "new"]
-    float32_differs = []
+    float32_differs = []      # and float64 shapes that the lane block bypasses
     for name, (args, kw, counts) in shapes(dev).items():
         layout = chip_smoke.kernel_layout(args[0], args[9].shape[0])
         report["shapes"][name] = dict(layout=layout)
@@ -573,7 +645,7 @@ def main():
                 lanes_missing_criterion_a={k: misses_a(args, kw, x_, v_) for k, (x_, v_) in
                                            dict(old=(xo, vo), new=(xn, vn),
                                                 plain=(xr, vr)).items()})
-            if X.dtype == torch.float32 and not vs_old["bitwise_equal"]:
+            if not layout["slots"] and not vs_old["bitwise_equal"]:
                 float32_differs.append(name)
         turns = time_turns(solvers, order, args, kw, a.reps)
         # a start stops at a fixed point: count the work these lanes need
@@ -592,6 +664,7 @@ def main():
         print(f"  " + ", ".join(f"{n_} {ms:.3f}" for n_, ms in turns) + " ms")
         print(f"  iterations run per start: mean {float(runs.double().mean()):.3f} of "
               f"{kw['iterations']} ({layout['start_blocks']} start blocks, "
+              f"{layout['slots']} starts a pass in a lane block, "
               f"{layout['warps_per_sm']} warps per SM)")
         print(f"  mean ms {mean}; {flops / 1e9:.3f} GFLOP, {nbytes} B, bound {bound_ms:.4f} "
               f"ms, share of bound { {k: round(bound_ms / mean[k], 4) for k in solvers} }"
@@ -602,9 +675,12 @@ def main():
         if name.startswith("bench"):
             report["shapes"][name]["residency_ms"] = residency_times(args, kw, a.reps)
             print(f"  new kernel by resident blocks: {report['shapes'][name]['residency_ms']}")
-        print(f"  cycles per (lane, start, iteration), new kernel: "
-              f"{ {k: round(v) for k, v in phases.items()} }, "
+        print(f"  cycles per ({'lane' if layout['slots'] else 'lane, start'}, iteration), "
+              f"new kernel: { {k: round(v) for k, v in phases.items()} }, "
               f"{round(sum(phases.values()))} in all")
+        if layout["slots"]:
+            print("  the two designs:")
+            report["shapes"][name]["designs"] = design_times(lib, args, kw, a.reps)
         if a.variants and X.dtype == torch.float64 and ("myopic" in name):
             runs = {k: solver(_build.load("newton_lanes", v)) for k, v in variants.items()}
             for k, run in runs.items():
@@ -647,10 +723,11 @@ def main():
         a.json.parent.mkdir(parents=True, exist_ok=True)
         a.json.write_text(json.dumps(report, indent=1))
     if float32_differs:
-        print(f"float32 values differ from the old source's at: {float32_differs}")
+        print(f"values differ from the old source's at shapes the lane block bypasses: "
+              f"{float32_differs}")
         raise SystemExit(1)
     if old_lib:
-        print("float32 values bit for bit the old source's at every float32 shape")
+        print("values bit for bit the old source's at every shape the lane block bypasses")
 
 
 if __name__ == "__main__":

@@ -4,8 +4,8 @@
 // against the plain PyTorch version (tests/test_torch_kernel_emulation.py).
 // One OS thread per CUDA thread; blocks run one after another; __syncthreads,
 // __syncwarp and the *_sync intrinsics are barriers over the threads of the
-// block, or of the mask (a full warp or either half of it: a group of 32 or
-// 16 threads). Kernels launch through the source's LANES_LAUNCH. Shared memory is
+// block, or of the mask (a full warp, either half of it or one of its
+// quarters: a group of 32, 16 or 8 threads). Kernels launch through the source's LANES_LAUNCH. Shared memory is
 // a heap block of exactly the launch's dynamic bytes, filled with 0xff (NaN
 // patterns), so that an address sanitizer sees an overrun and a read of a
 // word nobody wrote shows in the result. It says nothing about speed, bank
@@ -46,9 +46,11 @@ using std::min;
 
 struct EmuWarp {
   unsigned long long slot[32];
-  std::unique_ptr<std::barrier<>> bars[3];  // full, low half, high half
+  std::unique_ptr<std::barrier<>> bars[7];  // full, low half, high half, the quarters
   std::barrier<>& bar(unsigned m) {
     int i = m == 0xffffffffu ? 0 : (m == 0x0000ffffu ? 1 : (m == 0xffff0000u ? 2 : -1));
+    for (int q = 0; q < 4; ++q)
+      if (m == 0xffu << (8 * q)) i = 3 + q;
     if (i < 0 || !bars[i]) { fprintf(stderr, "emu: bad mask %08x\n", m); abort(); }
     return *bars[i];
   }
@@ -82,6 +84,19 @@ template <class T> T __shfl_xor_sync(unsigned m, T v, int o, int width = 32) {
   if (o >= width) { fprintf(stderr, "emu: xor offset\n"); abort(); }
   return emu_exchange(m, v, lane ^ o);
 }
+inline unsigned __ballot_sync(unsigned m, bool pred) {
+  EmuWarp& w = emu_warp();
+  const int lane = threadIdx.x & 31;
+  w.slot[lane] = pred ? 1 : 0;
+  w.bar(m).arrive_and_wait();
+  unsigned bits = 0;
+  for (int i = 0; i < 32; ++i)
+    if (((m >> i) & 1u) && w.slot[i] != 0) bits |= 1u << i;
+  w.bar(m).arrive_and_wait();
+  return bits;
+}
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline bool __any_sync(unsigned m, bool pred) { return __ballot_sync(m, pred) != 0u; }
 inline bool __all_sync(unsigned m, bool pred) {
   EmuWarp& w = emu_warp();
   const int lane = threadIdx.x & 31;
@@ -108,6 +123,8 @@ void emu_run(K kernel, int blocks, int threads, int smem, Args... args) {
       if (in_warp == 32) warps[w].bars[0] = std::make_unique<std::barrier<>>(32);
       warps[w].bars[1] = std::make_unique<std::barrier<>>(16);
       if (in_warp == 32) warps[w].bars[2] = std::make_unique<std::barrier<>>(16);
+      for (int q = 0; q < 4; ++q)
+        if (in_warp >= 8 * (q + 1)) warps[w].bars[3 + q] = std::make_unique<std::barrier<>>(8);
     }
     std::barrier<> block_bar(threads);
     emu_warps = &warps;

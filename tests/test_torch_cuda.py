@@ -151,11 +151,8 @@ _EDGE_SHAPES = {
 }
 
 
-@pytest.mark.parametrize("shape", sorted(_EDGE_SHAPES))
-def test_kernel_at_the_edges_of_the_block_layout(dev, shape):
-    """One and many starts per warp, a last block that is not full, a lane
-    without data beside a full one, and the shared-memory edge: the same
-    criteria (a) and (b) against the plain version."""
+def _edge_case(dev, shape):
+    """(state, rule, theta, solver arguments, keywords) of one _EDGE_SHAPES entry."""
     sizes, d, cap, S, dtype, emptied = _EDGE_SHAPES[shape]
     rng = np.random.default_rng(13)
     kern = K.RBFKernel(torch.tensor((0.8,), dtype=dtype, device=dev), "matern52")
@@ -183,20 +180,51 @@ def test_kernel_at_the_edges_of_the_block_layout(dev, shape):
     th = torch.full((L, 1), theta, dtype=dtype, device=dev)
     args = (st.X, st.Li, st.c, st.n, sg.get_active_minimum(st), th[:, 0].contiguous(),
             st.kernel.theta[0], lbs, -lbs, xstarts)
-    kw = dict(kind="matern52", rule=rule.name, iterations=6)
-    before = nl.LAUNCHES
-    xk, vk = nl.newton_solve_lanes(*args, **kw)
-    torch.cuda.synchronize()
-    assert nl.LAUNCHES == before + 1
+    return st, rule, th, args, dict(kind="matern52", rule=rule.name, iterations=6)
+
+
+def _meets_criteria(st, rule, th, args, kw, xk, vk):
+    """Criteria (a) and (b) of the module docstring against the plain version."""
     xr, vr = nl.newton_solve_lanes_ref(*args, **kw)
+    L, d = st.X.shape[0], st.X.shape[2]
     assert xk.shape == (L, d) and vk.shape == (L,)
     vk_cross = sg.acquisition(st, rule, xk, th)
     vr_cross = sg.acquisition(st, rule, xr, th)
-    f32 = dtype == torch.float32
+    f32 = st.X.dtype == torch.float32
     torch.testing.assert_close(vk, vk_cross, rtol=2e-3 if f32 else 1e-6,
                                atol=1e-6 if f32 else 1e-9)
     slack = (5e-4 if f32 else 1e-6) * vr_cross.abs().clamp(min=1.0) + 1e-6
     assert torch.all(vk_cross >= vr_cross - slack)
+
+
+@pytest.mark.parametrize("shape", sorted(_EDGE_SHAPES))
+def test_kernel_at_the_edges_of_the_block_layout(dev, shape):
+    """One and many starts per warp, a last block that is not full, a lane
+    without data beside a full one, and the shared-memory edge: the same
+    criteria (a) and (b) against the plain version."""
+    st, rule, th, args, kw = _edge_case(dev, shape)
+    before = nl.LAUNCHES
+    xk, vk = nl.newton_solve_lanes(*args, **kw)
+    torch.cuda.synchronize()
+    assert nl.LAUNCHES == before + 1
+    _meets_criteria(st, rule, th, args, kw, xk, vk)
+
+
+def test_lane_block_at_the_nonmyopic_shape_repeats_bit_for_bit(dev):
+    """The non-myopic loop's solve (2000 lanes, capacity 23, d 6, 16 + 2
+    starts) takes the lane block: two launches on the same inputs agree bit
+    for bit (every sum in a fixed order, no atomics), both count in
+    LANE_BLOCK_LAUNCHES, and the result meets criteria (a) and (b)."""
+    st, rule, th, args, kw = _edge_case(dev, "nonmyopic_loop_2000_lanes_capacity_23")
+    L, cap, d = st.X.shape
+    assert nl._block_shape(cap, d, 18, 8, L, sms=nl._sm_count(dev.index or 0)).slots == 18
+    before = (nl.LAUNCHES, nl.LANE_BLOCK_LAUNCHES)
+    x1, v1 = nl.newton_solve_lanes(*args, **kw)
+    x2, v2 = nl.newton_solve_lanes(*args, **kw)
+    torch.cuda.synchronize()
+    assert (nl.LAUNCHES, nl.LANE_BLOCK_LAUNCHES) == (before[0] + 2, before[1] + 2)
+    assert torch.equal(x1, x2) and torch.equal(v1, v2)
+    _meets_criteria(st, rule, th, args, kw, x1, v1)
 
 
 @pytest.mark.parametrize("rule_name,theta", [("EI", 0.0), ("LCB", 2.0), ("POI", 0.0)])

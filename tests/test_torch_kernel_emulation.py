@@ -46,7 +46,7 @@ _SOURCE = _HERE.parent / "rollout_bo_tpu_torch" / "csrc" / "newton_lanes.cu"
 _PATCHES = (
     ("#include <cuda_runtime.h>", '#include "cuda_emu.h"', 1),
     ("extern __shared__ __align__(16) unsigned char smem_raw[];",
-     "unsigned char* smem_raw = emu_smem;", 2),
+     "unsigned char* smem_raw = emu_smem;", 3),
 )
 
 
@@ -317,3 +317,149 @@ def test_emulated_double_kernel_reads_only_the_lower_triangle_of_li(emulated, ca
         .start_blocks > 1          # the lane's starts over several blocks
     assert torch.equal(xk, xp) and torch.equal(vk, vp)
     _hold_to_plain_version(st, rule, th, args, kw, xp, vp)
+
+
+# --------------------------------------------------------------------------
+# The float64 lane block (a block per lane, its starts together): where a
+# launch's lanes fill the card. `_lane_sms` is the largest SM count at which
+# `_block_shape` gives L lanes the lane block.
+# --------------------------------------------------------------------------
+
+
+def _lane_sms(L):
+    return int(L / nl._LANE_CROSSOVER)
+
+
+def _lane_block_cases():
+    """The float64 cases of _CASES at d <= 8 whose lane fits the lane block
+    (Li left in device memory does not: that launch keeps a warp per start)."""
+    out = []
+    for name, (sizes, d, cap, S, _, _, dt, _) in sorted(_CASES.items()):
+        if dt == torch.float64 and d <= 8:
+            fits = nl._lane_block_shape(cap, d, S) is not None
+            assert fits == (cap < 200), name
+            if fits:
+                out.append(name)
+    return out
+
+
+@pytest.mark.parametrize("case", _lane_block_cases())
+def test_emulated_lane_block_matches_plain_version(emulated, case):
+    """Every float64 case at d <= 8 through the lane block, held to the
+    criteria against the plain version as the warp per start is (the test
+    above); the myopic shape's 66 starts and the forty starts in passes of
+    at most 32."""
+    st, rule, th, args, kw = _case_inputs(case)
+    L, cap, d = args[0].shape
+    S = args[9].shape[0]
+    lay = nl._block_shape(cap, d, S, 8, L, sms=_lane_sms(L))
+    assert lay.slots == min(S, nl._MAX_SLOTS, lay.slots) >= 1 and lay.start_blocks == 1
+    assert lay.slots == min(S, 32) or cap > 100          # cap 105: fewer slots fit
+    _hold_to_plain_version(st, rule, th, args, kw,
+                           *_solve(emulated, *args, **kw, sms=_lane_sms(L)))
+
+
+def test_emulated_lane_block_stops_a_start_at_its_fixed_point(emulated):
+    """As for the warp per start: 3 lanes x 40 starts (two passes, 32 and 8
+    starts), some stopping before the 5 iterations, some running them all;
+    `runs` filled; the criteria met; and a start that stopped, solved alone
+    on the lane block, gives bit for bit what 4 iterations more give."""
+    st, rule, th, args, kw = _case_inputs("forty_starts_in_chunks")
+    L, S, its = args[0].shape[0], args[9].shape[0], kw["iterations"]
+    assert nl._block_shape(8, 2, S, 8, L, sms=_lane_sms(L)).slots == 32
+    runs = torch.full((L, S), -1, dtype=torch.int32)
+    xk, vk = _solve(emulated, *args, **kw, sms=_lane_sms(L), runs=runs)
+    assert bool(torch.all((runs >= 1) & (runs <= its)))
+    assert bool(torch.any(runs < its)) and bool(torch.any(runs == its))
+    _hold_to_plain_version(st, rule, th, args, kw, xk, vk)
+    for lane, start in torch.nonzero(runs < its)[:4].tolist():
+        one = tuple(a[lane:lane + 1].contiguous() for a in args[:6]) + args[6:9] + \
+            (args[9][start:start + 1].contiguous(), args[10])
+        assert nl._block_shape(8, 2, 1, 8, 1, sms=0).slots == 1
+        x1, v1 = _solve(emulated, *one, **kw, sms=0)
+        x2, v2 = _solve(emulated, *one, **dict(kw, iterations=its + 4), sms=0)
+        assert torch.equal(x1, x2) and torch.equal(v1, v2)
+
+
+def test_emulated_lane_block_lowest_start_wins_a_tie(emulated):
+    """The tie of test_emulated_double_kernel_ties_across_start_blocks on
+    the lane block: 66 starts in passes of 32, 32 and 2; starts 24-65 tie
+    exactly and none moves; start 24, in the first pass, must win over its
+    equals in the later ones."""
+    d, dt = 2, torch.float64
+    X = np.array([[-0.9, -0.9], [-0.9, -0.8], [-0.8, -0.9], [-0.8, -0.8]])
+    kern = K.RBFKernel(torch.tensor([0.001], dtype=dt), "matern52")
+    st = sg.fit(kern, X[None], np.array([[1.0, 1.5, 2.0, 2.5]]), capacity=8, noise=1e-4,
+                device="cpu", dtype=dt)
+    st = st._replace(Li=st.Li.contiguous())
+    hi = np.full(d, 1.0)
+    starts = torch.tensor(np.concatenate(
+        [np.repeat(X, 6, axis=0), qmc.generate_initial_guesses(40, np.zeros(d), hi)]), dtype=dt)
+    args = (st.X, st.Li, st.c, st.n, sg.get_active_minimum(st), torch.zeros(1, dtype=dt),
+            kern.theta[0], torch.tensor(-hi, dtype=dt), torch.tensor(hi, dtype=dt), starts, 1.0)
+    kw = dict(kind="matern52", rule="EI", iterations=5)
+    assert nl._block_shape(8, d, 66, 8, 1, sms=0).slots == 32
+    xr, vr = nl.newton_solve_lanes_ref(*args, **kw)
+    assert torch.equal(xr[0], starts[24])
+    runs = torch.zeros((1, 66), dtype=torch.int32)
+    xk, vk = _solve(emulated, *args, **kw, sms=0, runs=runs)
+    assert torch.equal(xk[0], starts[24])
+    assert bool(torch.all(runs == 1))
+    torch.testing.assert_close(vk, vr, rtol=1e-12, atol=0.0)
+
+
+def test_emulated_lane_block_reads_only_the_lower_triangle_of_li(emulated):
+    """The lane block stages Li's lower triangle only: NaN above the
+    diagonal changes no bit, and the result meets the criteria."""
+    st, rule, th, args, kw = _case_inputs("matern32_POI_loose_f64")
+    Li, L = args[1], args[0].shape[0]
+    upper = torch.ones_like(Li, dtype=torch.bool).triu(1)
+    poisoned = torch.where(upper, torch.full_like(Li, float("nan")), Li)
+    assert nl._block_shape(*args[0].shape[1:], args[9].shape[0], 8, L,
+                           sms=_lane_sms(L)).slots > 0
+    xk, vk = _solve(emulated, *args, **kw, sms=_lane_sms(L))
+    xp, vp = _solve(emulated, args[0], poisoned, *args[2:], **kw, sms=_lane_sms(L))
+    assert torch.equal(xk, xp) and torch.equal(vk, vp)
+    _hold_to_plain_version(st, rule, th, args, kw, xp, vp)
+
+
+def test_the_lane_block_launches_are_counted_apart(emulated, monkeypatch):
+    """The wrapper's launch (`_launch`, on CPU tensors through the emulated
+    library) counts every solve in LAUNCHES and the lane block's also in
+    LANE_BLOCK_LAUNCHES, and a BO iteration's record counts the lane
+    block's launches in it: a launch whose lanes fill the card (here a card
+    of as few SMs as 4 lanes fill) takes the lane block and gives what
+    `_solve` gives; at 132 SMs, and in float32, the same lanes take a warp
+    per start."""
+    from types import SimpleNamespace
+
+    from rollout_bo_tpu_torch.utils import profiling
+
+    sms = {"n": _lane_sms(4)}
+    monkeypatch.setattr(nl, "_library", lambda: emulated)
+    monkeypatch.setattr(nl, "_sm_count", lambda index: sms["n"])
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: SimpleNamespace(cuda_stream=None))
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
+    st, rule, th, args, kw = _case_inputs("matern32_POI_loose_f64")
+    assert args[0].shape[0] == 4
+
+    def launch(a):
+        return nl._launch(*a[:7], *(torch.as_tensor(v, dtype=a[0].dtype) for v in a[7:10]),
+                          a[10], **dict(kw, sigma_tol=1e-8, sigma_floor=1e-10, ridge=1e-8))
+
+    counts = lambda: (nl.LAUNCHES, nl.LANE_BLOCK_LAUNCHES)
+    before = counts()
+    with profiling.record("bo.iteration", serial=-1, b=0, loop="nonmyopic",
+                          device="cpu") as rec:
+        xk, vk = launch(args)
+    assert counts() == (before[0] + 1, before[1] + 1)
+    assert rec.lane_block_launches == 1
+    x1, v1 = _solve(emulated, *args, **kw, sms=_lane_sms(4))
+    assert torch.equal(xk, x1) and torch.equal(vk, v1)
+    sms["n"] = nl._SMS
+    launch(args)
+    launch(tuple(a.float() if torch.is_tensor(a) and a.is_floating_point() else a
+                 for a in args))
+    assert counts() == (before[0] + 3, before[1] + 1)

@@ -355,20 +355,20 @@ def test_block_shape_fits_the_card(cap, S, itemsize):
 def test_block_shape_bench_and_beyond():
     # the bench shape: one lane x 10 warps, 63,320 B in float32, at 1600
     # lanes and at the throughput call's 4096 as well
-    assert nl._block_shape(24, 10, 10, 4) == (1, 10, True, 63320, 1)
-    assert nl._block_shape(24, 10, 10, 4, 1600) == (1, 10, True, 63320, 1)
-    assert nl._block_shape(24, 10, 10, 4, 4096) == (1, 10, True, 63320, 1)
+    assert nl._block_shape(24, 10, 10, 4) == (1, 10, True, 63320, 1, 0)
+    assert nl._block_shape(24, 10, 10, 4, 1600) == (1, 10, True, 63320, 1, 0)
+    assert nl._block_shape(24, 10, 10, 4, 4096) == (1, 10, True, 63320, 1, 0)
     # float64 (Li packed): 97,360 B, however many lanes fill the card
-    assert nl._block_shape(24, 10, 10, 8) == (1, 10, True, 97360, 1)
-    assert nl._block_shape(24, 10, 10, 8, 1600) == (1, 10, True, 97360, 1)
+    assert nl._block_shape(24, 10, 10, 8) == (1, 10, True, 97360, 1, 0)
+    assert nl._block_shape(24, 10, 10, 8, 1600) == (1, 10, True, 97360, 1, 0)
     # the paper's ladder in float32 (d 2 and d 1, capacity 20): a lane x 10 warps
-    assert nl._block_shape(20, 2, 10, 4, 1600) == (1, 10, True, 38504, 1)
-    assert nl._block_shape(20, 1, 10, 4, 2000) == (1, 10, True, 35848, 1)
+    assert nl._block_shape(20, 2, 10, 4, 1600) == (1, 10, True, 38504, 1, 0)
+    assert nl._block_shape(20, 1, 10, 4, 2000) == (1, 10, True, 35848, 1, 0)
     # the myopic loop in float32 (capacity 105): one warp per start, each in
     # a block of its own
-    assert nl._block_shape(105, 6, 66, 4, 1) == (1, 1, True, 65808, 66)
+    assert nl._block_shape(105, 6, 66, 4, 1) == (1, 1, True, 65808, 66, 0)
     # 64 float32 lanes of 10 starts leave SMs idle: two start blocks
-    assert nl._block_shape(24, 10, 10, 4, 64) == (1, 5, True, 33480, 2)
+    assert nl._block_shape(24, 10, 10, 4, 64) == (1, 5, True, 33480, 2, 0)
     assert nl._block_shape(8, 2, 66, 4, 1, sms=3).start_blocks == 3
     # few starts: several lanes per block; many: starts in chunks per group
     assert nl._block_shape(24, 10, 1, 4)[:2] == (8, 1)
@@ -376,11 +376,11 @@ def test_block_shape_bench_and_beyond():
     assert nl._block_shape(24, 10, 1024, 4)[:2] == (1, 16)
     # the BO loops' float64 shapes: the myopic loop's one lane puts each of
     # its 66 starts in a block of its own; the non-myopic loop's 2000 lanes
-    # fill the card with 9 warps per lane, two starts each
-    assert nl._block_shape(105, 6, 66, 8, 1) == (1, 1, True, 69456, 66)
-    assert nl._block_shape(23, 6, 18, 8, 2000) == (1, 9, True, 54552, 1)
+    # fill the card with a lane block each (8 warps, its 18 starts together)
+    assert nl._block_shape(105, 6, 66, 8, 1) == (1, 1, True, 69456, 66, 0)
+    assert nl._block_shape(23, 6, 18, 8, 2000) == (1, 8, True, 109768, 1, 18)
     # 64 lanes of 10 starts leave SMs idle: two start blocks of 5 starts
-    assert nl._block_shape(24, 16, 10, 8, 64) == (1, 5, True, 83088, 2)
+    assert nl._block_shape(24, 16, 10, 8, 64) == (1, 5, True, 83088, 2, 0)
     assert nl._block_shape(8, 2, 66, 8, 1, sms=3).start_blocks == 3
     # a capacity whose W = K^{-1} alone exceeds the block: W stays in device
     # memory (240 x 241 floats = 231,360 B); Li packed (240 x 241 / 2 doubles)
@@ -395,6 +395,39 @@ def test_block_shape_bench_and_beyond():
             nl._block_shape(bad["cap"], bad["d"], bad["S"], 4)
     with pytest.raises(ValueError, match="shared memory"):
         nl._block_shape(2000, 16, 4, 8)
+
+
+def test_block_shape_picks_the_lane_block_where_float64_lanes_fill_the_card():
+    """The design follows the launch's shape alone: the lane block (`slots`
+    > 0, a block of 8 warps per lane, no start blocks) for float64 at d <= 8
+    with at least `_LANE_CROSSOVER` lanes per SM and a lane that fits; a
+    warp per (lane, start) for every other launch."""
+    cell = nl._block_shape(23, 6, 18, 8, 2000)          # the non-myopic loop's solves
+    assert cell.slots == 18 and cell.threads == 256 and cell.start_blocks == 1
+    assert cell.stage_m and cell.smem <= _BLOCK_SHARED
+    edge = 66                        # half of the 132 SMs
+    assert edge == nl._LANE_CROSSOVER * nl._SMS
+    assert nl._block_shape(23, 6, 18, 8, edge).slots == 18
+    assert nl._block_shape(23, 6, 18, 8, edge - 1).slots == 0
+    assert nl._block_shape(23, 6, 18, 8, 64, sms=32).slots == 18
+    # kept: the myopic loop's one lane, d > 8, float32, no lane count, and a
+    # lane whose packed Li alone exceeds the block
+    for kept in [(105, 6, 66, 8, 1), (24, 16, 10, 8, 1600), (24, 9, 10, 8, 1600),
+                 (23, 6, 18, 4, 2000), (24, 10, 10, 4, 4096), (23, 6, 18, 8, None),
+                 (240, 4, 3, 8, 2000)]:
+        assert nl._block_shape(*kept).slots == 0, kept
+    # many starts: passes of 32; a larger lane: fewer starts a pass
+    assert nl._block_shape(23, 6, 40, 8, 2000).slots == 32
+    big = nl._block_shape(105, 6, 66, 8, 2000)
+    assert 1 <= big.slots < 32 and big.smem <= nl._SMEM_LIMIT
+    assert nl._lane_block_shape(105, 6, big.slots + 1).slots == big.slots
+    # every d <= 8 and capacity up to 64 fits, at least one start a pass,
+    # with as many threads as the per-start steps need (8 a start)
+    for d in range(1, 9):
+        for cap in (4, 23, 64):
+            lay = nl._block_shape(cap, d, 18, 8, 2000)
+            assert 1 <= lay.slots <= 18 and 8 * lay.slots <= lay.threads <= 512
+            assert lay.smem <= nl._SMEM_LIMIT
 
 
 def test_lane_solve_work_at_the_bench_shape_and_its_growth():
