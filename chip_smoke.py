@@ -1103,12 +1103,12 @@ def _myopic_routes(dev, card, *, budget, rule_name="EI", chunks=(0,), label="myo
             raise AssertionError(f"{label}, {rule_name}, steps per call {k}: the points "
                                  f"{res.X[5:]} are not the eager loop's {eager.X[5:]}")
         routes.append((k, s))
-    chunk_programs = _taken(taken, "myopic_chunk")
+    chunk_programs = _taken(taken, "myopic_chunk") + _taken(taken, "nm_observe")
     captures = sum(p.captures for p in chunk_programs)
-    if len(chunk_programs) != 1 or captures != 1:
+    if len(chunk_programs) != 2 or captures != 2:
         raise AssertionError(f"{label}, {rule_name}: {captures} captures over "
-                             f"{len(chunk_programs)} chunk programs, not one program of "
-                             f"one graph for every chunk length")
+                             f"{len(chunk_programs)} programs, not the solve's and the "
+                             f"observe step's, one graph each, for every chunk length")
     capture_s = sum(p.capture_seconds for p in chunk_programs)
     pool = sum(p.pool_bytes for p in chunk_programs)
     print(f"{label}, {rule_name} (hartmann6d, 64 starts, float64, budget {budget}): eager "

@@ -12,13 +12,13 @@ eagerly elsewhere), taken from `_cached_program` under the JAX package's
 key with the device added, so that one capture serves every BO iteration
 of a trial and every trial with the same key:
 
-- "myopic_chunk": one myopic BO iteration (solve, observe, condition, MLE
-  when due, running minimum), called k times for a chunk of k, the carry
-  on the device and one host read per chunk (`run_myopic_bo`); its key is
-  the JAX package's without the chunk length, which the one iteration's
-  program does not depend on;
+- "myopic_chunk": the solve of one myopic BO iteration, called with
+  "nm_observe" k times for a chunk of k, the state on the device and one
+  host read per chunk (`run_myopic_bo`); its key is the JAX package's
+  without the chunk length, which the one iteration's program does not
+  depend on;
 - "nm_observe": the true function at the new point, the condition on it
-  and the MLE when due (`_observer`, `_observe_program`);
+  and the MLE when due (`_observer`, `_observe_program`), in both loops;
 - "nm_fallback": the exploration fallback;
 - "nm_acquire" / "ad_acquire": the rollout acquisition
   (`outer.make_fused_sga_program` for "fused" and "batch",
@@ -166,7 +166,7 @@ class _Trial:
             self.gaps[b] = metrics.gap(self.initial_best, best, self.true_minimum)
             self.regrets[b] = metrics.simple_regret(self.true_minimum, best)
             refit = (b + 1) % self.mle_every == 0
-            profiling.note(refit=refit)
+            profiling.note_refit(refit)
             self.state, ynext = observe(self.state, xnext, refit)
             xy = torch.cat([xnext, ynext[None]]).cpu().numpy().astype(float)  # one read
             self.X_all.append(xy[:-1])
@@ -177,15 +177,16 @@ class _Trial:
 
     def record_chunk(self, b: int, rows: np.ndarray, seconds: float) -> None:
         """Record the BO iterations b, b + 1, ... of one myopic chunk from its
-        rows (k, d + 3): x, y, the incumbent before it and after it; each
+        rows (k, d + 1): x and y, float64; the incumbent before each and
+        after it is the running minimum over every observation; each
         iteration's time is the chunk's over k."""
         k, d = rows.shape[0], self.testfn.dim
-        basis = rows[:, d + 1]
+        after = np.minimum.accumulate(np.concatenate([[min(self.y_all)], rows[:, d]]))
         self.gaps[b:b + k] = [metrics.gap(self.initial_best, float(v), self.true_minimum)
-                              for v in basis]
+                              for v in after[:-1]]
         self.regrets[b:b + k] = [metrics.simple_regret(self.true_minimum, float(v))
-                                 for v in basis]
-        self.min_obs[b:b + k] = rows[:, d + 2]
+                                 for v in after[:-1]]
+        self.min_obs[b:b + k] = after[1:]
         self.times[b:b + k] = seconds / k
         self.X_all.extend(rows[:, :d])
         self.y_all.extend(map(float, rows[:, d]))
@@ -231,26 +232,19 @@ def _observe_program(t: _Trial):
         lambda: GraphProgram(_observer(t.testfn, t.klbs, t.kubs), device=t.device))
 
 
-def _myopic_iteration(rule, theta, lbs, ubs, xstarts, solver_iterations, observe):
-    """iteration(state, best, u, do_mle) -> (state, best, row): one myopic BO
-    iteration (the body of the JAX package's `trial_chunk` scan). The solve
-    takes the next point, or with `u` (the Random rule's uniform draw, made
-    on the host) `solvers.random_point`; then observe; best is the running
-    minimum, float64 on the device. row (d + 3,) float64: x, y, best before
-    and after."""
+def _myopic_solve(rule, theta, lbs, ubs, xstarts, solver_iterations):
+    """solve(state, u) -> x: the solve of one myopic BO iteration (the body
+    of the JAX package's `trial_chunk` scan, up to the observe step): the
+    lane solver's next point, or with `u` (the Random rule's uniform draw,
+    made on the host) `solvers.random_point`."""
 
-    def iteration(state, best, u, do_mle: bool):
+    def solve(state, u):
         if u is None:
-            x = solvers.multistart_maximize(state, rule, theta, lbs, ubs, xstarts,
-                                            iterations=solver_iterations).x
-        else:
-            x = solvers.random_point(lbs, ubs, u)
-        state, y = observe(state, x, do_mle)
-        y = y.to(torch.float64)
-        after = torch.minimum(best, y)
-        return state, after, torch.cat([x.to(torch.float64), torch.stack([y, best, after])])
+            return solvers.multistart_maximize(state, rule, theta, lbs, ubs, xstarts,
+                                               iterations=solver_iterations).x
+        return solvers.random_point(lbs, ubs, u)
 
-    return iteration
+    return solve
 
 
 def run_myopic_bo(
@@ -284,13 +278,14 @@ def run_myopic_bo(
     The BO iterations run in chunks of `steps_per_call` (the JAX package's
     semantics): 0 = the whole budget, or `checkpoint_every` when
     checkpointing; 1 = one iteration per chunk. A chunk of k calls the
-    "myopic_chunk" program of one BO iteration from `_cached_program` k
-    times (on the card k replays of its CUDA graph), the carry (state,
-    running minimum) passed on the device from one to the next, and the
-    host reads the chunk's points once, at its end. `times[b]` is the wall
-    time of b's chunk over its length: solve, observe, condition and MLE,
-    synchronized with the device. The points do not depend on the chunk
-    size.
+    "myopic_chunk" program of one BO iteration's solve and the observe
+    program from `_cached_program` k times each (on the card 2k replays of
+    their CUDA graphs, so that each iteration's solve and observe step
+    have device times of their own: the record's `steps`), the state
+    passed on the device from one to the next, and the host reads the
+    chunk's points once, at its end. `times[b]` is the wall time of b's
+    chunk over its length: solve, observe, condition and MLE, synchronized
+    with the device. The points do not depend on the chunk size.
 
     The Random rule draws its uniforms on the host from a CPU
     `torch.Generator` seeded with `seed`, a chunk's draws before the chunk
@@ -317,31 +312,33 @@ def run_myopic_bo(
         steps_per_call = checkpoint_every if checkpoint_path is not None else budget
     steps_per_call = max(1, min(steps_per_call, budget))
 
-    # the observe step's function is captured inside the iteration's graph
-    iteration = _cached_program(
+    solve = _cached_program(
         ("myopic_chunk", rule, theta_key, num_starts, solver_iterations, mle_every,
          id(testfn)) + t.bounds_key + (t.shape_key,),
-        lambda: GraphProgram(_myopic_iteration(
-            rule, theta, t.lbs, t.ubs, t.xstarts, solver_iterations,
-            _observer(testfn, t.klbs, t.kubs)), device=t.device))
-    best = torch.tensor(min(t.y_all), dtype=torch.float64, device=t.device)
+        lambda: GraphProgram(_myopic_solve(rule, theta, t.lbs, t.ubs, t.xstarts,
+                                           solver_iterations), device=t.device))
+    observe = _observe_program(t)
     b = t.start
     serial = profiling.next_serial()
     while b < budget:
         k = min(steps_per_call, budget - b)
         with profiling.record("bo.chunk", serial=serial, b=b, loop="myopic", device=t.device,
-                              iterations=k) as rec:
+                              iterations=k):
             us = torch.stack([draw() for _ in range(k)]).to(t.device) if is_random else None
             t0 = time.perf_counter()
-            rows = []
+            xs, ys = [], []
             for i in range(k):
-                # the MLE is a constant of the program: two graphs at most
-                do_mle = not is_random and (b + i + 1) % mle_every == 0
-                rec.refit = rec.refit or do_mle
-                t.state, best, row = iteration(t.state, best, None if us is None else us[i],
-                                               do_mle)
-                rows.append(row)
-            rows = torch.stack(rows).cpu().numpy()   # the chunk's one host read
+                with profiling.span("bo.acquire"):
+                    xs.append(solve(t.state, None if us is None else us[i]))
+                with profiling.span("bo.observe"):
+                    # the MLE is a constant of the program: two graphs at most
+                    do_mle = not is_random and (b + i + 1) % mle_every == 0
+                    profiling.note_refit(do_mle)
+                    t.state, y = observe(t.state, xs[-1], do_mle)
+                    ys.append(y)
+            # the chunk's one host read
+            rows = torch.cat([torch.stack(xs), torch.stack(ys)[:, None]], 1)
+            rows = rows.to(torch.float64).cpu().numpy()
             t.record_chunk(b, rows, time.perf_counter() - t0)
         b += k
         if b % checkpoint_every == 0:

@@ -16,27 +16,34 @@ always, whether a profiler runs or not:
   clock) with the span it opened in; with no record open and no `trace()`
   running it does nothing but the test;
 - `note(**counters)` sets counters of the open record (the fallback taken,
-  the refit run, the acquisition's best value);
+  the acquisition's best value); `note_refit(refit)` counts one BO
+  iteration's observe step and whether it refit;
 - `replay_start(device)` / `replay_end(mark)`: `utils.graphs.GraphProgram`
   brackets each replay (its launch to its last output clone) with a pair
   of CUDA timing events from a reused pool, recorded on the current stream
   of the program's device, the stream the replay runs on, and charged to
   the innermost open span, where a record is open and no stream captures
-  (a timing event cannot sit in a graph). The argument copies before the
-  launch lie outside the pair: each is a CUDA call the host issues while
-  the device waits, so they belong to the device's idle time between
-  replays. A pair is resolved into seconds once the device has passed it
+  (a timing event recorded during a capture becomes a node of the graph,
+  one event that every replay records anew: by the host read at a
+  chunk's end only the last replay's time is left in it). The argument
+  copies before the launch lie outside the pair: each is a CUDA call the
+  host issues while the device waits, so they belong to the device's idle
+  time between replays. A pair is resolved into seconds once the device has passed it
   (`Event.query`, which does not wait): during the next replay, while the
   host waits for the device anyway, and the last at the record's close,
   after the loop's own host read. Nothing here synchronizes. Off CUDA only
   the host stamps are taken.
 
 The spans the port opens: `bo.iteration` / `bo.chunk` (root),
-`bo.acquire` (the acquisition and the loop's synchronize: `times[b]`),
-`bo.fallback` (the exploration fallback, when taken), `bo.observe` (true
-function, condition, MLE when due, the host read), `outer.step` (one call
-of an SGA step: copies, replay, clones), `outer.stop_read` (the host's
-read of "all stopped") and `outer.final` (the value-only pass and argmax).
+`bo.acquire` (the acquisition and the loop's synchronize: `times[b]`; in
+a chunk, each iteration's solve), `bo.fallback` (the exploration
+fallback, when taken), `bo.observe` (true function, condition, MLE when
+due, the host read; in a chunk, each iteration's observe step),
+`outer.step` (one call of an SGA step: copies, replay, clones),
+`outer.stop_read` (the host's read of "all stopped") and `outer.final`
+(the value-only pass and argmax).
+`IterationRecord.steps` splits a record's device time by BO iteration:
+the solve's and the observe step's, with the iteration's refit flag.
 
 Spans and replays are tuples of plain values, which the garbage collector
 stops tracking, so the records kept cost its passes nothing.
@@ -61,8 +68,8 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["Span", "Replay", "IterationRecord", "RECORDS", "record", "span", "note",
-           "replay_start", "replay_end", "next_serial", "trace"]
+__all__ = ["Span", "Replay", "Step", "IterationRecord", "RECORDS", "record", "span", "note",
+           "note_refit", "replay_start", "replay_end", "next_serial", "trace"]
 
 RECORDS: deque = deque(maxlen=1024)     # the finished records, oldest first
 _OPEN = None                            # the record of the iteration running
@@ -91,6 +98,16 @@ class Replay(NamedTuple):
     idle_s: float | None            # device time since the record's previous replay ended
 
 
+class Step(NamedTuple):
+    """One BO iteration of a record: the device seconds of the replays inside
+    its `bo.acquire` span (the solve) and inside its `bo.observe` span (true
+    function, condition, MLE where due), None off CUDA, and whether it refit."""
+
+    solve_s: float | None
+    observe_s: float | None
+    refit: bool
+
+
 @dataclasses.dataclass
 class IterationRecord:
     """One BO iteration (a myopic chunk of `iterations`), identified by the
@@ -103,12 +120,14 @@ class IterationRecord:
     spans: list = dataclasses.field(default_factory=list)      # [Span], in order of start
     replays: list = dataclasses.field(default_factory=list)    # [Replay], in order
     fallback: bool = False          # the exploration fallback taken
-    refit: bool = False             # the MLE run
+    refit: bool = False             # the MLE run (in any of the record's iterations)
+    refits: list = dataclasses.field(default_factory=list)     # [bool], per BO iteration
     value: float | None = None      # the acquisition's best value, as the fallback test read it
     captures: int = 0               # graph captures (`graphs.CAPTURES` delta)
     # lane-kernel launches of the lane-block design (`newton_lanes
     # .LANE_BLOCK_LAUNCHES` delta): how many of the iteration's solves took it
     lane_block_launches: int = 0
+    lane_launches: int = 0          # every lane-kernel launch (`newton_lanes.LAUNCHES` delta)
     traced: bool = False            # a profiler was recording at some point
     cuda: bool = False
     _stack: list = dataclasses.field(default_factory=lambda: [-1], repr=False)
@@ -120,6 +139,26 @@ class IterationRecord:
     def sga_steps(self) -> int:
         """SGA steps run: calls of the step (a scanned window counts one)."""
         return sum(s.name == "outer.step" for s in self.spans)
+
+    @property
+    def steps(self) -> list:
+        """[Step] of the record's BO iterations, in order: the k-th
+        `bo.acquire` and the k-th `bo.observe` child of the root are
+        iteration k's (a myopic chunk opens both once per iteration)."""
+        top, seen = {}, {"bo.acquire": 0, "bo.observe": 0}
+        for i, s in enumerate(self.spans):
+            if s.parent == 0 and s.name in seen:
+                top[i] = (s.name == "bo.observe", seen[s.name])
+                seen[s.name] += 1
+        times = [[0.0, 0.0] for _ in range(seen["bo.acquire"])]
+        for r in self.replays:
+            i = r.span
+            while i > 0 and self.spans[i].parent != 0:
+                i = self.spans[i].parent
+            if i in top and top[i][1] < len(times):
+                times[top[i][1]][top[i][0]] += r.device_s
+        return [Step(a if self.cuda else None, o if self.cuda else None, refit)
+                for (a, o), refit in zip(times, self.refits)]
 
     def within(self, i: int, name: str) -> bool:
         """Whether span i is a span named `name` or lies inside one."""
@@ -212,12 +251,14 @@ def record(root: str, *, serial: int, b: int, loop: str, device, iterations: int
     from rollout_bo_tpu_torch.utils import graphs      # graphs imports this module
 
     rec = IterationRecord(serial, b, loop, iterations, cuda=torch.device(device).type == "cuda")
-    captures, lane_block = graphs.CAPTURES, newton_lanes.LANE_BLOCK_LAUNCHES
+    captures, launches = graphs.CAPTURES, newton_lanes.LAUNCHES
+    lane_block = newton_lanes.LANE_BLOCK_LAUNCHES
     enclosing, _OPEN = _OPEN, rec
     try:
         with span(root):
             yield rec
         rec.captures = graphs.CAPTURES - captures
+        rec.lane_launches = newton_lanes.LAUNCHES - launches
         rec.lane_block_launches = newton_lanes.LANE_BLOCK_LAUNCHES - lane_block
         rec._close()
         RECORDS.append(rec)
@@ -235,11 +276,20 @@ def span(name: str):
 
 
 def note(**counters) -> None:
-    """Set counters (`fallback`, `refit`, `value`) of the open record."""
+    """Set counters (`fallback`, `value`) of the open record."""
     rec = _OPEN
     if rec is not None:
         for name, v in counters.items():
             setattr(rec, name, v)
+
+
+def note_refit(refit: bool) -> None:
+    """Count one BO iteration's observe step in the open record: its
+    `refit` flag joins `refits`, and `refit` tells whether any refit."""
+    rec = _OPEN
+    if rec is not None:
+        rec.refits.append(refit)
+        rec.refit = rec.refit or refit
 
 
 def replay_start(device: torch.device):

@@ -1,7 +1,8 @@
 """PyTorch port: the BO loops' programs outside the SGA solve, on the CPU.
 
 - the myopic loop's chunks (k calls of the "myopic_chunk" program of one
-  BO iteration, one program for every chunk length): any chunk size gives
+  BO iteration's solve and of the "nm_observe" program, the same two
+  programs for every chunk length): any chunk size gives
   the per-iteration loop's trial bit for bit, in float64 and
   float32, for a solved rule (EI) and for Random, whose draws stay the
   same stream; against the JAX package's chunked loop at
@@ -98,7 +99,8 @@ def test_myopic_chunks_equal_the_per_iteration_loop(monkeypatch, rule_name, dtyp
     """steps_per_call 0 (one chunk of 4), 1 and 3 (3 + 1): the points,
     observations, gaps, minimum observations and fitted state of the
     per-iteration loop, bit for bit; times uniform within each chunk; the
-    one program in the cache is the iteration's, whatever the chunks."""
+    two programs in the cache are the iteration's solve and observe step,
+    whatever the chunks."""
     f = tf.get_function("hartmann3d")
     x_init, budget = _x_init(f), 4
     X, y, gaps, st = _per_iteration(f, dr.RULES[rule_name](), (0.0,), budget=budget,
@@ -117,7 +119,7 @@ def test_myopic_chunks_equal_the_per_iteration_loop(monkeypatch, rule_name, dtyp
             assert torch.equal(getattr(res.state, name), getattr(st, name)), (k, name)
         assert torch.equal(res.state.kernel.theta, st.kernel.theta)
         assert seen == chunks
-        assert [key[0] for key in graphs.PROGRAM_CACHE] == ["myopic_chunk"]
+        assert [key[0] for key in graphs.PROGRAM_CACHE] == ["myopic_chunk", "nm_observe"]
         starts = np.cumsum([0] + chunks)
         for a, b in zip(starts[:-1], starts[1:]):
             assert np.all(res.times[a:b] == res.times[a]) and res.times[a] > 0.0

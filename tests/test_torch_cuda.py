@@ -843,7 +843,8 @@ def test_myopic_chunk_replays_equal_the_eager_route(dev, monkeypatch, rule_name)
     budget: the points and fitted lengthscale of the eager route (every
     program's function called eagerly), bit for bit; the lane kernel
     launched k times per chunk of k for EI (none for Random), besides the
-    warm-up runs of the capture; one program for both chunk lengths."""
+    warm-up runs of the capture; one solve program and one observe program
+    for both chunk lengths."""
     from rollout_bo_tpu_torch.rollout import bo
     from rollout_bo_tpu_torch.utils import graphs
 
@@ -864,8 +865,10 @@ def test_myopic_chunk_replays_equal_the_eager_route(dev, monkeypatch, rule_name)
         np.testing.assert_array_equal(res.X, eager.X)
         assert torch.equal(res.state.kernel.theta, eager.state.kernel.theta)
     (chunk,) = [p for key, p in graphs.PROGRAM_CACHE.items() if key[0] == "myopic_chunk"]
-    # one graph per MLE constant: EI refits every iteration, Random never
-    assert chunk.captures == 1
+    (observe,) = [p for key, p in graphs.PROGRAM_CACHE.items() if key[0] == "nm_observe"]
+    # one graph of the solve; one of the observe step per MLE constant: EI
+    # refits every iteration, Random never
+    assert chunk.captures == 1 and observe.captures == 1
 
 
 def test_fallback_program_replays_equal_the_eager_route(dev):

@@ -349,13 +349,14 @@ def test_profiling_on_the_cpu(tmp_path):
             with profiling.span("outer.step"):
                 torch.ones(3).sum()
             profiling.note(value=0.5, fallback=False)
-        profiling.note(refit=True)
+        profiling.note_refit(True)
         assert profiling.replay_start(torch.device("cpu")) is None   # no timing off CUDA
     assert list(profiling.RECORDS)[kept:] == [rec]
     assert [(s.name, s.parent) for s in rec.spans] == [("bo.iteration", -1), ("bo.acquire", 0),
                                                        ("outer.step", 1)]
     assert rec.within(2, "bo.acquire") and not rec.within(1, "outer.step")
     assert (rec.value, rec.fallback, rec.refit, rec.sga_steps) == (0.5, False, True, 1)
+    assert rec.refits == [True]
     assert rec.replays == [] and acquisition.seconds == rec.spans[1].seconds
     assert all(s.seconds >= 0 for s in rec.spans)
     assert not any(hasattr(profiling, n) for n in ("PhaseTimer", "annotate",

@@ -88,11 +88,16 @@ def test_each_bo_iteration_keeps_one_record_with_its_span_tree(loop):
 
 
 def test_a_myopic_chunk_is_one_record():
+    """One record per chunk, with a `bo.acquire` and a `bo.observe` span
+    for each of its iterations and their steps (no device time here)."""
     _, recs = _trial("myopic", budget=3)
     assert [(r.b, r.iterations, r.loop) for r in recs] == [(0, 2, "myopic"), (2, 1, "myopic")]
     for rec in recs:
-        assert [s.name for s in rec.spans] == ["bo.chunk"] and rec.refit
-        assert rec.value is None and rec.sga_steps == 0
+        assert _tree(rec) == [("bo.acquire", "bo.chunk"),
+                              ("bo.observe", "bo.chunk")] * rec.iterations
+        assert rec.refit and rec.refits == [True] * rec.iterations
+        assert rec.steps == [profiling.Step(None, None, True)] * rec.iterations
+        assert rec.value is None and rec.sga_steps == 0 and rec.lane_launches == 0
 
 
 def test_a_flat_acquisition_records_the_fallback(monkeypatch):
@@ -213,6 +218,21 @@ def _matmuls(w):
             x = torch.tanh(x @ w)
         return x
     return fn
+
+
+@pytest.mark.cuda
+def test_a_myopic_chunk_times_each_solve_and_observe_step_on_the_card():
+    """Each iteration's solve replay and observe replay are charged to its
+    own `bo.acquire` and `bo.observe` spans; a chunk that captures nothing
+    launches the lane kernel once an iteration, never the lane block."""
+    _, recs = _trial("myopic", device=_card(), budget=3)
+    assert [r.captures for r in recs] == [2, 0]         # the solve's and the observe's
+    for rec in recs:
+        assert [rec.spans[r.span].name for r in rec.replays] == [
+            "bo.acquire", "bo.observe"] * rec.iterations
+        assert len(rec.steps) == rec.iterations and rec.lane_block_launches == 0
+        assert all(s.solve_s > 0 and s.observe_s > 0 and s.refit for s in rec.steps), rec.steps
+    assert recs[1].lane_launches == 1
 
 
 @pytest.mark.cuda
