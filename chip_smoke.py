@@ -213,6 +213,19 @@ Run from the repository root on a machine with one NVIDIA Hopper card
    ladder cell the SGA iterations per acquisition they give) and the
    report's lines.
 
+15. the MLE kernel (`csrc/gp_mle.cu`, built here with nvcc; its ptxas
+   registers and shared memory printed) against its plain version
+   (`gp_mle_ref`) on the card, at the cells' shapes (capacity 20 with n 5
+   and 19, capacity 105 with n 5, 55 and 105, hartmann6d) and above the
+   shared memory (capacity 160 in float64, 240 in float32: the scratch
+   buffer), in float64 (noise 1e-6, rtol 1e-12) and float32 (noise 1e-3,
+   rtol 1e-5), and every kernel kind at n 12 of capacity 20 (1e-10); its us per
+   launch (CUDA events) beside its bound (`gp_mle.mle_work`) and, as a
+   yardstick only, the autograd loop the port ran before it (60 steps of
+   autograd through the masked Cholesky); then a myopic trial (hartmann6d,
+   budget 10) whose programs are cached: one `gp_mle` launch per refit in
+   its record (`mle_launches`).
+
 `--phases 3 11` runs only the phases named (1 and 2 always run); a partial
 run prints neither of the two closing lines.
 
@@ -2621,7 +2634,129 @@ def phase_parity_sweep(card):
     print(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
 
 
-_PHASES = (3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14)
+# --------------------------------------------------------------------------
+# phase 15: the MLE kernel
+# --------------------------------------------------------------------------
+
+
+def _autograd_mle(state, lb, ub, iterations=60, lr=0.1):
+    """The MLE as the port ran it before the kernel: each Adam step autograd
+    through the masked Cholesky of the whole capacity. A yardstick of time
+    only; nothing on the path calls it."""
+    from rollout_bo_tpu_torch.models import surrogate as sg
+
+    state = sg._detached(state)
+    log_lb, log_ub = torch.log(lb), torch.log(ub)
+    lt = torch.clamp(torch.log(state.kernel.theta), log_lb, log_ub)
+    m, v = torch.zeros_like(lt), torch.zeros_like(lt)
+    for i in range(iterations):
+        with torch.enable_grad():
+            leaf = lt.clone().requires_grad_(True)
+            (g,) = torch.autograd.grad(-sg._ll_of_theta(torch.exp(leaf), state), leaf)
+        g = torch.where(torch.isfinite(g), g, 0.0)
+        m = 0.9 * m + 0.1 * g
+        v = 0.999 * v + 0.001 * g * g
+        mhat, vhat = m / (1 - 0.9 ** (i + 1)), v / (1 - 0.999 ** (i + 1))
+        lt = torch.clamp(lt - lr * mhat / (torch.sqrt(vhat) + 1e-8), log_lb, log_ub)
+    return torch.exp(lt)
+
+
+def _mle_args(dev, dtype, cap, n, kind="matern52", seed=5):
+    """(kind, X, y, n, noise, theta, lb, ub) of one GP and its state:
+    hartmann6d for matern52, else points in [-1, 1]^3 (1-D for periodic)."""
+    from rollout_bo_tpu_torch.models import surrogate as sg
+    from rollout_bo_tpu_torch.models import testfns
+    from rollout_bo_tpu_torch.ops import kernels as K
+
+    rng = np.random.default_rng(seed)
+    if kind == "matern52":
+        f = testfns.get_function("hartmann6d")
+        X = rng.uniform(f.lbs, f.ubs, (n, f.dim))
+        y = f.batch(torch.tensor(X)).numpy()
+    else:
+        X = rng.uniform(-1.0, 1.0, (n, 1 if kind == "periodic" else 3))
+        y = np.sin(2.0 * X[:, 0]) + 0.3 * X.sum(axis=1) ** 2
+    theta = (0.8, 2.5) if kind == "periodic" else (0.7,)
+    st = sg.fit(K.RBFKernel(torch.tensor(theta, dtype=dtype, device=dev), kind), X, y,
+                capacity=cap, noise=1e-6 if dtype == torch.float64 else 1e-3, device=dev,
+                dtype=dtype)
+    bounds = [torch.full((len(theta),), b, dtype=dtype, device=dev) for b in (0.1, 5.0)]
+    return (kind, st.X, st.y, st.n, st.noise, st.kernel.theta, *bounds), st
+
+
+def phase_mle(dev, card):
+    """The MLE kernel: build, checks against the plain version, times."""
+    from rollout_bo_tpu_torch.models import testfns
+    from rollout_bo_tpu_torch.models import decision_rules as dr
+    from rollout_bo_tpu_torch.ops import _build
+    from rollout_bo_tpu_torch.ops import gp_mle
+    from rollout_bo_tpu_torch.rollout import bo
+    from rollout_bo_tpu_torch.utils import graphs, profiling
+
+    t_phase = time.perf_counter()
+    _build.load("gp_mle")
+    built = _build.build_seconds("gp_mle")
+    print(f"phase 15: gp_mle.cu built in {built:.2f} s" if built is not None
+          else "phase 15: gp_mle.cu cached")
+    for line in _build.build_log("gp_mle").splitlines():
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
+            print("  ptxas:", line.strip())
+    rtol = {torch.float64: 1e-12, torch.float32: 1e-5}
+    rows = []
+    for dtype in (torch.float64, torch.float32):
+        above = 160 if dtype == torch.float64 else 240
+        for cap, n in ((20, 5), (20, 19), (105, 5), (105, 55), (105, 105), (above, 150)):
+            args, st = _mle_args(dev, dtype, cap, n)
+            layout = gp_mle._layout(cap, st.dim, st.X.element_size(), 60)
+            got = gp_mle.gp_mle(*args)
+            want = gp_mle.gp_mle_ref(*args)
+            torch.cuda.synchronize()
+            rel = float(((got - want).abs() / want.abs()).max())
+            if not (torch.isfinite(got).all() and rel <= rtol[dtype]):
+                raise AssertionError(f"gp_mle {dtype} cap {cap} n {n}: theta {got.tolist()} "
+                                     f"against the plain version's {want.tolist()}")
+            gp_mle.gp_mle(*args)
+            ms, _ = _events_ms(lambda: gp_mle.gp_mle(*args), 5)
+            flops, nbytes = gp_mle.mle_work(n, st.dim, 1, 60, st.X.element_size())
+            bound_ms = 1e3 * max(flops / _PEAK_FLOPS[dtype], nbytes / _PEAK_BYTES)
+            old = ""
+            if dtype == torch.float64 and cap in (20, 105):
+                _autograd_mle(st, args[6], args[7])
+                old_ms, _ = _events_ms(lambda: _autograd_mle(st, args[6], args[7]), 2)
+                old = f", the autograd loop {1e3 * old_ms:.1f} us (yardstick)"
+            rows.append(dict(dtype=str(dtype), cap=cap, n=n, us=1e3 * ms, rel=rel,
+                             bound_us=1e3 * bound_ms))
+            print(f"gp_mle {str(dtype)[6:]} cap {cap} n {n} "
+                  f"({'staged' if layout.staged else 'scratch buffer'}, {layout.smem} B "
+                  f"shared): {1e3 * ms:.1f} us per launch ({1e3 * ms / 60:.2f} us a step), "
+                  f"bound {1e3 * bound_ms:.3f} us ({100 * bound_ms / ms:.4f}%), theta "
+                  f"{float(got[0]):.12g}, max rel to the plain version {rel:.2e}{old}")
+    for kind in gp_mle.KINDS:
+        args, _ = _mle_args(dev, torch.float64, 20, 12, kind=kind)
+        got, want = gp_mle.gp_mle(*args), gp_mle.gp_mle_ref(*args)
+        rel = float(((got - want).abs() / want.abs()).max())
+        if rel > 1e-10 or torch.equal(want, args[5]):
+            raise AssertionError(f"gp_mle {kind}: {got.tolist()} against {want.tolist()}")
+        print(f"gp_mle {kind} float64 n 12 of 20: theta {got.tolist()}, max rel {rel:.2e}")
+    # a myopic trial whose programs are cached: one launch per refit
+    f = testfns.get_function("hartmann6d")
+    kw = dict(budget=10, num_starts=64, device=dev,
+              x_init=np.random.default_rng(3).uniform(f.lbs, f.ubs, (5, f.dim)))
+    graphs.PROGRAM_CACHE.clear()
+    for _ in range(2):
+        bo.run_myopic_bo(f, dr.EI(), **kw)
+    rec = profiling.RECORDS[-1]
+    if rec.captures or rec.mle_launches != sum(rec.refits) or not all(rec.refits):
+        raise AssertionError(f"myopic trial: {rec.mle_launches} MLE launches for "
+                             f"{sum(rec.refits)} refits ({rec.captures} captures)")
+    print(f"myopic trial (hartmann6d, budget 10, cached programs): {rec.mle_launches} "
+          f"gp_mle launches for {sum(rec.refits)} refits, {rec.lane_launches} lane-kernel "
+          f"launches; on {card}")
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
+_PHASES = (3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
 
 
 def main(argv=None):
@@ -2658,6 +2793,8 @@ def main(argv=None):
         phase_programs(dev, smi)
     if 14 in phases:
         phase_parity_sweep(smi)
+    if 15 in phases:
+        mle_rows = phase_mle(dev, smi)
     torch.cuda.synchronize()
     if phases != set(_PHASES):
         print(f"partial run (phases {sorted(phases)}): no closing lines")
@@ -2674,6 +2811,13 @@ def main(argv=None):
         "bound_ms": bench["bound_ms"],
         "bound_by": bench["bound_by"],
         "library_ms": None,     # no single PyTorch call computes a multistart Newton solve
+    }, {
+        "name": "gp_mle",
+        "route": "cuda",
+        "source": "rollout_bo_tpu_torch/csrc/gp_mle.cu",
+        "replaces": None,       # the JAX package runs its MLE as XLA ops
+        "shapes": mle_rows,
+        "library_ms": None,     # no single PyTorch call runs an Adam MLE of a GP
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

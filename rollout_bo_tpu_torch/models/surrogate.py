@@ -7,9 +7,12 @@ inverse Li keep the identity-padding invariant of `ops/chol.py`. Every
 field may carry leading lane axes: a rollout holds one state per
 (restart, trajectory) lane, with `n` an integer tensor of the lane shape.
 
-The hyperparameter MLE differentiates the closed-form log-likelihood
-through the masked Cholesky with `torch.autograd`, as the JAX package does
-with `jax.grad`. A cost-aware rule (`models/cost_functions.py`) carries
+The hyperparameter MLE (`optimize_hypers`) takes the closed-form gradient
+of the log-likelihood over the active block (`ops/gp_mle.py`): on the card
+all its Adam steps run in one launch of the kernel `csrc/gp_mle.cu`, on the
+CPU in the plain version; the JAX package differentiates through its
+Cholesky with `jax.grad`. `grad_log_likelihood` differentiates through the
+masked Cholesky with `torch.autograd`. A cost-aware rule (`models/cost_functions.py`) carries
 an x-dependent cost c(x): the acquisition functions divide by it (EI, POI)
 or subtract log c (LogEI, LogPOI), with the quotient-rule gradient and
 Hessian, over the same lane axes as x.
@@ -27,6 +30,7 @@ import torch
 from rollout_bo_tpu_torch.constants import DEFAULT_CAPACITY
 from rollout_bo_tpu_torch.models.decision_rules import DecisionRule
 from rollout_bo_tpu_torch.ops import chol as chol_ops
+from rollout_bo_tpu_torch.ops import gp_mle
 from rollout_bo_tpu_torch.ops import kernels as kern
 from rollout_bo_tpu_torch.ops import small_chol
 from rollout_bo_tpu_torch.ops.kernels import RBFKernel
@@ -456,29 +460,23 @@ def optimize_hypers(state: SurrogateState, lowerbounds, upperbounds, *,
     The reference uses Optim.Fminbox(LBFGS) with 30 iterations
     (rbs.jl:805-829); here, as in the JAX package: a fixed number of
     projected Adam iterations on log(theta) (all hypers are positive
-    scales). A trial theta at which K is not positive definite has a NaN
-    likelihood; its gradient is zeroed, so that step only decays the
-    momentum. The loop makes no host synchronization. If the final theta
-    itself is outside the PD cone the returned factors are NaN, as in the
-    JAX package, not an exception.
+    scales), by `ops.gp_mle.gp_mle`: the closed-form gradient of the
+    log-likelihood over the active block, every step in one kernel launch
+    on CUDA tensors, the plain version on CPU tensors. A trial theta at
+    which K is not positive definite has gradient 0, so that step only
+    decays the momentum. The loop makes no host synchronization. The state
+    is refit once at the final theta; if that theta is outside the PD cone
+    the returned factors are NaN, as in the JAX package, not an exception.
+    One surrogate: a state with lane axes raises.
     """
+    if state.n.dim():
+        raise ValueError("optimize_hypers: one surrogate (n must be a scalar), got a state "
+                         f"with lane axes {tuple(state.n.shape)}")
     state = _detached(state)
     dt, dev = state.X.dtype, state.X.device
-    log_lb = torch.log(torch.as_tensor(lowerbounds, dtype=dt, device=dev))
-    log_ub = torch.log(torch.as_tensor(upperbounds, dtype=dt, device=dev))
-    b1, b2, eps = 0.9, 0.999, 1e-8
-
-    lt = torch.clamp(torch.log(state.kernel.theta), log_lb, log_ub)
-    m, v = torch.zeros_like(lt), torch.zeros_like(lt)
-    for i in range(iterations):
-        with torch.enable_grad():
-            leaf = lt.clone().requires_grad_(True)
-            (gi,) = torch.autograd.grad(-_ll_of_theta(torch.exp(leaf), state), leaf)
-        gi = torch.where(torch.isfinite(gi), gi, 0.0)
-        m = b1 * m + (1 - b1) * gi
-        v = b2 * v + (1 - b2) * gi * gi
-        mhat = m / (1 - b1 ** (i + 1))
-        vhat = v / (1 - b2 ** (i + 1))
-        lt = torch.clamp(lt - lr * mhat / (torch.sqrt(vhat) + eps), log_lb, log_ub)
-    return refit(state._replace(kernel=state.kernel.replace_theta(torch.exp(lt))),
+    lb = torch.as_tensor(lowerbounds, dtype=dt, device=dev)
+    ub = torch.as_tensor(upperbounds, dtype=dt, device=dev)
+    theta = gp_mle.gp_mle(state.kernel.kind, state.X, state.y, state.n, state.noise,
+                          state.kernel.theta, lb, ub, iterations=iterations, lr=lr)
+    return refit(state._replace(kernel=state.kernel.replace_theta(theta)),
                  nan_if_not_pd=True)

@@ -1,4 +1,4 @@
-from rollout_bo_tpu_torch.ops import chol, kernels, newton_lanes, qmc, quadrature, small_chol
+from rollout_bo_tpu_torch.ops import chol, gp_mle, kernels, newton_lanes, qmc, quadrature, small_chol
 from rollout_bo_tpu_torch.ops.kernels import (
     RBFKernel,
     matern12,

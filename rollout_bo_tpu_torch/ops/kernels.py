@@ -25,6 +25,7 @@ __all__ = [
     "matern12",
     "squared_exponential",
     "periodic",
+    "profile_dlog_theta",
     "kernel_value",
     "kernel_grad",
     "kernel_hess",
@@ -94,6 +95,32 @@ def _profile(kind: str, rho, theta, order: int):
             return -c1 * w * s2u * psi
         return (-2.0 * c1 * w * w * torch.cos(2.0 * u)
                 + c1 * c1 * w * w * s2u * s2u) * psi
+    raise ValueError(f"unsupported kernel kind {kind!r}")
+
+
+def profile_dlog_theta(kind: str, rho, theta):
+    """d psi / d log theta_k of `kind` at rho, one tensor per hyperparameter
+    (the log-parameterised MLE's dK; 0 at rho = 0, where psi(0) = 1 for
+    every kind). `theta` is indexed as in `_profile`."""
+    ell = theta[0]
+    if kind == "matern52":
+        s = (_SQRT5 / ell) * rho
+        return ((s * s / 3.0) * (1.0 + s) * torch.exp(-s),)
+    if kind == "matern32":
+        s = (_SQRT3 / ell) * rho
+        return (s * s * torch.exp(-s),)
+    if kind == "matern12":
+        s = rho / ell
+        return (s * torch.exp(-s),)
+    if kind == "squared_exponential":
+        l2 = ell * ell
+        return ((rho * rho / l2) * torch.exp(-(rho * rho) / (2.0 * l2)),)
+    if kind == "periodic":
+        c1 = 2.0 / (ell * ell)
+        u = (math.pi / theta[1]) * rho
+        sn2 = torch.sin(u) ** 2
+        psi = torch.exp(-c1 * sn2)
+        return (2.0 * c1 * sn2 * psi, c1 * u * torch.sin(2.0 * u) * psi)
     raise ValueError(f"unsupported kernel kind {kind!r}")
 
 

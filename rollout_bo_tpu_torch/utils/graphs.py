@@ -52,10 +52,11 @@ so that a check of the launches a result needed can take them off. A
 capture runs nothing: the launches it records go to
 `newton_lanes.RECORDED`, and every replay adds their number to
 `LAUNCHES` (those of the lane-block design likewise from
-`LANE_BLOCK_RECORDED` to `LANE_BLOCK_LAUNCHES`). `CAPTURES` counts the captures of every program; each program
-keeps its own `captures`, `capture_seconds` and `pool_bytes` (the rise of
-`torch.cuda.memory_reserved` across its captures: the graphs' private
-memory pools).
+`LANE_BLOCK_RECORDED` to `LANE_BLOCK_LAUNCHES`, and the MLE kernel's from
+`gp_mle.RECORDED` to `gp_mle.LAUNCHES`). `CAPTURES` counts the captures of
+every program; each program keeps its own `captures`, `capture_seconds`
+and `pool_bytes` (the rise of `torch.cuda.memory_reserved` across its
+captures: the graphs' private memory pools).
 """
 
 from __future__ import annotations
@@ -68,7 +69,7 @@ from collections import OrderedDict
 
 import torch
 
-from rollout_bo_tpu_torch.ops import newton_lanes
+from rollout_bo_tpu_torch.ops import gp_mle, newton_lanes
 from rollout_bo_tpu_torch.utils import profiling
 
 __all__ = ["GraphProgram", "CAPTURES", "WARMUP", "WARMUP_LAUNCHES", "PROGRAM_CACHE",
@@ -122,6 +123,7 @@ class _Captured:
     outputs: list           # the graph's own output tensors
     launches: int           # lane-kernel launches per replay
     lane_block_launches: int  # of them, the lane block's
+    mle_launches: int       # MLE-kernel launches per replay
 
 
 class GraphProgram:
@@ -157,6 +159,7 @@ class GraphProgram:
         cap.graph.replay()
         newton_lanes.LAUNCHES += cap.launches
         newton_lanes.LANE_BLOCK_LAUNCHES += cap.lane_block_launches
+        gp_mle.LAUNCHES += cap.mle_launches
         out = _unflatten(cap.out_spec, (t.clone() for t in cap.outputs))
         profiling.replay_end(mark)
         return out
@@ -177,6 +180,7 @@ class GraphProgram:
         WARMUP_LAUNCHES += newton_lanes.LAUNCHES - before
         recorded = newton_lanes.RECORDED
         lane_block = newton_lanes.LANE_BLOCK_RECORDED
+        mle = gp_mle.RECORDED
         torch.cuda.synchronize(dev)
         gc.collect()
         reserved = torch.cuda.memory_reserved(dev)
@@ -197,6 +201,7 @@ class GraphProgram:
         out_spec = _flatten(out, outputs)
         launches = newton_lanes.RECORDED - recorded
         lane_block = newton_lanes.LANE_BLOCK_RECORDED - lane_block
+        mle = gp_mle.RECORDED - mle
         torch.cuda.synchronize(dev)
         self.pool_bytes += torch.cuda.memory_reserved(dev) - reserved
         self.captures += 1
@@ -204,7 +209,7 @@ class GraphProgram:
         self.capture_seconds += time.perf_counter() - t0
         if self.collectives:
             _COLLECTIVE_GRAPHS.add(graph)
-        return _Captured(graph, inputs, out_spec, outputs, launches, lane_block)
+        return _Captured(graph, inputs, out_spec, outputs, launches, lane_block, mle)
 
 
 def cached_program(key, builder):

@@ -128,6 +128,7 @@ class IterationRecord:
     # .LANE_BLOCK_LAUNCHES` delta): how many of the iteration's solves took it
     lane_block_launches: int = 0
     lane_launches: int = 0          # every lane-kernel launch (`newton_lanes.LAUNCHES` delta)
+    mle_launches: int = 0           # MLE-kernel launches (`gp_mle.LAUNCHES` delta): one a refit
     traced: bool = False            # a profiler was recording at some point
     cuda: bool = False
     _stack: list = dataclasses.field(default_factory=lambda: [-1], repr=False)
@@ -247,12 +248,13 @@ def record(root: str, *, serial: int, b: int, loop: str, device, iterations: int
     span `root`; yields the record, which goes to `RECORDS` on a normal
     exit, its replays resolved."""
     global _OPEN
-    from rollout_bo_tpu_torch.ops import newton_lanes
+    from rollout_bo_tpu_torch.ops import gp_mle, newton_lanes
     from rollout_bo_tpu_torch.utils import graphs      # graphs imports this module
 
     rec = IterationRecord(serial, b, loop, iterations, cuda=torch.device(device).type == "cuda")
     captures, launches = graphs.CAPTURES, newton_lanes.LAUNCHES
     lane_block = newton_lanes.LANE_BLOCK_LAUNCHES
+    mle = gp_mle.LAUNCHES
     enclosing, _OPEN = _OPEN, rec
     try:
         with span(root):
@@ -260,6 +262,7 @@ def record(root: str, *, serial: int, b: int, loop: str, device, iterations: int
         rec.captures = graphs.CAPTURES - captures
         rec.lane_launches = newton_lanes.LAUNCHES - launches
         rec.lane_block_launches = newton_lanes.LANE_BLOCK_LAUNCHES - lane_block
+        rec.mle_launches = gp_mle.LAUNCHES - mle
         rec._close()
         RECORDS.append(rec)
     finally:

@@ -1,14 +1,16 @@
-// Host emulation of the few CUDA features that
-// rollout_bo_tpu_torch/csrc/newton_lanes.cu uses, so that g++ can build the
-// kernel and a CPU test can hold its control flow, indexing and reductions
-// against the plain PyTorch version (tests/test_torch_kernel_emulation.py).
+// Host emulation of the few CUDA features that the sources in
+// rollout_bo_tpu_torch/csrc/ use (newton_lanes.cu, gp_mle.cu), so that g++
+// can build a kernel and a CPU test can hold its control flow, indexing and
+// reductions against the plain PyTorch version
+// (tests/test_torch_kernel_emulation.py, tests/test_torch_mle_emulation.py).
 // One OS thread per CUDA thread; blocks run one after another; __syncthreads,
 // __syncwarp and the *_sync intrinsics are barriers over the threads of the
 // block, or of the mask (a full warp, either half of it or one of its
-// quarters: a group of 32, 16 or 8 threads). Kernels launch through the source's LANES_LAUNCH. Shared memory is
-// a heap block of exactly the launch's dynamic bytes, filled with 0xff (NaN
-// patterns), so that an address sanitizer sees an overrun and a read of a
-// word nobody wrote shows in the result. It says nothing about speed, bank
+// quarters: a group of 32, 16 or 8 threads). Kernels launch through the
+// sources' LANES_LAUNCH and GP_MLE_LAUNCH. Shared memory is a heap block of
+// exactly the launch's dynamic bytes, filled with 0xff (NaN patterns), so
+// that an address sanitizer sees an overrun and a read of a word nobody
+// wrote shows in the result. It says nothing about speed, bank
 // conflicts or what nvcc accepts.
 #pragma once
 #include <barrier>
@@ -144,6 +146,8 @@ template <class K> auto emu_launch(K kernel, int blocks, int threads, int smem) 
   return [=](auto... args) { emu_run(kernel, blocks, threads, smem, args...); };
 }
 #define LANES_LAUNCH(kernel, blocks, threads, smem, stream) \
+  emu_launch(kernel, blocks, threads, smem)
+#define GP_MLE_LAUNCH(kernel, blocks, threads, smem, stream) \
   emu_launch(kernel, blocks, threads, smem)
 template <class F> int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* b, F, int, int) { *b = 0; return 0; }
 inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }

@@ -1,5 +1,5 @@
-"""PyTorch port on the card: the CUDA Newton lane kernel vs its plain version,
-the sharded path (ranks of torch.distributed that each launch the kernel
+"""PyTorch port on the card: the CUDA Newton lane kernel and the MLE kernel
+(`csrc/gp_mle.cu`) vs their plain versions, the sharded path (ranks of torch.distributed that each launch the kernel
 on their share of the lanes) vs the same solve with no mesh, and the
 programs (CUDA graphs, `utils.graphs`: the SGA programs, and the BO
 loops' observe step, myopic chunk, fallback and batch and Gauss-Hermite
@@ -32,6 +32,7 @@ import torch
 from rollout_bo_tpu_torch.models import decision_rules as dr
 from rollout_bo_tpu_torch.models import surrogate as sg
 from rollout_bo_tpu_torch.models import testfns
+from rollout_bo_tpu_torch.ops import gp_mle
 from rollout_bo_tpu_torch.ops import kernels as K
 from rollout_bo_tpu_torch.ops import newton_lanes as nl
 from rollout_bo_tpu_torch.ops import qmc
@@ -787,11 +788,12 @@ def test_every_test_function_evaluates_inside_a_capture(dev, name):
 
 @pytest.mark.parametrize("pd", [True, False])
 def test_optimize_hypers_captures_and_keeps_the_nan_contract(dev, pd):
-    """The MLE (60 Adam steps of autograd through `cholesky_ex`) as a
-    program: it captures with host synchronization an error, and its
-    replays equal the eager refit bit for bit. With a negative noise K is
-    positive definite at no theta: every step's gradient is zeroed, theta
-    stays where it was and the returned factors are NaN, in the graph as
+    """The MLE (one launch of the `gp_mle` kernel: 60 Adam steps with the
+    closed-form gradient, then the refit at the final theta) as a program:
+    it captures with host synchronization an error, and its replays equal
+    the eager refit bit for bit. With a negative noise K is positive
+    definite at no theta: every step's gradient is zeroed, theta stays
+    where it was and the returned factors are NaN, in the graph as
     eagerly."""
     from rollout_bo_tpu_torch.utils import graphs
 
@@ -814,6 +816,96 @@ def test_optimize_hypers_captures_and_keeps_the_nan_contract(dev, pd):
         else:
             assert torch.isnan(got.L).all() and float(got.kernel.theta[0]) == theta
     assert prog.captures == 1
+
+
+def _mle_problem(dev, dtype, cap, n, kind="matern52", seed=5):
+    """A GP of n observations in a capacity-cap buffer: hartmann6d for
+    matern52 (the BO loops' problem), else points in [-1, 1]^3 (on the
+    line for periodic, whose profile of the distance is PD in 1-D only).
+    Noise 1e-6 in float64 (the loops'), 1e-3 in float32 (the lane kernel
+    tests': float32 does not resolve the loops' K)."""
+    rng = np.random.default_rng(seed)
+    if kind == "matern52":
+        f = testfns.get_function("hartmann6d")
+        X = rng.uniform(f.lbs, f.ubs, (n, f.dim))
+        y = f.batch(torch.tensor(X)).numpy()
+    else:
+        X = rng.uniform(-1.0, 1.0, (n, 1 if kind == "periodic" else 3))
+        y = np.sin(2.0 * X[:, 0]) + 0.3 * X.sum(axis=1) ** 2
+    theta = (0.8, 2.5) if kind == "periodic" else (0.7,)
+    st = sg.fit(K.RBFKernel(torch.tensor(theta, dtype=dtype, device=dev), kind), X, y,
+                capacity=cap, noise=1e-6 if dtype == torch.float64 else 1e-3, device=dev,
+                dtype=dtype)
+    P = len(theta)
+    bounds = [torch.full((P,), b, dtype=dtype, device=dev) for b in (0.1, 5.0)]
+    return (kind, st.X, st.y, st.n, st.noise, st.kernel.theta, *bounds)
+
+
+# (capacity, n): the rollout cell's (20) and the myopic cell's (105) buffers;
+# None: a capacity whose matrices exceed the shared memory (scratch buffer)
+_MLE_SHAPES = [(20, 5), (20, 19), (105, 5), (105, 55), (105, 105), (None, 150)]
+_MLE_RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("cap,n", _MLE_SHAPES)
+def test_gp_mle_kernel_matches_plain_version(dev, cap, n, dtype):
+    """The MLE kernel's theta against the plain version's on the same card
+    tensors (float64 rtol 1e-12, float32 1e-5, as in the host emulation:
+    two factorizations of K in another order, through 60 normalised Adam
+    steps; the card read 8.7e-15 and 1.6e-6 at most); above the shared
+    memory (capacity 160 in float64, 240 in float32) the matrices live in
+    the scratch buffer."""
+    if cap is None:
+        cap = 160 if dtype == torch.float64 else 240
+        assert not gp_mle._layout(cap, 6, torch.finfo(dtype).bits // 8, 60).staged
+    args = _mle_problem(dev, dtype, cap, n)
+    before = gp_mle.LAUNCHES
+    got = gp_mle.gp_mle(*args)
+    want = gp_mle.gp_mle_ref(*args)
+    torch.cuda.synchronize()
+    assert gp_mle.LAUNCHES - before == 1
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=_MLE_RTOL[dtype])
+
+
+@pytest.mark.parametrize("kind", gp_mle.KINDS)
+def test_gp_mle_kernel_every_kind(dev, kind):
+    """Every kernel kind through the kernel, float64, n 12 of capacity 20
+    (rtol 1e-10: the periodic lengthscale read 1.2e-12, its period at the
+    box's edge)."""
+    args = _mle_problem(dev, torch.float64, 20, 12, kind=kind)
+    got, want = gp_mle.gp_mle(*args), gp_mle.gp_mle_ref(*args)
+    assert not torch.equal(want, args[5])       # it moved
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-10)
+
+
+def test_observe_program_launches_the_mle_kernel_once_per_refit(dev, monkeypatch):
+    """The replayed observe program runs one `gp_mle` launch per refit and
+    none without; a myopic trial whose programs are cached already (no
+    capture in its record) records `mle_launches` = its refits."""
+    from rollout_bo_tpu_torch.rollout import bo
+    from rollout_bo_tpu_torch.utils import graphs, profiling
+
+    f, st = _bo_state(dev)
+    t = lambda a: torch.tensor(a, dtype=torch.float64, device=dev)  # noqa: E731
+    prog = graphs.GraphProgram(bo._observer(f, t((0.1,)), t((5.0,))), device=dev)
+    rng = np.random.default_rng(4)
+    for do_mle in (True, False):
+        prog(st, t(rng.uniform(f.lbs, f.ubs)), do_mle)          # the capture
+        before = gp_mle.LAUNCHES
+        for _ in range(3):
+            prog(st, t(rng.uniform(f.lbs, f.ubs)), do_mle)
+        torch.cuda.synchronize()
+        assert gp_mle.LAUNCHES - before == (3 if do_mle else 0)
+    monkeypatch.setattr(graphs, "PROGRAM_CACHE", type(graphs.PROGRAM_CACHE)())
+    g = testfns.get_function("hartmann3d")
+    kw = dict(budget=4, num_starts=8, device=dev,
+              x_init=np.random.default_rng(3).uniform(g.lbs, g.ubs, (5, g.dim)))
+    for _ in range(2):
+        bo.run_myopic_bo(g, dr.EI(), **kw)
+    rec = profiling.RECORDS[-1]
+    assert rec.captures == 0 and rec.refits == [True] * 4 and rec.mle_launches == 4
 
 
 @pytest.mark.parametrize("do_mle", [True, False])

@@ -4,9 +4,10 @@ one-surrogate multistart solver, against the JAX package.
 One numpy GP (seeded) is fit by the JAX package and carried into the port
 as arrays. float64 on the CPU. Tolerances: likelihood and its derivatives
 rtol 1e-9 (autograd through `linalg.cholesky_ex` against `jax.grad`
-through the JAX Cholesky); the 60-step Adam MLE rtol 1e-7 on theta and on
-the refit factors (rounding differences of ~1e-13 in each gradient pass
-through the normalised Adam step); draws rtol 1e-9.
+through the JAX Cholesky; the MLE's closed-form gradient against that
+autograd); the 60-step Adam MLE rtol 1e-7 on theta and on the refit
+factors (rounding differences of ~1e-13 in each gradient pass through the
+normalised Adam step); draws rtol 1e-9.
 """
 
 import jax.numpy as jnp
@@ -22,6 +23,7 @@ from rollout_bo_tpu.rollout import solvers as jsolvers
 from rollout_bo_tpu_torch.models import decision_rules as dr
 from rollout_bo_tpu_torch.models import surrogate as sg
 from rollout_bo_tpu_torch.ops import chol as chol_ops
+from rollout_bo_tpu_torch.ops import gp_mle
 from rollout_bo_tpu_torch.ops import kernels as K
 from rollout_bo_tpu_torch.rollout import solvers
 
@@ -81,6 +83,36 @@ def test_log_likelihood_and_derivatives_match_jax(kind):
     _close(sg.grad_log_likelihood(st), jsg.grad_log_likelihood(js), 1e-9)
     dth = np.full(len(THETAS[kind]), 0.3)
     _close(sg.dlog_likelihood(st, dth), jsg.dlog_likelihood(js, dth), 1e-9)
+
+
+@pytest.mark.parametrize("n", [9, CAP])
+@pytest.mark.parametrize("kind", sorted(THETAS))
+def test_closed_form_gradient_matches_autograd(kind, n):
+    """The MLE's closed-form gradient (`ops.gp_mle`, over the active block)
+    against autograd through the masked Cholesky, rtol 1e-9, in a padded
+    buffer and a full one; periodic on the line, where its profile of the
+    distance is positive definite."""
+    X, y = _data(n=n)
+    if kind == "periodic":
+        X = X[:, :1]
+    st = sg.fit(K.RBFKernel(_t(THETAS[kind]), kind), X, y, capacity=CAP, noise=1e-5,
+                device="cpu")
+    theta = st.kernel.theta
+    g = gp_mle.log_likelihood_grad_log(kind, st.X, st.y, st.n, st.noise, theta) / theta
+    _close(g, sg.grad_log_likelihood(st), 1e-9)
+
+
+def test_optimize_hypers_keeps_theta_where_k_is_never_pd():
+    """Negative noise: K(theta) is positive definite at no theta, so every
+    step's gradient is 0, theta stays where it was and the returned factors
+    are NaN (no exception)."""
+    _, st = _states("matern52")
+    st = st._replace(noise=_t(-5.0))
+    assert bool(torch.isnan(gp_mle.log_likelihood_grad_log(
+        "matern52", st.X, st.y, st.n, st.noise, st.kernel.theta)).all())
+    so = sg.optimize_hypers(st, (0.1,), (5.0,))
+    assert torch.equal(so.kernel.theta, st.kernel.theta)
+    assert all(bool(torch.isnan(getattr(so, f)).all()) for f in ("L", "Li", "c"))
 
 
 @pytest.mark.parametrize("kind", ["matern52", "squared_exponential"])
